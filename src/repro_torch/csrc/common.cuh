@@ -1,0 +1,68 @@
+// Shared helpers for the port's hand-written Hopper kernels.
+//
+// Every kernel computes in f32 and reads/writes its tensors in their own
+// type (f32 or bf16).  Rows are moved as 16-byte vectors (4 f32 or 8 bf16)
+// where the wrapper has checked alignment.  Each library exposes a plain C
+// interface: pointers and the stream arrive as void*, and every launch
+// function returns cudaGetLastError() so the caller can raise.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+// the reference kernels' mask value (kernels/flash_attention.py NEG_INF)
+#define NEG_INF (-1e30f)
+
+enum DType { DT_F32 = 0, DT_BF16 = 1 };
+
+template <typename T>
+__device__ __forceinline__ float to_f(T x);
+template <>
+__device__ __forceinline__ float to_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);  // round to nearest even, as torch's cast
+}
+
+// elements of T in one 16-byte vector
+template <typename T>
+struct Vec {
+  static constexpr int N = 16 / sizeof(T);
+};
+
+template <typename T>
+__device__ __forceinline__ void load_vec(const T* p, float* out) {
+  uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int i = 0; i < Vec<T>::N; ++i) out[i] = to_f<T>(e[i]);
+}
+
+template <typename T>
+__device__ __forceinline__ void store_vec(T* p, const float* in) {
+  uint4 raw;
+  T* e = reinterpret_cast<T*>(&raw);
+#pragma unroll
+  for (int i = 0; i < Vec<T>::N; ++i) e[i] = from_f<T>(in[i]);
+  *reinterpret_cast<uint4*>(p) = raw;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+extern "C" const char* cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

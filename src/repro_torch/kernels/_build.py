@@ -1,0 +1,101 @@
+"""Build the CUDA sources under ``repro_torch/csrc`` and load them.
+
+Each ``csrc/*.cu`` file has a plain C interface and compiles on its own
+into a shared library with ``nvcc -gencode arch=compute_90a,code=sm_90a``;
+the libraries are loaded with ``ctypes``.  The build happens at first use
+(or all at once through :func:`build_all`, one ``nvcc`` per source, started
+together), into ``repro_torch/build/`` next to the sources; ``.gitignore``
+lists that directory.  A library's file name carries a hash of its source,
+so an edited source is rebuilt and never served stale.
+
+Nothing here runs when the module is imported: the CPU tests import every
+module, and this machine may have no ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable, List
+
+PKG_DIR = Path(__file__).resolve().parents[1]
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "build"
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+]
+
+SOURCES = ("rmsnorm", "swiglu", "flash_attention", "paged_decode")
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    for cand in (
+        os.environ.get("CUDA_HOME", "") + "/bin/nvcc",
+        shutil.which("nvcc") or "",
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _lib_path(name: str) -> Path:
+    src = CSRC_DIR / f"{name}.cu"
+    h = hashlib.sha1(src.read_bytes())
+    h.update((CSRC_DIR / "common.cuh").read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:
+    """Compile every source whose library is missing, all in parallel.
+
+    Returns ``{name: compiler output}`` (``-Xptxas -v`` prints each kernel's
+    registers and shared memory).  Raises with the compiler's output when a
+    build fails.
+    """
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    logs: Dict[str, str] = {}
+    for name in names:
+        out = _lib_path(name)
+        if out.exists():
+            logs[name] = "cached"
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ), tmp, out)
+    failed: List[str] = []
+    for name, (proc, tmp, out) in procs.items():
+        logs[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(name)
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError(
+            "nvcc failed for " + ", ".join(failed) + ":\n"
+            + "\n".join(logs[n] for n in failed)
+        )
+    return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        path = _lib_path(name)
+        if not path.exists():
+            build_all([name])
+        lib = _LIBS[name] = ctypes.CDLL(str(path))
+    return lib
