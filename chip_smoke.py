@@ -4,16 +4,18 @@
     python3 chip_smoke.py
 
 Needs one NVIDIA GPU and ``nvcc``; exits non-zero without them.  Phases,
-each printing one JSON line:
+each printing JSON lines:
 
 1. build   — compile every kernel from ``src/repro_torch/csrc`` (one nvcc
              per source, in parallel).
 2. kernels — each kernel against its plain PyTorch version on the card at
-             the serving path's shapes, in bf16 and f32, with its time, the
-             plain version's time, its bound and (where one PyTorch call
-             computes the same function) that call's time; the paged decode
-             also bitwise-invariant to the physical page layout, with exact
-             zeros on length-0 lanes.
+             the serving and training paths' shapes, in bf16 and f32, with
+             its time, the plain version's time, its bound and (where one
+             PyTorch call computes the same function) that call's time; the
+             paged decode also bitwise-invariant to the physical page
+             layout, with exact zeros on length-0 lanes; the low-rank Wgrad
+             bitwise repeatable; the gradient through each forward kernel's
+             autograd Function equal to the plain version's.
 3. serve   — full-width qwen3-0.6b (bf16, seeded weights) serves 16 seeded
              requests to completion through the port's engine; every
              kernel's launch count must grow during that run.
@@ -21,12 +23,24 @@ each printing one JSON line:
              the kernels and through the plain versions (teacher-forced with
              the kernel path's tokens), in bf16 at full depth and in f32 on a
              4-layer full-width copy.
+5. train   — full-width, full-depth llama-350m (bf16, seeded weights, B=8,
+             S=1024, rank 64, FFN recompute) takes 3 MeCeFO training steps in
+             each NDB mode (off, dynamic, static, degraded) under the plan
+             NDBPlan(n_dp=4, n_stages=8, failed={(1, 3)}); one line per mode
+             with losses, step time, tokens/s, peak memory and launches per
+             step.  Launch counts must match the ones derived from the model,
+             the losses be finite, and the degraded step's peak memory lie
+             below the healthy one's.
+6. train parity — one step's loss and gradients through the kernels and
+             through the plain versions, in bf16 at full depth and in f32 on
+             a 4-layer full-width copy.
 
 Then the kernels' summary line, the card's name and power limit, and the
 final ``{"ok": true, ...}`` line.  Any failed check raises.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -36,15 +50,27 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.configs.base import MeCeFOConfig, ShapeConfig, TrainConfig, get_config  # noqa: E402
+from repro_torch.core.lowrank import refresh_projections  # noqa: E402
+from repro_torch.core.ndb import NDBContext, NDBPlan, plan_to_masks  # noqa: E402
+from repro_torch.data.pipeline import SyntheticLM  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain  # noqa: E402
+from repro_torch.kernels.lowrank_wgrad import (  # noqa: E402
+    lowrank_wgrad_project, lowrank_wgrad_project_plain,
+)
 from repro_torch.kernels.paged_decode import paged_decode, paged_decode_plain  # noqa: E402
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain  # noqa: E402
 from repro_torch.kernels.swiglu import swiglu, swiglu_plain  # noqa: E402
+from repro_torch.launch.state import TrainState  # noqa: E402
+from repro_torch.launch.steps import loss_and_grads, make_train_step, to_device  # noqa: E402
 from repro_torch.models.kvcache import cache_structs  # noqa: E402
-from repro_torch.models.model import forward_decode, forward_prefill  # noqa: E402
+from repro_torch.models.model import ExecFlags, forward_decode, forward_prefill  # noqa: E402
+from repro_torch.models.params import init_params, tree_leaves, tree_map  # noqa: E402
+from repro_torch.optim.optimizers import init_opt_state  # noqa: E402
 from repro_torch.serve import run  # noqa: E402
 from repro_torch.serve.engine import EngineConfig, ServeEngine  # noqa: E402
 from repro_torch.serve.kvpool import init_pool, pages_needed, scatter_prefill  # noqa: E402
@@ -62,13 +88,41 @@ TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-2, 2 ** -7)}
 WRAPPERS = {
     "rmsnorm": rmsnorm, "swiglu": swiglu,
     "flash_attention": flash_attention, "paged_decode": paged_decode,
+    "lowrank_wgrad": lowrank_wgrad_project,
 }
 REPLACES = {
     "rmsnorm": "src/repro/kernels/rmsnorm.py:22",
     "swiglu": "src/repro/kernels/swiglu.py:20",
     "flash_attention": "src/repro/kernels/flash_attention.py:74",
     "paged_decode": "src/repro/kernels/paged_decode.py:51",
+    "lowrank_wgrad": "src/repro/kernels/lowrank_wgrad.py:44",
 }
+SERVE_KERNELS = ("rmsnorm", "swiglu", "flash_attention", "paged_decode")
+TRAIN_KERNELS = ("rmsnorm", "swiglu", "flash_attention", "lowrank_wgrad")
+
+# kernel #6 against its plain version, relative to max |ref|, as
+# tests/test_kernels.py holds the TPU kernel (bf16 inputs round the
+# products' operands; f32 only sums in another order)
+LOWRANK_TOL = {torch.bfloat16: 0.05, torch.float32: 1e-4}
+
+# the training slice's shapes (llama-350m, B=8, S=1024, rank 64); the
+# low-rank Wgrad's (T, n, m, r) for w_gate/w_up and w_down, and an odd one
+TRAIN_CONFIG, TRAIN_B, TRAIN_S, TRAIN_RANK = "llama-350m", 8, 1024, 64
+TRAIN_PLAN = NDBPlan(n_dp=4, n_stages=8, failed=frozenset({(1, 3)}))
+TRAIN_MODES = ("off", "dynamic", "static", "degraded")
+TRAIN_STEPS = 3
+TRAIN_FLAGS = ExecFlags(remat="ffn")  # the Trainer's default (launch/train.py:83-85)
+LOWRANK_SHAPES = [(8192, 1024, 2736, 64), (8192, 2736, 1024, 64), (300, 100, 260, 12)]
+# train parity: one step's loss and gradients, kernels vs plain versions,
+# as (max per-leaf ||Δg||/||g||, loss |Δ|/|loss|).  f32: the same arithmetic
+# summed in other orders.  bf16: each layer rounds its norm, activation and
+# attention outputs to bf16 where the two paths may land one ulp (2^-8
+# relative) apart, and 24 layers of such differences reach every gradient
+# leaf: 2.6 % at most and 2.1 % on average on the H100 (first chip run of
+# this check), so the limit is 5 %; a wrong kernel moves a leaf by its whole
+# norm.  The bf16 check is also anchored to the f32 step (TRAIN_ANCHOR_RATIO).
+TRAIN_PARITY_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (5e-2, 1e-3)}
+TRAIN_ANCHOR_RATIO = 1.5
 
 # the serving slice's shapes (qwen3-0.6b)
 B_PRE, S_PRE, H, KV, HD, D, DFF = 4, 512, 16, 8, 128, 1024, 3072
@@ -138,6 +192,78 @@ def compare(name, dtype, shape, out, ref, timer, call_k, call_p, moved, ops, cal
     if not ok:
         raise AssertionError(f"{name} {dtype} {shape}: max abs err {row['max_abs_err']}")
     return row
+
+
+def compare_rel(name, dtype, shape, out, ref, timer, call_k, call_p, moved, ops, call_lib):
+    """A row held relative to max |ref| (kernel #6's tolerance)."""
+    tol = LOWRANK_TOL[dtype]
+    err = float((out - ref).abs().max())
+    scale = float(ref.abs().max()) + 1e-6
+    ok = err <= tol * scale and bool(torch.isfinite(out).all())
+    b_ms, b_by = bound(moved, ops, dtype)
+    row = {
+        "phase": "kernels", "kernel": name, "dtype": str(dtype).replace("torch.", ""),
+        "shape": shape, "max_abs_err": err, "max_abs_ref": scale, "rel_tol": tol, "ok": ok,
+        "ms": timer(call_k), "plain_ms": timer(call_p), "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": timer(call_lib),
+    }
+    emit(row)
+    if not ok:
+        raise AssertionError(f"{name} {dtype} {shape}: max abs err {err} > {tol} * {scale}")
+    return row
+
+
+def lowrank_rows(dev, timer, randn) -> dict:
+    """Kernel #6 at the training path's shapes and an odd one, bitwise
+    repeatable; the yardstick is one torch.linalg.multi_dot call."""
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for T, n, m, r in LOWRANK_SHAPES:
+            x, dy, v1 = randn(T, n, dtype=dtype), randn(T, m, dtype=dtype), randn(n, r, dtype=dtype)
+            a = lowrank_wgrad_project(x, dy, v1)
+            repeat = bool(torch.equal(a, lowrank_wgrad_project(x, dy, v1)))
+            row = compare_rel(
+                "lowrank_wgrad", dtype, [T, n, m, r], a, lowrank_wgrad_project_plain(x, dy, v1),
+                timer, lambda: lowrank_wgrad_project(x, dy, v1),
+                lambda: lowrank_wgrad_project_plain(x, dy, v1),
+                nbytes(x, dy, v1) + r * m * 4, 2.0 * T * r * (n + m),
+                lambda: torch.linalg.multi_dot([v1.T, x.T, dy]))
+            emit({"phase": "kernels", "kernel": "lowrank_wgrad", "dtype": row["dtype"],
+                  "shape": [T, n, m, r], "bitwise_repeat": repeat})
+            if not repeat:
+                raise AssertionError(f"lowrank_wgrad {dtype} {[T, n, m, r]}: not bitwise repeatable")
+            rows.setdefault(("lowrank_wgrad", dtype), row)
+    return rows
+
+
+def gradient_rows(randn) -> None:
+    """Each forward kernel's autograd Function at the training path's
+    shapes: its gradient must equal the plain version's autograd gradient
+    (the backward recomputes the plain version), and the output must carry
+    autograd history."""
+    B, S, H, hd, D, F = TRAIN_B, TRAIN_S, 16, 64, 1024, 2736
+    cases = {
+        "rmsnorm": (rmsnorm, rmsnorm_plain, (randn(B * S, D, dtype=torch.bfloat16),
+                                            randn(D, dtype=torch.bfloat16))),
+        "swiglu": (swiglu, swiglu_plain, (randn(B * S, F, dtype=torch.bfloat16),
+                                          randn(B * S, F, dtype=torch.bfloat16))),
+        "flash_attention": (flash_attention, flash_attention_plain,
+                            tuple(randn(B, S, H, hd, dtype=torch.bfloat16) for _ in range(3))),
+    }
+    for name, (kernel, plain, inputs) in cases.items():
+        a = [t.clone().requires_grad_() for t in inputs]
+        b = [t.clone().requires_grad_() for t in inputs]
+        ya, yb = kernel(*a), plain(*b)
+        go = torch.randn_like(yb)
+        ga = torch.autograd.grad(ya, a, go)
+        gb = torch.autograd.grad(yb, b, go)
+        err = max(float((x.float() - y.float()).abs().max()) for x, y in zip(ga, gb))
+        ok = ya.grad_fn is not None and err == 0.0
+        emit({"phase": "kernels", "kernel": name, "gradient": "autograd Function",
+              "dtype": "bfloat16", "shapes": [list(t.shape) for t in inputs],
+              "has_grad_fn": ya.grad_fn is not None, "max_abs_grad_err": err, "ok": ok})
+        if not ok:
+            raise AssertionError(f"{name}: gradient through the kernel's Function is off ({err})")
 
 
 def sdpa_call(q, k, v):
@@ -213,6 +339,8 @@ def kernel_phase(dev, timer) -> dict:
               "layout_bitwise_invariant": invariant, "null_lanes_exact_zero": zeros})
         if not (invariant and zeros):
             raise AssertionError("paged decode: layout invariance or null lanes failed")
+    rows.update(lowrank_rows(dev, timer, randn))
+    gradient_rows(randn)
     torch.cuda.synchronize()
     return rows
 
@@ -221,10 +349,12 @@ def serve_phase(dev):
     cfg, params = run.build("qwen3-0.6b", device=dev, seed=0)
     workload = build_workload(SPEC)
     eng = ServeEngine(cfg, params, ECFG, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()  # the serve run's own peak
     reset_launches()
     res = run.serve(eng, workload)
     torch.cuda.synchronize()
-    launches = {n: w.launches for n, w in WRAPPERS.items()}
+    launches = {n: WRAPPERS[n].launches for n in SERVE_KERNELS}
     per_prefill = {"rmsnorm": 4 * cfg.n_layers + 1, "swiglu": cfg.n_layers,
                    "flash_attention": cfg.n_layers, "paged_decode": 0}
     s = res.summary()
@@ -321,6 +451,148 @@ def parity_phase(dev, cfg, params, workload) -> None:
             raise AssertionError(f"{name} path parity failed: max {max_err}, mean {mean_err}")
 
 
+def train_launches_per_step(cfg, mode: str, flags: ExecFlags, mecefo: MeCeFOConfig) -> dict:
+    """Kernel launches one training step must make: every layer's forward
+    launches its norms (two sublayer norms, plus q/k norms with qk_norm), its
+    activation and its attention; the FFN recompute (technique II or
+    remat "ffn") launches the FFN norm and the activation again in the
+    backward; the final norm launches once; each of the three low-rank FFN
+    matmuls launches kernel #6 once in the backward unless the step is
+    exact.  The backwards of the norm, activation and attention recompute
+    their plain versions and launch nothing."""
+    if flags.remat not in ("none", "ffn"):
+        raise ValueError(f"no launch count derived for remat {flags.remat!r}")
+    L = cfg.n_layers
+    recompute = flags.remat == "ffn" or (mode == "degraded" and mecefo.recompute_ffn)
+    exact = NDBContext(mode=mode, mecefo=mecefo).lowrank_mode() == "exact"
+    return {
+        "rmsnorm": (2 + 2 * cfg.qk_norm + recompute) * L + 1,
+        "swiglu": (1 + recompute) * L,
+        "flash_attention": L,
+        "lowrank_wgrad": 0 if exact else 3 * L,
+    }
+
+
+def train_phase(dev):
+    cfg = get_config(TRAIN_CONFIG)
+    train = TrainConfig()
+    mecefo = MeCeFOConfig(mode="dynamic", rank=TRAIN_RANK)
+    shape = ShapeConfig("smoke", TRAIN_S, TRAIN_B, "train")
+    base = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    t0 = time.perf_counter()
+    proj = refresh_projections(base, cfg, TRAIN_RANK)  # V1 before the first step
+    torch.cuda.synchronize()
+    svd_s = time.perf_counter() - t0
+    keep, w = plan_to_masks(TRAIN_PLAN, cfg, TRAIN_B)
+    src = SyntheticLM(cfg.vocab_size)
+    batches = [src.batch(i, TRAIN_B, TRAIN_S) for i in range(TRAIN_STEPS)]
+    out = {}
+    total = {n: 0 for n in TRAIN_KERNELS}
+    for mode in TRAIN_MODES:
+        params = tree_map(lambda t: t.clone(), base)
+        state = TrainState(step=0, params=params, opt=init_opt_state(params, train), proj=proj)
+        step = make_train_step(cfg, train, mecefo, shape, ndb_mode=mode,
+                               static_ndb=(keep, w) if mode == "static" else None,
+                               total_steps=train.steps, flags=TRAIN_FLAGS, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        reset_launches()
+        losses, times = [], []
+        for i in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            if mode == "dynamic":
+                state, metrics = step(state, batches[i], {"keep": keep, "example_weight": w})
+            else:
+                state, metrics = step(state, batches[i])
+            loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(loss)
+        launches = {n: WRAPPERS[n].launches for n in TRAIN_KERNELS}
+        want = train_launches_per_step(cfg, mode, TRAIN_FLAGS, mecefo)
+        per_step = {n: launches[n] / TRAIN_STEPS for n in TRAIN_KERNELS}
+        med = sorted(times)[len(times) // 2]
+        peak = torch.cuda.max_memory_allocated()
+        ok = per_step == want and bool(np.isfinite([*losses, gnorm]).all())
+        emit({"phase": "train", "config": cfg.name, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+              "mode": mode, "batch": TRAIN_B, "seq_len": TRAIN_S, "rank": TRAIN_RANK,
+              "remat": TRAIN_FLAGS.remat, "losses": losses, "last_grad_norm": gnorm,
+              "step_ms": [1e3 * t for t in times], "step_ms_median": 1e3 * med,
+              "tokens_per_s": TRAIN_B * TRAIN_S / med, "peak_mem_gib": peak / 2 ** 30,
+              "peak_above_state_gib": (peak - base_mem) / 2 ** 30,
+              "launches_per_step": per_step, "want_launches_per_step": want,
+              "svd_refresh_s": svd_s, "ok": ok})
+        if not ok:
+            raise AssertionError(f"train {mode}: launches {per_step} (want {want}), "
+                                 f"losses {losses}, grad norm {gnorm}")
+        for n in TRAIN_KERNELS:
+            total[n] += launches[n]
+        out[mode] = peak
+        del state, params, step
+    if not out["degraded"] < out["off"]:
+        raise AssertionError(f"degraded peak memory {out['degraded']} not below off {out['off']}")
+    missing = [n for n, c in total.items() if c == 0]
+    if missing:
+        raise AssertionError(f"the train run never launched {missing}")
+    return total
+
+
+def leaf_rel_errs(ga, gb) -> list:
+    """Per gradient leaf, ||a - b|| / ||b||."""
+    return [float((a.float() - b.float()).norm() / b.float().norm().clamp(min=1e-30))
+            for a, b in zip(tree_leaves(ga), tree_leaves(gb))]
+
+
+def train_parity_phase(dev) -> None:
+    """One dynamic-mode step's loss and gradients through the kernels and
+    through the plain versions (layer recompute on both paths, so that the
+    plain attention's saved scores never pile up over the layers).  In bf16
+    both are also held against the same step in f32 (plain versions, the
+    same weights upcast): the kernel path may be no farther from it than
+    TRAIN_ANCHOR_RATIO times the plain bf16 path is."""
+    mecefo = MeCeFOConfig(mode="dynamic", rank=TRAIN_RANK)
+    flags = ExecFlags(remat="full")
+    full = get_config(TRAIN_CONFIG)
+    for dtype, cfg in (("bfloat16", full),
+                       ("float32", dataclasses.replace(full, n_layers=4, dtype="float32"))):
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(1), dev)
+        proj = refresh_projections(params, cfg, TRAIN_RANK)
+        keep, w = plan_to_masks(TRAIN_PLAN, cfg, TRAIN_B)
+        ctx = NDBContext(mode="dynamic", keep=torch.as_tensor(keep, device=dev),
+                         example_weight=torch.as_tensor(w, device=dev), mecefo=mecefo)
+        batch = to_device(SyntheticLM(cfg.vocab_size).batch(0, TRAIN_B, TRAIN_S), dev)
+        lk, _, gk = loss_and_grads(params, proj, batch, cfg, ctx, flags)
+        lp, _, gp = loss_and_grads(params, proj, batch, cfg, ctx, flags, plain=True)
+        rel = leaf_rel_errs(gk, gp)
+        tol, loss_tol = TRAIN_PARITY_TOL[dtype]
+        loss_err = abs(float(lk) - float(lp))
+        ok = (max(rel) <= tol and loss_err <= loss_tol * abs(float(lp))
+              and all(bool(torch.isfinite(g).all()) for g in tree_leaves(gk)))
+        row = {"phase": "train parity", "dtype": dtype, "n_layers": cfg.n_layers,
+               "mode": "dynamic", "loss_kernels": float(lk), "loss_plain": float(lp),
+               "loss_abs_err": loss_err, "loss_limit_rel": loss_tol,
+               "max_leaf_rel_err": max(rel), "mean_leaf_rel_err": sum(rel) / len(rel),
+               "n_leaves": len(rel), "limit_rel": tol}
+        if dtype == "bfloat16":
+            cfg32 = dataclasses.replace(cfg, dtype="float32")
+            up = lambda t: t.float()  # noqa: E731
+            _l32, _, g32 = loss_and_grads(tree_map(up, params), tree_map(up, proj), batch, cfg32,
+                                          ctx, flags, plain=True)
+            to_k, to_p = max(leaf_rel_errs(gk, g32)), max(leaf_rel_errs(gp, g32))
+            ok = ok and to_k <= TRAIN_ANCHOR_RATIO * to_p
+            row.update({"max_leaf_rel_err_kernels_vs_f32": to_k,
+                        "max_leaf_rel_err_plain_vs_f32": to_p,
+                        "anchor_ratio_limit": TRAIN_ANCHOR_RATIO})
+            del g32
+        emit(dict(row, ok=ok))
+        if not ok:
+            raise AssertionError(f"{dtype} train parity failed: {row}")
+        del params, proj, gk, gp
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU",
@@ -341,6 +613,12 @@ def main() -> int:
     rows = kernel_phase(dev, timer)
     cfg, params, workload, launches = serve_phase(dev)
     parity_phase(dev, cfg, params, workload)
+    del cfg, params, workload
+    torch.cuda.empty_cache()
+    # each kernel's launches from its own path: the four serving kernels
+    # from the serve run, kernel #6 from the training run
+    launches["lowrank_wgrad"] = train_phase(dev)["lowrank_wgrad"]
+    train_parity_phase(dev)
 
     emit({"kernels": [
         {"name": n, "route": "cuda", "source": f"src/repro_torch/csrc/{n}.cu",

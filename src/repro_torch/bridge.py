@@ -1,4 +1,5 @@
-"""numpy bridge between the JAX package's parameter trees and the port's.
+"""numpy bridge between the JAX package's parameter trees and training
+states and the port's.
 
 The JAX side hands its trees over as numpy arrays (``np.asarray`` of each
 leaf); nothing here imports JAX.  A bf16 leaf arrives as an ``ml_dtypes``
@@ -14,7 +15,9 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.params import map_leaves, param_shapes
+from repro_torch.launch.state import TrainState
+from repro_torch.models.params import map_leaves, param_shapes, tree_map
+from repro_torch.optim.optimizers import AdamWState, SGDMState
 
 Tree = Any
 
@@ -70,4 +73,43 @@ def params_to_numpy(params: Tree) -> Tree:
     return map_leaves(lambda _name, t: tensor_to_numpy(t), params)
 
 
-__all__ = ["params_from_numpy", "params_to_numpy", "tensor_from_numpy", "tensor_to_numpy"]
+def state_from_numpy(state, cfg: ModelConfig, device="cuda") -> TrainState:
+    """A JAX ``TrainState`` with numpy leaves (``jax.tree.map(np.asarray,
+    state)``) as the port's: params, the optimizer moments (AdamW ``m``/``v``
+    or SGDM ``m``), the V1 tree ``proj`` and ``step``.  Read by attribute,
+    so any object with those fields will do."""
+    dev = resolve_device(device)
+    params = params_from_numpy(state.params, cfg, dev)
+    opt = state.opt
+    if hasattr(opt, "v"):
+        opt = AdamWState(m=params_from_numpy(opt.m, cfg, dev), v=params_from_numpy(opt.v, cfg, dev))
+    else:
+        opt = SGDMState(m=params_from_numpy(opt.m, cfg, dev))
+    proj = {}
+    if state.proj:
+        layers = []
+        for pos, blk in enumerate(state.proj["layers"]):
+            out = {}
+            for part in ("mixer", "ffn"):
+                out[part] = {}
+                for k, a in blk[part].items():
+                    w = params["layers"][pos][part][k]
+                    a = np.asarray(a)
+                    if a.shape[:-1] != tuple(w.shape[:-1]):
+                        raise ValueError(f"proj {part}.{k}: shape {a.shape}, weight {tuple(w.shape)}")
+                    out[part][k] = tensor_from_numpy(a, dev)
+            layers.append(out)
+        proj = {"layers": tuple(layers)}
+    return TrainState(step=int(np.asarray(state.step)), params=params, opt=opt, proj=proj)
+
+
+def state_to_numpy(state: TrainState) -> TrainState:
+    """Inverse of :func:`state_from_numpy`: the port's state with numpy
+    leaves."""
+    opt = type(state.opt)(*(tree_map(tensor_to_numpy, t) for t in state.opt))
+    return TrainState(step=state.step, params=tree_map(tensor_to_numpy, state.params), opt=opt,
+                      proj=tree_map(tensor_to_numpy, state.proj) if state.proj else {})
+
+
+__all__ = ["params_from_numpy", "params_to_numpy", "state_from_numpy", "state_to_numpy",
+           "tensor_from_numpy", "tensor_to_numpy"]

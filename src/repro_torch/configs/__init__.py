@@ -1,3 +1,6 @@
-from repro_torch.configs.base import ModelConfig, get_config, reduced, register
+from repro_torch.configs.base import (
+    MeCeFOConfig, ModelConfig, ShapeConfig, TrainConfig, get_config, reduced, register,
+)
 
-__all__ = ["ModelConfig", "get_config", "reduced", "register"]
+__all__ = ["MeCeFOConfig", "ModelConfig", "ShapeConfig", "TrainConfig", "get_config",
+           "reduced", "register"]

@@ -1,9 +1,9 @@
-"""Model configs: a copy of ``repro.configs.base``'s ``ModelConfig``,
-``reduced``, ``register`` and ``get_config``.
+"""Configs: a copy of ``repro.configs.base``'s ``ModelConfig``,
+``MeCeFOConfig``, ``ShapeConfig``, ``TrainConfig``, ``reduced``,
+``register`` and ``get_config``.
 
-Only the serving slice's part is copied: the parallelism, MeCeFO, shape and
-training configs stay with the JAX package until the training slice needs
-them.
+The parallelism config stays with the JAX package until the multi-GPU
+slice needs it.
 """
 from __future__ import annotations
 
@@ -36,6 +36,25 @@ class SSMConfig:
     head_dim: int = 64
     d_conv: int = 4
     chunk: int = 256
+
+
+@dataclass(frozen=True)
+class MeCeFOConfig:
+    """The paper's technique knobs."""
+
+    # "off" | "static" | "dynamic"
+    mode: str = "off"
+    # Low-rank Wgrad rank r and SVD refresh period tau (paper: tau=100).
+    rank: int = 64
+    svd_period: int = 100
+    # technique II: FFN recompute on degraded layers
+    recompute_ffn: bool = True
+    # technique I: MHA backward skip on degraded layers
+    skip_mha_backward: bool = True
+    # technique III: low-rank Wgrad on degraded layers
+    lowrank_wgrad: bool = True
+    # all-reduce the factored (r x m) gradient instead of the (n x m) one
+    lowrank_sync: bool = False
 
 
 @dataclass(frozen=True)
@@ -93,6 +112,32 @@ class ModelConfig:
         if self.moe is not None:
             p = math.lcm(p, self.moe.every)
         return p
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    steps: int = 100
+    learning_rate: float = 3e-4
+    warmup_frac: float = 0.1
+    weight_decay: float = 0.01
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    optimizer: str = "adamw"  # adamw | sgdm (the paper's theory optimizer)
+    momentum: float = 0.9
+    grad_clip: float = 1.0
+    seed: int = 0
+    microbatch: int = 0  # 0 -> no grad accumulation
+    checkpoint_every: int = 0  # 0 -> disabled
+    checkpoint_dir: str = "/tmp/repro_ckpt"
 
 
 def reduced(model: ModelConfig, **overrides) -> ModelConfig:

@@ -85,3 +85,37 @@ def check_launch(lib: str, err: int) -> None:
 PTR = ctypes.c_void_p
 INT = ctypes.c_int
 FLOAT = ctypes.c_float
+
+
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """True when autograd would record an op on these tensors."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def refuse_detach(name: str, *tensors: torch.Tensor) -> None:
+    """A bare CUDA launch writes into a fresh tensor that autograd knows
+    nothing of; under grad that would silently cut every gradient upstream.
+    The launch functions call this first, so only their
+    ``torch.autograd.Function`` (whose forward runs with grad off) or a
+    caller under ``torch.no_grad()`` reaches the kernel."""
+    if needs_grad(*tensors):
+        raise RuntimeError(
+            f"{name}: the bare CUDA launch would return a tensor without autograd "
+            f"history; call the wrapper {name}() (it goes through its autograd "
+            "Function) or run under torch.no_grad()"
+        )
+
+
+def recompute_grads(plain, saved, needs, grad_out, *consts):
+    """Backward of a kernel's Function: differentiate its plain version,
+    recomputed from the saved inputs, at ``grad_out``.
+
+    ``needs`` is ``ctx.needs_input_grad`` for the tensor inputs; returns
+    one gradient (or None) per tensor input.
+    """
+    with torch.enable_grad():
+        xs = [t.detach().requires_grad_(n) for t, n in zip(saved, needs)]
+        out = plain(*xs, *consts)
+    want = [x for x, n in zip(xs, needs) if n]
+    grads = iter(torch.autograd.grad(out, want, grad_out) if want else ())
+    return tuple(next(grads) if n else None for n in needs)

@@ -31,7 +31,7 @@ NVCC_FLAGS = [
     "-Xptxas", "-v",
 ]
 
-SOURCES = ("rmsnorm", "swiglu", "flash_attention", "paged_decode")
+SOURCES = ("rmsnorm", "swiglu", "flash_attention", "paged_decode", "lowrank_wgrad")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

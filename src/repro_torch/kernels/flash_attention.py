@@ -9,6 +9,12 @@ kernel and ``kernels/ref.py:flash_attention_ref`` do; ``causal_attention``
 rounds the probabilities to the V dtype before PV, which differs in bf16
 and agrees at f32.  See ``csrc/flash_attention.cu`` for the bound and the
 design.
+
+Under grad the kernel runs inside :class:`FlashAttentionFn`, whose backward
+recomputes the plain version and differentiates it.  That holds one
+``(B, H, S, S)`` f32 score tensor of the layer at a time, as the JAX trunk's
+``causal_attention`` recomputes each chunk under ``jax.checkpoint``; a
+flash-attention backward kernel is later work.
 """
 from __future__ import annotations
 
@@ -17,7 +23,8 @@ import math
 import torch
 
 from repro_torch.kernels import (
-    FLOAT, INT, PTR, aligned16, check_launch, check_operand, dtype_code, kernel_fn, on_cpu, stream_ptr,
+    FLOAT, INT, PTR, aligned16, check_launch, check_operand, dtype_code, kernel_fn, needs_grad,
+    on_cpu, recompute_grads, refuse_detach, stream_ptr,
 )
 
 NEG_INF = -1e30
@@ -36,11 +43,9 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> 
     return o.reshape(B, Sq, H, hd).to(q.dtype)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd) -> (B, Sq, H, hd).  Plain
-    version on the CPU, the kernel on CUDA."""
-    if on_cpu(q, k, v):
-        return flash_attention_plain(q, k, v)
+def flash_attention_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The bare CUDA launch (no autograd history; raises under grad)."""
+    refuse_detach("flash_attention", q, k, v)
     B, Sq, H, hd = q.shape
     if k.shape[0] != B or k.shape[3] != hd or v.shape != k.shape:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
@@ -63,6 +68,34 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     check_launch("flash_attention", err)
     flash_attention.launches += 1
     return o
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Kernel forward (the plain version for CPU tensors); backward through
+    the recomputed plain version."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        if on_cpu(q, k, v):
+            return flash_attention_plain(q, k, v)
+        return flash_attention_launch(q, k, v)
+
+    @staticmethod
+    def backward(ctx, do):
+        return recompute_grads(flash_attention_plain, ctx.saved_tensors,
+                               ctx.needs_input_grad, do)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd) -> (B, Sq, H, hd).  Plain
+    version on the CPU, the kernel on CUDA (through
+    :class:`FlashAttentionFn` when autograd records)."""
+    if on_cpu(q, k, v):
+        return flash_attention_plain(q, k, v)
+    if needs_grad(q, k, v):
+        return FlashAttentionFn.apply(q, k, v)
+    return flash_attention_launch(q, k, v)
 
 
 flash_attention.launches = 0

@@ -6,7 +6,8 @@ one query row per slot attends to the physical pool
 ``(n_pages, page_size, KV, hd)``, reading block ``ki`` of slot ``b`` from
 page ``tables[b, ki]``; positions at or past ``lens[b]`` get no weight, and
 a lane of length 0 outputs exactly 0.  See ``csrc/paged_decode.cu`` for the
-bound and the design.
+bound and the design.  It serves decoding only and has no backward: on CUDA
+it raises when autograd would record it.
 """
 from __future__ import annotations
 
@@ -15,7 +16,8 @@ import math
 import torch
 
 from repro_torch.kernels import (
-    FLOAT, INT, PTR, aligned16, check_launch, check_operand, dtype_code, kernel_fn, on_cpu, stream_ptr,
+    FLOAT, INT, PTR, aligned16, check_launch, check_operand, dtype_code, kernel_fn, on_cpu,
+    refuse_detach, stream_ptr,
 )
 
 NEG_INF = -1e30
@@ -50,6 +52,7 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
     version on the CPU, the kernel on CUDA."""
     if on_cpu(q, k_pages, v_pages, tables, lens):
         return paged_decode_plain(q, k_pages, v_pages, tables, lens)
+    refuse_detach("paged_decode", q, k_pages, v_pages)
     B, one, H, hd = q.shape
     n_pages, ps, KV, hd_k = k_pages.shape
     if one != 1 or hd_k != hd or v_pages.shape != k_pages.shape:

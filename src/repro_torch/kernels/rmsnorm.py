@@ -6,14 +6,18 @@ scale is applied in f32, as the TPU kernel and ``kernels/ref.py`` do; the
 JAX trunk's ``layers.rmsnorm`` casts before the scale, which differs by
 about one ulp in bf16 and agrees at f32.  Bound by bytes on the H100: see
 the source note in ``csrc/rmsnorm.cu``.
+
+Under grad the kernel runs inside :class:`RMSNormFn`, whose backward
+recomputes the plain version and differentiates it (the JAX package has no
+Pallas backward for this kernel either: JAX differentiates the jnp trunk).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import (
-    FLOAT, INT, PTR, aligned16, check_launch, check_operand, dtype_code, kernel_fn, on_cpu,
-    stream_ptr,
+    FLOAT, INT, PTR, aligned16, check_launch, check_operand, dtype_code, kernel_fn, needs_grad,
+    on_cpu, recompute_grads, refuse_detach, stream_ptr,
 )
 
 
@@ -23,11 +27,9 @@ def rmsnorm_plain(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> to
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
-def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """x: (..., d); scale: (d,).  Plain version on the CPU, the kernel on
-    CUDA."""
-    if on_cpu(x, scale):
-        return rmsnorm_plain(x, scale, eps)
+def rmsnorm_launch(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """The bare CUDA launch (no autograd history; raises under grad)."""
+    refuse_detach("rmsnorm", x, scale)
     d = x.shape[-1]
     if scale.shape != (d,):
         raise ValueError(f"scale shape {tuple(scale.shape)}, want ({d},)")
@@ -43,6 +45,34 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Te
     check_launch("rmsnorm", err)
     rmsnorm.launches += 1
     return y
+
+
+class RMSNormFn(torch.autograd.Function):
+    """Kernel forward (the plain version for CPU tensors); backward through
+    the recomputed plain version."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        if on_cpu(x, scale):
+            return rmsnorm_plain(x, scale, eps)
+        return rmsnorm_launch(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return (*recompute_grads(rmsnorm_plain, ctx.saved_tensors, ctx.needs_input_grad[:2],
+                                 dy, ctx.eps), None)
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """x: (..., d); scale: (d,).  Plain version on the CPU, the kernel on
+    CUDA (through :class:`RMSNormFn` when autograd records)."""
+    if on_cpu(x, scale):
+        return rmsnorm_plain(x, scale, eps)
+    if needs_grad(x, scale):
+        return RMSNormFn.apply(x, scale, eps)
+    return rmsnorm_launch(x, scale, eps)
 
 
 rmsnorm.launches = 0

@@ -6,6 +6,9 @@ in f32, cast back.  ``silu(g)`` is not rounded before the product, as in the
 TPU kernel and ``kernels/ref.py``; the JAX trunk (``layers.py``, ffn_block)
 rounds it to the model dtype first, which differs by about one ulp in bf16
 and agrees at f32.  Bound by bytes on the H100: see ``csrc/swiglu.cu``.
+
+Under grad the kernel runs inside :class:`SwiGLUFn`, whose backward
+recomputes the plain version and differentiates it.
 """
 from __future__ import annotations
 
@@ -15,7 +18,8 @@ import torch
 import torch.nn.functional as F_
 
 from repro_torch.kernels import (
-    INT, PTR, aligned16, check_launch, check_operand, dtype_code, kernel_fn, on_cpu, stream_ptr,
+    INT, PTR, aligned16, check_launch, check_operand, dtype_code, kernel_fn, needs_grad, on_cpu,
+    recompute_grads, refuse_detach, stream_ptr,
 )
 
 
@@ -23,11 +27,9 @@ def swiglu_plain(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     return (F_.silu(g.float()) * u.float()).to(g.dtype)
 
 
-def swiglu(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    """g, u: (..., f) of one shape and dtype.  Plain version on the CPU,
-    the kernel on CUDA."""
-    if on_cpu(g, u):
-        return swiglu_plain(g, u)
+def swiglu_launch(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """The bare CUDA launch (no autograd history; raises under grad)."""
+    refuse_detach("swiglu", g, u)
     if g.shape != u.shape:
         raise ValueError(f"g {tuple(g.shape)} and u {tuple(u.shape)} differ")
     check_operand(g, "g")
@@ -41,6 +43,32 @@ def swiglu(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     check_launch("swiglu", err)
     swiglu.launches += 1
     return out
+
+
+class SwiGLUFn(torch.autograd.Function):
+    """Kernel forward (the plain version for CPU tensors); backward through
+    the recomputed plain version."""
+
+    @staticmethod
+    def forward(ctx, g, u):
+        ctx.save_for_backward(g, u)
+        if on_cpu(g, u):
+            return swiglu_plain(g, u)
+        return swiglu_launch(g, u)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return recompute_grads(swiglu_plain, ctx.saved_tensors, ctx.needs_input_grad, dy)
+
+
+def swiglu(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """g, u: (..., f) of one shape and dtype.  Plain version on the CPU,
+    the kernel on CUDA (through :class:`SwiGLUFn` when autograd records)."""
+    if on_cpu(g, u):
+        return swiglu_plain(g, u)
+    if needs_grad(g, u):
+        return SwiGLUFn.apply(g, u)
+    return swiglu_launch(g, u)
 
 
 swiglu.launches = 0

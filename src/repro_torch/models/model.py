@@ -1,20 +1,27 @@
-"""Top-level serving model: the trunk and the prefill/decode heads
-(counterpart of ``repro.models.model``).
+"""Top-level model: the trunk, the training loss and the prefill/decode
+heads (counterpart of ``repro.models.model``).
 
 ``run_trunk`` is a Python loop over the periods where the JAX package has a
 ``lax.scan``, and everything runs eagerly where it has ``jit``.  Parameter
-leaves stay stacked over periods; period ``i`` of a layer is the view
-``leaf[i]``.
+leaves stay stacked over periods; the trunk unbinds each leaf once into its
+per-period views, so the backward stacks each leaf's gradient once instead
+of once per layer.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Any, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.ndb import NDBContext
+from repro_torch.core.recompute import records_grad
+from repro_torch.models import frontends
 from repro_torch.models.layers import (
     attention_block,
+    chunked_cross_entropy,
     ffn_block,
     logits_for_position,
     rmsnorm,
@@ -24,8 +31,25 @@ from repro_torch.models.params import block_layout
 Tree = Any
 
 
+@dataclass(frozen=True)
+class ExecFlags:
+    """Execution policy.  remat: "none", "ffn" (recompute every FFN in the
+    backward, the Trainer's default) or "full" (recompute every layer);
+    ce_chunk: sequence positions per cross-entropy chunk."""
+
+    remat: str = "ffn"
+    ce_chunk: int = 512
+
+
 def _period(tree: dict, i: int) -> dict:
     return {k: t[i] for k, t in tree.items()}
+
+
+def _unbind(tree: Optional[dict]):
+    """{name: (n_periods, ...)} -> {name: tuple of n_periods views}."""
+    if tree is None:
+        return None
+    return {k: t.unbind(0) for k, t in tree.items()}
 
 
 def run_trunk(
@@ -34,7 +58,10 @@ def run_trunk(
     cfg: ModelConfig,
     *,
     positions: torch.Tensor,
-    caches: Tree,
+    proj: Optional[Tree] = None,
+    ctx: Optional[NDBContext] = None,
+    flags: Optional[ExecFlags] = None,
+    caches: Optional[Tree] = None,
     cur_len: Optional[torch.Tensor] = None,
     page_tables: Optional[torch.Tensor] = None,
     page_size: Optional[int] = None,
@@ -42,23 +69,54 @@ def run_trunk(
 ):
     """Runs all layers; returns (h, caches).
 
-    ``caches`` leaves are stacked over periods like the params: dense
-    prefill buffers ``(n_periods, B, S, KV, hd)``, or with ``page_tables``
-    the physical page pools ``(n_periods, n_pages, page_size, KV, hd)``.
-    Both are written in place.
+    Training passes ``proj`` (the V1 tree), ``ctx`` (the NDB context with
+    its ``(L, B)`` keep mask) and ``flags``; serving passes ``caches``,
+    whose leaves are stacked over periods like the params: dense prefill
+    buffers ``(n_periods, B, S, KV, hd)``, or with ``page_tables`` the
+    physical page pools ``(n_periods, n_pages, page_size, KV, hd)``.  Both
+    are written in place.
     """
     layout = block_layout(cfg)
     if any(kind != "attn" or is_moe for kind, is_moe in layout):
         raise NotImplementedError("only attention mixers with dense FFNs are ported")
-    n_periods = cfg.n_layers // cfg.block_period
-    for i in range(n_periods):
-        for pos, bp in enumerate(params["layers"]):
+    ctx = ctx or NDBContext()
+    flags = flags or ExecFlags()
+    period = cfg.block_period
+    n_periods = cfg.n_layers // period
+    lowrank_mode = ctx.lowrank_mode()
+    recompute = ctx.recompute_ffn() or flags.remat == "ffn"
+    keep = ctx.keep if ctx.mode in ("dynamic", "static") else None
+    layer_params = [{part: _unbind(bp[part]) for part in ("mixer", "ffn")}
+                    for bp in params["layers"]]
+    layer_proj = (None if proj is None else
+                  [_unbind(pj.get("ffn")) or None for pj in proj["layers"]])
+
+    def super_block(h, i):
+        for pos in range(period):
+            layer = i * period + pos
+            bp = layer_params[pos]
+            keep_l = keep[layer] if keep is not None else (
+                0.0 if ctx.mode == "degraded" else 1.0)
             h, _ = attention_block(
-                _period(bp["mixer"], i), h, cfg, positions, cache=_period(caches[pos], i),
+                {k: t[i] for k, t in bp["mixer"].items()}, h, cfg, positions,
+                keep=keep_l if ctx.mecefo.skip_mha_backward else 1.0,
+                cache=None if caches is None else _period(caches[pos], i),
                 cur_len=cur_len, page_tables=page_tables, page_size=page_size,
                 plain=plain,
             )
-            h = ffn_block(_period(bp["ffn"], i), h, cfg, plain=plain)
+            pj = None if layer_proj is None or layer_proj[pos] is None else {
+                k: t[i] for k, t in layer_proj[pos].items()}
+            h = ffn_block(
+                {k: t[i] for k, t in bp["ffn"].items()}, h, cfg, proj=pj, keep=keep_l,
+                lowrank_mode=lowrank_mode, recompute=recompute, plain=plain,
+            )
+        return h
+
+    for i in range(n_periods):
+        if flags.remat == "full" and records_grad(h, *params["layers"][0].values()):
+            h = checkpoint(super_block, h, i, use_reentrant=False, preserve_rng_state=False)
+        else:
+            h = super_block(h, i)
     return h, caches
 
 
@@ -66,6 +124,33 @@ def _unembed(params: Tree) -> torch.Tensor:
     if "unembed" in params:
         return params["unembed"]
     return params["embed"].T
+
+
+def forward_loss(
+    params: Tree,
+    proj: Optional[Tree],
+    batch: Tree,
+    cfg: ModelConfig,
+    ctx: NDBContext,
+    flags: ExecFlags,
+    *,
+    plain: bool = False,
+):
+    """Training loss and its metrics dict.  ``batch`` holds ``tokens`` and
+    ``labels`` (B, S) tensors on the params' device."""
+    h, token_w = frontends.embed_inputs(params, batch, cfg)
+    labels = frontends.full_labels(batch, cfg)
+    positions = torch.arange(h.shape[1], device=h.device)
+    if ctx.example_weight is not None:
+        token_w = token_w * ctx.example_weight[:, None]
+    h, _ = run_trunk(params, h, cfg, positions=positions, proj=proj, ctx=ctx, flags=flags,
+                     plain=plain)
+    h = rmsnorm(h, params["final_norm"], cfg.norm_eps, plain=plain)
+    ce = chunked_cross_entropy(h, _unembed(params), labels, token_w, chunk=flags.ce_chunk,
+                               vocab_size=cfg.vocab_size)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)  # dense FFNs: no MoE aux loss
+    loss = ce + aux
+    return loss, {"loss": loss, "ce": ce, "aux": aux}
 
 
 def forward_prefill(

@@ -123,6 +123,33 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda",
     return map_leaves(leaf, _sorted(param_shapes(cfg)))
 
 
+def _is_node(tree) -> bool:
+    return isinstance(tree, dict) or (
+        isinstance(tree, tuple) and not hasattr(tree, "_fields")
+        and not (tree and isinstance(tree[0], int))
+    )
+
+
+def tree_leaves(tree: Tree) -> list:
+    """The leaves of a params-shaped tree in JAX's order (dict keys
+    sorted, tuples in order)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if _is_node(tree):
+        return [x for t in tree for x in tree_leaves(t)]
+    return [tree]
+
+
+def tree_map(fn, tree: Tree, *rest: Tree) -> Tree:
+    """``fn`` over the leaves of ``tree`` and the matching leaves of
+    ``rest`` (trees of the same structure)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+    if _is_node(tree):
+        return tuple(tree_map(fn, t, *(r[i] for r in rest)) for i, t in enumerate(tree))
+    return fn(tree, *rest)
+
+
 def _sorted(tree: Tree) -> Tree:
     if isinstance(tree, dict):
         return {k: _sorted(tree[k]) for k in sorted(tree)}
@@ -131,4 +158,5 @@ def _sorted(tree: Tree) -> Tree:
     return tree
 
 
-__all__ = ["param_shapes", "init_params", "block_layout", "map_leaves"]
+__all__ = ["param_shapes", "init_params", "block_layout", "map_leaves", "tree_leaves",
+           "tree_map"]

@@ -8,7 +8,10 @@ with the card:
 
 Tolerances: f32 1e-5 (the kernels and the plain versions sum in other
 orders), bf16 one bf16 ulp relative (2^-7) plus 1e-2 absolute for values
-rounded on either side of a bf16 boundary.
+rounded on either side of a bf16 boundary.  Gradients through a kernel's
+autograd Function are the plain version's exactly (its backward recomputes
+the plain version).  Kernel #6 is held as ``tests/test_kernels.py`` holds
+the TPU kernel: 1e-4 (f32) and 0.05 (bf16) relative to max |ref|.
 """
 import pytest
 
@@ -107,3 +110,113 @@ def test_engine_goes_through_every_kernel(cuda):
                     "--new-tokens", "2", "9", "--max-slots", "2", "--pages-per-slot", "4"])
     assert out["n_completed"] == 4
     assert all(w.launches > n for w, n in zip(wrappers, before))
+
+
+# ---------------------------------------------------------------------------
+# the training slice: gradients through the kernels, and kernel #6
+# ---------------------------------------------------------------------------
+
+
+def _grad_cases(dev, dtype):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import swiglu as sg
+
+    g = torch.Generator(device=dev).manual_seed(4)
+
+    def r(*s):
+        return torch.randn(*s, generator=g, device=dev).to(dtype)
+
+    return {
+        "rmsnorm": (rn.rmsnorm, rn.rmsnorm_plain, rn.rmsnorm_launch, (r(37, 96), r(96))),
+        "swiglu": (sg.swiglu, sg.swiglu_plain, sg.swiglu_launch, (r(37, 100), r(37, 100))),
+        "flash_attention": (fa.flash_attention, fa.flash_attention_plain, fa.flash_attention_launch,
+                            (r(2, 48, 4, 32), r(2, 48, 2, 32), r(2, 48, 2, 32))),
+    }
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", ["rmsnorm", "swiglu", "flash_attention"])
+def test_kernel_gradients_match_plain_autograd(cuda, dtype, name):
+    wrapper, plain, _launch, inputs = _grad_cases(cuda, dtype)[name]
+    a = [t.clone().requires_grad_() for t in inputs]
+    b = [t.clone().requires_grad_() for t in inputs]
+    launches = wrapper.launches
+    ya, yb = wrapper(*a), plain(*b)
+    assert wrapper.launches == launches + 1 and ya.grad_fn is not None
+    _close(ya, yb, dtype)
+    go = torch.randn(ya.shape, generator=torch.Generator(device=cuda).manual_seed(5),
+                     device=cuda).to(dtype)
+    for ga, gb in zip(torch.autograd.grad(ya, a, go), torch.autograd.grad(yb, b, go)):
+        torch.testing.assert_close(ga, gb, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("name", ["rmsnorm", "swiglu", "flash_attention"])
+def test_bare_launch_refuses_to_detach(cuda, name):
+    _wrapper, _plain, launch, inputs = _grad_cases(cuda, torch.float32)[name]
+    with torch.no_grad():
+        assert launch(*inputs).grad_fn is None  # no grad wanted: the bare launch is fine
+    needs = [inputs[0].clone().requires_grad_(), *inputs[1:]]
+    with pytest.raises(RuntimeError, match="autograd"):
+        launch(*needs)
+
+
+LOWRANK_SHAPES = [(300, 100, 260, 12), (100, 52, 130, 10), (1024, 1024, 2736, 64),
+                  (1000, 2736, 1024, 64), (64, 17, 5, 3)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", LOWRANK_SHAPES)
+def test_lowrank_wgrad_kernel(cuda, dtype, shape):
+    from repro_torch.kernels.lowrank_wgrad import (
+        lowrank_wgrad_project, lowrank_wgrad_project_plain,
+    )
+
+    T, n, m, r = shape
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn(T, n, generator=gen, device=cuda).to(dtype)
+    dy = torch.randn(T, m, generator=gen, device=cuda).to(dtype)
+    v1 = torch.randn(n, r, generator=gen, device=cuda).to(dtype)
+    before = lowrank_wgrad_project.launches
+    a = lowrank_wgrad_project(x, dy, v1)
+    assert lowrank_wgrad_project.launches == before + 1
+    ref = lowrank_wgrad_project_plain(x, dy, v1)
+    # relative to max |ref|, as tests/test_kernels.py holds the TPU kernel;
+    # the plain version's f32 matmul sums in another order
+    tol = 1e-4 if dtype == torch.float32 else 0.05
+    scale = float(ref.abs().max()) + 1e-6
+    assert a.dtype == torch.float32 and a.shape == (r, m)
+    assert float((a - ref).abs().max()) <= tol * scale
+    assert torch.equal(a, lowrank_wgrad_project(x, dy, v1))  # no float atomics: bitwise repeat
+
+
+def test_train_step_kernels_match_plain_on_the_card(cuda):
+    from repro_torch.configs.base import MeCeFOConfig, TrainConfig, get_config, reduced
+    from repro_torch.core.lowrank import refresh_projections
+    from repro_torch.core.ndb import NDBContext, NDBPlan, plan_to_masks
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels.lowrank_wgrad import lowrank_wgrad_project
+    from repro_torch.launch.state import init_state
+    from repro_torch.launch.steps import loss_and_grads, to_device
+    from repro_torch.models.model import ExecFlags
+    from repro_torch.models.params import tree_leaves
+
+    cfg = reduced(get_config("llama-350m"), dtype="float32", n_kv_heads=2)
+    mecefo = MeCeFOConfig(mode="dynamic", rank=8)
+    state = init_state(cfg, TrainConfig(), mecefo, torch.Generator(device=cuda).manual_seed(0),
+                       device=cuda)
+    proj = refresh_projections(state.params, cfg, 8)
+    keep, w = plan_to_masks(NDBPlan(4, 2, frozenset({(1, 0)})), cfg, 8)
+    batch = to_device(SyntheticLM(cfg.vocab_size).batch(0, 8, 64), cuda)
+    for mode in ("off", "dynamic", "static", "degraded"):
+        masks = {"keep": torch.as_tensor(keep, device=cuda),
+                 "example_weight": torch.as_tensor(w, device=cuda)} if mode in ("dynamic", "static") else {}
+        ctx = NDBContext(mode=mode, mecefo=mecefo, **masks)
+        before = lowrank_wgrad_project.launches
+        lk, _, gk = loss_and_grads(state.params, proj, batch, cfg, ctx, ExecFlags(ce_chunk=32))
+        assert lowrank_wgrad_project.launches - before == (0 if mode == "off" else 3 * cfg.n_layers)
+        lp, _, gp = loss_and_grads(state.params, proj, batch, cfg, ctx, ExecFlags(ce_chunk=32),
+                                   plain=True)
+        torch.testing.assert_close(lk, lp, rtol=1e-5, atol=1e-5)
+        for a, b in zip(tree_leaves(gk), tree_leaves(gp)):
+            assert float((a - b).norm()) <= 1e-4 * float(b.norm()) + 1e-7

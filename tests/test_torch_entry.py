@@ -61,7 +61,11 @@ def no_cuda():
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     from repro_torch import resolve_device
     from repro_torch.bridge import params_from_numpy
-    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.configs.base import (
+        MeCeFOConfig, ShapeConfig, TrainConfig, get_config, reduced,
+    )
+    from repro_torch.launch.state import init_state
+    from repro_torch.launch.steps import make_train_step
     from repro_torch.models.params import init_params
     from repro_torch.serve import run
     from repro_torch.serve.engine import EngineConfig, ServeEngine
@@ -80,6 +84,13 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
         run.build("qwen3-0.6b", use_reduced=True)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         run.main(["--reduced", "--n-requests", "1"])
+    train, mecefo = TrainConfig(), MeCeFOConfig(mode="dynamic")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_state(cfg, train, mecefo, torch.Generator())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_train_step(cfg, train, mecefo, ShapeConfig("t", 8, 2, "train"))
+    assert init_state(cfg, train, mecefo, torch.Generator(), device="cpu").step == 0
+    make_train_step(cfg, train, mecefo, ShapeConfig("t", 8, 2, "train"), device="cpu")
 
 
 def test_serve_run_cli_on_cpu(capsys):
