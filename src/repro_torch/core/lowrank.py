@@ -82,10 +82,10 @@ class LowRankLinear(torch.autograd.Function):
     """``y = x @ w`` with a MeCeFO backward for dW (``_ll_bwd``)."""
 
     @staticmethod
-    def forward(ctx, x, w, v1, keep, mode, plain):
+    def forward(ctx, x, w, v1, keep, mode):
         if mode not in MODES:
             raise ValueError(mode)
-        ctx.mode, ctx.plain = mode, plain
+        ctx.mode = mode
         ctx.keep_const = None if torch.is_tensor(keep) else float(keep)
         ctx.save_for_backward(x, w, v1, *((keep,) if torch.is_tensor(keep) else ()))
         return x @ w
@@ -95,7 +95,7 @@ class LowRankLinear(torch.autograd.Function):
         x, w, v1, *rest = ctx.saved_tensors
         dx = dy @ w.T if ctx.needs_input_grad[0] else None
         if not ctx.needs_input_grad[1]:
-            return dx, None, None, None, None, None
+            return dx, None, None, None, None
         xf = x.reshape(-1, x.shape[-1])
         dyf = dy.reshape(-1, dy.shape[-1]).contiguous()
         if ctx.mode == "exact":
@@ -105,28 +105,27 @@ class LowRankLinear(torch.autograd.Function):
             # _replicate, which moves the DP all-reduce onto the factored
             # (r, m) gradient, is a no-op without a mesh.  The factored
             # all-reduce belongs to the multi-GPU slice.
-            dw = lowrank_wgrad(xf, dyf, v1, plain=ctx.plain)
+            dw = lowrank_wgrad(xf, dyf, v1)
         else:  # mixed: kept examples exact, skipped ones low-rank
             keep = rest[0] if rest else torch.tensor(ctx.keep_const, device=dy.device)
             k = keep.to(dy.dtype)
             k = k.reshape(k.shape + (1,) * (dy.dim() - k.dim())) if k.dim() else k
             dy_keep = (dy * k).reshape(-1, dy.shape[-1])
             dy_skip = (dy * (1 - k)).reshape(-1, dy.shape[-1])
-            dw = xf.T @ dy_keep + lowrank_wgrad(xf, dy_skip, v1, plain=ctx.plain)
-        return dx, dw.to(w.dtype), None, None, None, None
+            dw = xf.T @ dy_keep + lowrank_wgrad(xf, dy_skip, v1)
+        return dx, dw.to(w.dtype), None, None, None
 
 
 def lowrank_linear(x: torch.Tensor, w: torch.Tensor, v1: torch.Tensor, keep,
-                   mode: str = "exact", *, plain: bool = False) -> torch.Tensor:
+                   mode: str = "exact") -> torch.Tensor:
     """``y = x @ w`` with a MeCeFO backward for dW.
 
     x: (..., n) activations (batch on dim 0); w: (n, m); v1: (n, r)
     (unused in ``exact`` mode); keep: (B,) per-example keep mask (1 =
     exact), used by ``mixed`` only; mode: "exact" | "degraded" |
-    "degraded_sync" | "mixed".  ``plain=True`` computes the low-rank product
-    with the plain version of kernel #6 on any device.
+    "degraded_sync" | "mixed".
     """
-    return LowRankLinear.apply(x, w, v1, keep, mode, plain)
+    return LowRankLinear.apply(x, w, v1, keep, mode)
 
 
 def wgrad_flops(b: int, n: int, m: int, r: Optional[int]) -> int:

@@ -4,11 +4,14 @@ version.
 Every wrapper takes the plain version for a tensor that lies on the CPU,
 launches its CUDA kernel (``csrc/*.cu``) for a CUDA tensor, and raises for
 anything else: there is no fallback that hides a failed build or launch.
+Inside ``with plain_versions():`` every wrapper takes its plain version on
+any device, which is how the parity checks run the plain path on the card.
 Each wrapper counts its kernel launches in a plain int attribute,
 ``<wrapper>.launches``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -18,10 +21,27 @@ from repro_torch.kernels import _build
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def on_cpu(*tensors: torch.Tensor) -> bool:
-    """True when every tensor lies on the CPU (the plain version runs);
-    False when all lie on the current CUDA device (the kernel runs); raises
-    otherwise."""
+# a module global, not a thread-local: autograd runs CUDA backwards (and
+# the recomputes inside them) on its own threads
+_PLAIN = False
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Every wrapper takes its plain version while the block runs, forward
+    and backward alike, on any device."""
+    global _PLAIN
+    was, _PLAIN = _PLAIN, True
+    try:
+        yield
+    finally:
+        _PLAIN = was
+
+
+def runs_plain(*tensors: torch.Tensor) -> bool:
+    """True when the plain version runs: every tensor lies on the CPU, or
+    :func:`plain_versions` is active.  False when all lie on the current
+    CUDA device (the kernel runs); raises otherwise."""
     types = {t.device.type for t in tensors}
     if types == {"cpu"}:
         return True
@@ -31,7 +51,7 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
     for t in tensors:
         if t.device.index != cur:
             raise ValueError(f"tensor on {t.device}, current CUDA device is {cur}")
-    return False
+    return _PLAIN
 
 
 def check_operand(t: torch.Tensor, name: str, dtype=None) -> None:

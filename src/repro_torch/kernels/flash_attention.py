@@ -24,7 +24,7 @@ import torch
 
 from repro_torch.kernels import (
     FLOAT, INT, PTR, aligned16, check_launch, check_operand, dtype_code, kernel_fn, needs_grad,
-    on_cpu, recompute_grads, refuse_detach, stream_ptr,
+    recompute_grads, refuse_detach, runs_plain, stream_ptr,
 )
 
 NEG_INF = -1e30
@@ -71,13 +71,13 @@ def flash_attention_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) ->
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """Kernel forward (the plain version for CPU tensors); backward through
-    the recomputed plain version."""
+    """Kernel forward (or the plain version, where :func:`runs_plain`);
+    backward through the recomputed plain version."""
 
     @staticmethod
     def forward(ctx, q, k, v):
         ctx.save_for_backward(q, k, v)
-        if on_cpu(q, k, v):
+        if runs_plain(q, k, v):
             return flash_attention_plain(q, k, v)
         return flash_attention_launch(q, k, v)
 
@@ -91,7 +91,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     """q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd) -> (B, Sq, H, hd).  Plain
     version on the CPU, the kernel on CUDA (through
     :class:`FlashAttentionFn` when autograd records)."""
-    if on_cpu(q, k, v):
+    if runs_plain(q, k, v):
         return flash_attention_plain(q, k, v)
     if needs_grad(q, k, v):
         return FlashAttentionFn.apply(q, k, v)

@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import (
-    INT, PTR, check_launch, check_operand, dtype_code, kernel_fn, on_cpu, refuse_detach,
+    INT, PTR, check_launch, check_operand, dtype_code, kernel_fn, refuse_detach, runs_plain,
     stream_ptr,
 )
 
@@ -63,7 +63,7 @@ def lowrank_wgrad_project_launch(x: torch.Tensor, dy: torch.Tensor, v1: torch.Te
 def lowrank_wgrad_project(x: torch.Tensor, dy: torch.Tensor, v1: torch.Tensor) -> torch.Tensor:
     """A = (x @ v1)^T @ dy in f32.  Plain version on the CPU, the kernel on
     CUDA."""
-    if on_cpu(x, dy, v1):
+    if runs_plain(x, dy, v1):
         return lowrank_wgrad_project_plain(x, dy, v1)
     return lowrank_wgrad_project_launch(x, dy, v1)
 
@@ -71,10 +71,7 @@ def lowrank_wgrad_project(x: torch.Tensor, dy: torch.Tensor, v1: torch.Tensor) -
 lowrank_wgrad_project.launches = 0
 
 
-def lowrank_wgrad(x: torch.Tensor, dy: torch.Tensor, v1: torch.Tensor, *,
-                  plain: bool = False) -> torch.Tensor:
+def lowrank_wgrad(x: torch.Tensor, dy: torch.Tensor, v1: torch.Tensor) -> torch.Tensor:
     """Technique III's weight gradient ``dW = V1 @ ((x V1)^T dy)`` (n, m),
-    in ``v1``'s dtype.  ``plain=True`` takes the plain version on any
-    device."""
-    project = lowrank_wgrad_project_plain if plain else lowrank_wgrad_project
-    return (v1.float() @ project(x, dy, v1)).to(v1.dtype)
+    in ``v1``'s dtype."""
+    return (v1.float() @ lowrank_wgrad_project(x, dy, v1)).to(v1.dtype)

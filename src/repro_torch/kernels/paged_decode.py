@@ -16,8 +16,8 @@ import math
 import torch
 
 from repro_torch.kernels import (
-    FLOAT, INT, PTR, aligned16, check_launch, check_operand, dtype_code, kernel_fn, on_cpu,
-    refuse_detach, stream_ptr,
+    FLOAT, INT, PTR, aligned16, check_launch, check_operand, dtype_code, kernel_fn,
+    refuse_detach, runs_plain, stream_ptr,
 )
 
 NEG_INF = -1e30
@@ -50,7 +50,7 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
     """q: (B, 1, H, hd); k_pages, v_pages: (n_pages, page_size, KV, hd);
     tables: (B, P) int32; lens: (B,) int32 valid positions per slot.  Plain
     version on the CPU, the kernel on CUDA."""
-    if on_cpu(q, k_pages, v_pages, tables, lens):
+    if runs_plain(q, k_pages, v_pages, tables, lens):
         return paged_decode_plain(q, k_pages, v_pages, tables, lens)
     refuse_detach("paged_decode", q, k_pages, v_pages)
     B, one, H, hd = q.shape

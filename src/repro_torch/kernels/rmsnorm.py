@@ -17,7 +17,7 @@ import torch
 
 from repro_torch.kernels import (
     FLOAT, INT, PTR, aligned16, check_launch, check_operand, dtype_code, kernel_fn, needs_grad,
-    on_cpu, recompute_grads, refuse_detach, stream_ptr,
+    recompute_grads, refuse_detach, runs_plain, stream_ptr,
 )
 
 
@@ -48,14 +48,14 @@ def rmsnorm_launch(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> t
 
 
 class RMSNormFn(torch.autograd.Function):
-    """Kernel forward (the plain version for CPU tensors); backward through
-    the recomputed plain version."""
+    """Kernel forward (or the plain version, where :func:`runs_plain`);
+    backward through the recomputed plain version."""
 
     @staticmethod
     def forward(ctx, x, scale, eps):
         ctx.save_for_backward(x, scale)
         ctx.eps = eps
-        if on_cpu(x, scale):
+        if runs_plain(x, scale):
             return rmsnorm_plain(x, scale, eps)
         return rmsnorm_launch(x, scale, eps)
 
@@ -68,7 +68,7 @@ class RMSNormFn(torch.autograd.Function):
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """x: (..., d); scale: (d,).  Plain version on the CPU, the kernel on
     CUDA (through :class:`RMSNormFn` when autograd records)."""
-    if on_cpu(x, scale):
+    if runs_plain(x, scale):
         return rmsnorm_plain(x, scale, eps)
     if needs_grad(x, scale):
         return RMSNormFn.apply(x, scale, eps)

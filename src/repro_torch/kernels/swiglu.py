@@ -18,8 +18,8 @@ import torch
 import torch.nn.functional as F_
 
 from repro_torch.kernels import (
-    INT, PTR, aligned16, check_launch, check_operand, dtype_code, kernel_fn, needs_grad, on_cpu,
-    recompute_grads, refuse_detach, stream_ptr,
+    INT, PTR, aligned16, check_launch, check_operand, dtype_code, kernel_fn, needs_grad,
+    recompute_grads, refuse_detach, runs_plain, stream_ptr,
 )
 
 
@@ -46,13 +46,13 @@ def swiglu_launch(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
 
 
 class SwiGLUFn(torch.autograd.Function):
-    """Kernel forward (the plain version for CPU tensors); backward through
-    the recomputed plain version."""
+    """Kernel forward (or the plain version, where :func:`runs_plain`);
+    backward through the recomputed plain version."""
 
     @staticmethod
     def forward(ctx, g, u):
         ctx.save_for_backward(g, u)
-        if on_cpu(g, u):
+        if runs_plain(g, u):
             return swiglu_plain(g, u)
         return swiglu_launch(g, u)
 
@@ -64,7 +64,7 @@ class SwiGLUFn(torch.autograd.Function):
 def swiglu(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """g, u: (..., f) of one shape and dtype.  Plain version on the CPU,
     the kernel on CUDA (through :class:`SwiGLUFn` when autograd records)."""
-    if on_cpu(g, u):
+    if runs_plain(g, u):
         return swiglu_plain(g, u)
     if needs_grad(g, u):
         return SwiGLUFn.apply(g, u)

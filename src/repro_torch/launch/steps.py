@@ -35,13 +35,13 @@ def to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
 
 
 def loss_and_grads(params: Tree, proj: Optional[Tree], batch: Dict, cfg: ModelConfig,
-                   ctx: NDBContext, flags: ExecFlags, *, plain: bool = False):
+                   ctx: NDBContext, flags: ExecFlags):
     """(loss, metrics, grads) of :func:`forward_loss`; ``grads`` has the
     params' structure and dtypes.  A leaf the backward never reaches (the
     MHA weights in the all-degraded program) gets a zero gradient, as JAX
     gives it."""
     live = tree_map(lambda p: p.detach().requires_grad_(), params)
-    loss, metrics = forward_loss(live, proj, batch, cfg, ctx, flags, plain=plain)
+    loss, metrics = forward_loss(live, proj, batch, cfg, ctx, flags)
     leaves = tree_leaves(live)
     got = torch.autograd.grad(loss, leaves, allow_unused=True)
     by_id = {id(p): (g if g is not None else torch.zeros_like(p)) for p, g in zip(leaves, got)}

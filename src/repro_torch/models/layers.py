@@ -6,9 +6,7 @@ Activations keep the JAX package's ``(B, S, H, hd)`` layout.  The norms,
 the FFN activation and the attention go through the kernel wrappers of
 :mod:`repro_torch.kernels`, which run the hand-written CUDA kernels on the
 card (inside autograd Functions when autograd records) and their plain
-versions on the CPU.  ``plain=True`` makes a layer call the plain versions
-on any device: the parity checks in ``chip_smoke.py`` use it to hold the
-kernel path against the plain one on the card.
+versions on the CPU or inside ``kernels.plain_versions()``.
 
 The MeCeFO hooks: ``grad_gate`` on the attention branch (technique I),
 ``lowrank_linear`` for the FFN matmuls (technique III) and
@@ -26,15 +24,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.lowrank import lowrank_linear
 from repro_torch.core.recompute import ffn_recompute
 from repro_torch.core.skipconn import cast_grad, grad_gate
-from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
-from repro_torch.kernels.paged_decode import paged_decode, paged_decode_plain
-from repro_torch.kernels.rmsnorm import rmsnorm as rmsnorm_kernel
-from repro_torch.kernels.rmsnorm import rmsnorm_plain
-from repro_torch.kernels.swiglu import swiglu, swiglu_plain
-
-
-def rmsnorm(x, scale, eps: float = 1e-5, *, plain: bool = False):
-    return (rmsnorm_plain if plain else rmsnorm_kernel)(x, scale, eps)
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.paged_decode import paged_decode
+from repro_torch.kernels.rmsnorm import rmsnorm
+from repro_torch.kernels.swiglu import swiglu
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
@@ -62,7 +55,6 @@ def attention_block(
     cur_len: Optional[torch.Tensor] = None,
     page_tables: Optional[torch.Tensor] = None,
     page_size: Optional[int] = None,
-    plain: bool = False,
 ):
     """Pre-norm GQA sublayer with residual; returns (y, cache).
 
@@ -85,24 +77,24 @@ def attention_block(
     """
     if not torch.is_tensor(keep) and keep == 0.0:
         with torch.no_grad():
-            y = _attention(p, x, cfg, positions, cache, cur_len, page_tables, page_size, plain)
+            y = _attention(p, x, cfg, positions, cache, cur_len, page_tables, page_size)
     else:
-        y = _attention(p, x, cfg, positions, cache, cur_len, page_tables, page_size, plain)
+        y = _attention(p, x, cfg, positions, cache, cur_len, page_tables, page_size)
         if torch.is_tensor(keep) or keep != 1.0:
             y = grad_gate(y, keep)
     return cast_grad(x + y), cache
 
 
-def _attention(p, x, cfg, positions, cache, cur_len, page_tables, page_size, plain):
-    xn = rmsnorm(x, p["ln"], cfg.norm_eps, plain=plain)
+def _attention(p, x, cfg, positions, cache, cur_len, page_tables, page_size):
+    xn = rmsnorm(x, p["ln"], cfg.norm_eps)
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     q = (xn @ p["wq"]).reshape(B, S, cfg.n_heads, hd)
     k = (xn @ p["wk"]).reshape(B, S, cfg.n_kv_heads, hd)
     v = (xn @ p["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
     if cfg.qk_norm:
-        q = rmsnorm(q, p["q_norm"], cfg.norm_eps, plain=plain)
-        k = rmsnorm(k, p["k_norm"], cfg.norm_eps, plain=plain)
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
 
@@ -113,13 +105,12 @@ def _attention(p, x, cfg, positions, cache, cur_len, page_tables, page_size, pla
         offs = cur_len % page_size
         cache["k"][pids.long(), offs.long()] = k[:, 0].to(cache["k"].dtype)
         cache["v"][pids.long(), offs.long()] = v[:, 0].to(cache["v"].dtype)
-        decode = paged_decode_plain if plain else paged_decode
-        o = decode(q, cache["k"], cache["v"], page_tables, cur_len + 1)
+        o = paged_decode(q, cache["k"], cache["v"], page_tables, cur_len + 1)
     else:
         if cache is not None:
             cache["k"].copy_(k)
             cache["v"].copy_(v)
-        o = (flash_attention_plain if plain else flash_attention)(q, k, v)
+        o = flash_attention(q, k, v)
 
     return o.reshape(B, S, cfg.n_heads * hd) @ p["wo"]
 
@@ -133,18 +124,17 @@ def ffn_block(
     keep=1.0,
     lowrank_mode: str = "exact",
     recompute: bool = False,
-    plain: bool = False,
 ) -> torch.Tensor:
     """Pre-norm SwiGLU FFN sublayer with residual.  ``proj`` holds the V1
     of its three matmuls (technique III, ``lowrank_mode``); ``recompute``
     keeps only the FFN input for the backward (technique II)."""
 
     def body(p, x, proj, keep):
-        xn = rmsnorm(x, p["ln"], cfg.norm_eps, plain=plain)
-        g = _lin(xn, p["w_gate"], _p(proj, "w_gate"), keep, lowrank_mode, plain)
-        u = _lin(xn, p["w_up"], _p(proj, "w_up"), keep, lowrank_mode, plain)
-        h = (swiglu_plain if plain else swiglu)(g, u)
-        return _lin(h, p["w_down"], _p(proj, "w_down"), keep, lowrank_mode, plain)
+        xn = rmsnorm(x, p["ln"], cfg.norm_eps)
+        g = _lin(xn, p["w_gate"], _p(proj, "w_gate"), keep, lowrank_mode)
+        u = _lin(xn, p["w_up"], _p(proj, "w_up"), keep, lowrank_mode)
+        h = swiglu(g, u)
+        return _lin(h, p["w_down"], _p(proj, "w_down"), keep, lowrank_mode)
 
     if recompute:  # technique II: keep only the FFN input
         body = ffn_recompute(body)
@@ -157,10 +147,10 @@ def _p(proj, name):
     return proj.get(name)
 
 
-def _lin(x, w, v1, keep, mode, plain):
+def _lin(x, w, v1, keep, mode):
     if mode == "exact" or v1 is None:
         return x @ w
-    return lowrank_linear(x, w, v1, keep, mode, plain=plain)
+    return lowrank_linear(x, w, v1, keep, mode)
 
 
 def chunked_cross_entropy(

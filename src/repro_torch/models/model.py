@@ -18,13 +18,13 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.ndb import NDBContext
 from repro_torch.core.recompute import records_grad
+from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.models import frontends
 from repro_torch.models.layers import (
     attention_block,
     chunked_cross_entropy,
     ffn_block,
     logits_for_position,
-    rmsnorm,
 )
 from repro_torch.models.params import block_layout
 
@@ -65,7 +65,6 @@ def run_trunk(
     cur_len: Optional[torch.Tensor] = None,
     page_tables: Optional[torch.Tensor] = None,
     page_size: Optional[int] = None,
-    plain: bool = False,
 ):
     """Runs all layers; returns (h, caches).
 
@@ -102,13 +101,12 @@ def run_trunk(
                 keep=keep_l if ctx.mecefo.skip_mha_backward else 1.0,
                 cache=None if caches is None else _period(caches[pos], i),
                 cur_len=cur_len, page_tables=page_tables, page_size=page_size,
-                plain=plain,
             )
             pj = None if layer_proj is None or layer_proj[pos] is None else {
                 k: t[i] for k, t in layer_proj[pos].items()}
             h = ffn_block(
                 {k: t[i] for k, t in bp["ffn"].items()}, h, cfg, proj=pj, keep=keep_l,
-                lowrank_mode=lowrank_mode, recompute=recompute, plain=plain,
+                lowrank_mode=lowrank_mode, recompute=recompute,
             )
         return h
 
@@ -133,8 +131,6 @@ def forward_loss(
     cfg: ModelConfig,
     ctx: NDBContext,
     flags: ExecFlags,
-    *,
-    plain: bool = False,
 ):
     """Training loss and its metrics dict.  ``batch`` holds ``tokens`` and
     ``labels`` (B, S) tensors on the params' device."""
@@ -143,9 +139,8 @@ def forward_loss(
     positions = torch.arange(h.shape[1], device=h.device)
     if ctx.example_weight is not None:
         token_w = token_w * ctx.example_weight[:, None]
-    h, _ = run_trunk(params, h, cfg, positions=positions, proj=proj, ctx=ctx, flags=flags,
-                     plain=plain)
-    h = rmsnorm(h, params["final_norm"], cfg.norm_eps, plain=plain)
+    h, _ = run_trunk(params, h, cfg, positions=positions, proj=proj, ctx=ctx, flags=flags)
+    h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
     ce = chunked_cross_entropy(h, _unembed(params), labels, token_w, chunk=flags.ce_chunk,
                                vocab_size=cfg.vocab_size)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)  # dense FFNs: no MoE aux loss
@@ -159,8 +154,6 @@ def forward_prefill(
     cfg: ModelConfig,
     cache_structs_tree: Tree,
     logit_pos=None,
-    *,
-    plain: bool = False,
 ):
     """Prompt prefill: returns (filled caches, (B, V) f32 logits).
 
@@ -178,14 +171,14 @@ def forward_prefill(
         {k: torch.empty(s.shape, dtype=s.dtype, device=h.device) for k, s in entry.items()}
         for entry in cache_structs_tree
     )
-    h, caches = run_trunk(params, h, cfg, positions=positions, caches=caches, plain=plain)
+    h, caches = run_trunk(params, h, cfg, positions=positions, caches=caches)
     if logit_pos is None:
         h_last = h[:, -1]
     elif torch.is_tensor(logit_pos) and logit_pos.dim():
         h_last = h[torch.arange(B, device=h.device), logit_pos.long().to(h.device)]
     else:
         h_last = h[:, int(logit_pos)]
-    h_last = rmsnorm(h_last.contiguous(), params["final_norm"], cfg.norm_eps, plain=plain)
+    h_last = rmsnorm(h_last.contiguous(), params["final_norm"], cfg.norm_eps)
     return caches, logits_for_position(h_last, _unembed(params), cfg.vocab_size)
 
 
@@ -198,7 +191,6 @@ def forward_decode(
     *,
     page_tables: torch.Tensor,
     page_size: int,
-    plain: bool = False,
 ):
     """One decode step on the paged pool: returns (caches, (B, V) logits).
 
@@ -210,7 +202,7 @@ def forward_decode(
     h = params["embed"][token.long()][:, None, :]
     h, caches = run_trunk(
         params, h, cfg, positions=cur_len[:, None], caches=caches, cur_len=cur_len,
-        page_tables=page_tables, page_size=page_size, plain=plain,
+        page_tables=page_tables, page_size=page_size,
     )
-    h = rmsnorm(h[:, -1], params["final_norm"], cfg.norm_eps, plain=plain)
+    h = rmsnorm(h[:, -1], params["final_norm"], cfg.norm_eps)
     return caches, logits_for_position(h, _unembed(params), cfg.vocab_size)

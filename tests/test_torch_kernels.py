@@ -164,3 +164,21 @@ def test_wrappers_raise_on_other_devices():
         rmsnorm(x, torch.empty(32, device="meta"))
     with pytest.raises(ValueError, match="devices"):
         swiglu(x, torch.randn(4, 32))
+
+
+def test_plain_versions_switch_nests_restores_and_keeps_the_device_check():
+    from repro_torch import kernels
+
+    x = torch.empty(4, 32, device="meta")
+    assert not kernels._PLAIN
+    with kernels.plain_versions():
+        with kernels.plain_versions():
+            assert kernels.runs_plain(torch.randn(3))
+        assert kernels._PLAIN
+        with pytest.raises(ValueError, match="devices"):
+            kernels.runs_plain(x)
+    assert not kernels._PLAIN
+    with pytest.raises(RuntimeError, match="inside"):
+        with kernels.plain_versions():
+            raise RuntimeError("inside")
+    assert not kernels._PLAIN

@@ -1,8 +1,8 @@
 """The training slice's pieces against the JAX package's, live, on the CPU.
 
 Inputs come from numpy seeds and cross as numpy arrays.  Tolerances:
-kernel #6 follows ``tests/test_kernels.py`` (1e-4 f32, 0.05 bf16, relative
-to max |ref|); everything else runs in f32 and is held at rtol 1e-5 /
+kernel #6 against the Pallas kernel follows ``tests/test_kernels.py`` (1e-4
+f32, 0.05 bf16, relative to max |ref|); everything else runs in f32 and is held at rtol 1e-5 /
 atol 1e-6, since both sides compute the same f32 arithmetic and differ only
 in summation order.
 """
@@ -178,6 +178,20 @@ def test_lowrank_wgrad_plain_matches_pallas(t, n, m, r, dt):
     assert dw.dtype == xt.dtype and dw.shape == (n, m)
     scale = float(np.abs(_np(dw_ref)).max()) + 1e-6
     np.testing.assert_allclose(_np(dw) / scale, _np(dw_ref) / scale, atol=tol)
+
+
+@pytest.mark.parametrize("t,n,m,r", [(300, 100, 260, 12), (100, 52, 130, 10), (1024, 256, 300, 64)])
+def test_lowrank_wgrad_limit_catches_p_rounded_to_bf16(t, n, m, r):
+    """The card holds kernel #6 at 1e-4 of max |ref| against its plain
+    version in bf16 too: a kernel that rounded P = x @ V1 to bf16 would
+    miss that limit several times over."""
+    rng = np.random.default_rng(t + r)
+    x, dy, v = (_t(jnp.asarray(rng.standard_normal(s), "bfloat16"))
+                for s in ((t, n), (t, m), (n, r)))
+    ref = lowrank_wgrad_project_plain(x, dy, v)
+    p_bf16 = (x.float() @ v.float()).to(torch.bfloat16).float()
+    err = float((p_bf16.T @ dy.float() - ref).abs().max())
+    assert err > 3e-4 * float(ref.abs().max())
 
 
 def test_lowrank_wgrad_cpu_takes_the_plain_version_without_counting():
