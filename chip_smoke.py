@@ -13,7 +13,10 @@ each printing JSON lines:
              its time, the plain version's time, its bound and (where one
              PyTorch call computes the same function) that call's time; the
              paged decode also bitwise-invariant to the physical page
-             layout, with exact zeros on length-0 lanes; the low-rank Wgrad
+             layout, with exact zeros on length-0 lanes; the dense flash
+             decode (kernel #5) with exact zeros on length-0 lanes, right
+             on a ragged Smax, and bitwise equal to the paged decode over a
+             gather_pages view of a shuffled pool; the low-rank Wgrad
              bitwise repeatable, and its limit shown to catch a kernel that
              rounds x @ V1 to bf16; the norm, activation and attention
              kernels also at the training path's shapes, where each
@@ -21,13 +24,26 @@ each printing JSON lines:
              (a check of the wiring: the backward recomputes the plain
              version).
 3. serve   — full-width qwen3-0.6b (bf16, seeded weights) serves 16 seeded
-             requests to completion through the port's engine; every
-             kernel's launch count must grow during that run.
-4. parity  — two of those requests, prefill and 16 decode steps, through
-             the kernels and through the plain versions (teacher-forced with
-             the kernel path's tokens), in bf16 at full depth and in f32 on a
-             4-layer full-width copy.
-5. train   — full-width, full-depth llama-350m (bf16, seeded weights, B=8,
+             requests to completion through the port's engine on the paged
+             decode round; launch counts must be exactly those the engine's
+             calls imply.
+4. serve dense — the same requests on the default dense decode round
+             (gather_pages, kernel #5, scatter_token): launch counts exact
+             (kernel #5 28 per round, the paged kernel none), token streams
+             identical to the paged run's, its round time, tok/s and peak
+             memory.
+5. serve chunk/share — the same model with chunked prefill (8 pages) and
+             prefix sharing on a seeded workload of two 128-token shared
+             prefixes: every request completes, prefixes are hit, chunks run,
+             launch counts are exact; two requests sharing a prefix go
+             through chunked prefill, a forked prefix and 16 dense decode
+             steps through the kernels and through the plain versions
+             (teacher-forced), held at the parity phase's bf16 limits.
+6. parity  — two of the serve requests, prefill and 16 paged decode steps,
+             through the kernels and through the plain versions
+             (teacher-forced with the kernel path's tokens), in bf16 at full
+             depth and in f32 on a 4-layer full-width copy.
+7. train   — full-width, full-depth llama-350m (bf16, seeded weights, B=8,
              S=1024, rank 64, FFN recompute) takes 3 MeCeFO training steps in
              each NDB mode (off, dynamic, static, degraded) under the plan
              NDBPlan(n_dp=4, n_stages=8, failed={(1, 3)}); one line per mode
@@ -35,7 +51,7 @@ each printing JSON lines:
              step.  Launch counts must match the ones derived from the model,
              the losses be finite, and the degraded step's peak memory lie
              below the healthy one's.
-6. train parity — one step's loss and gradients through the kernels and
+8. train parity — one step's loss and gradients through the kernels and
              through the plain versions, with the train phase's FFN
              recompute: in bf16 at full depth (dynamic, degraded) and in f32
              on a 4-layer full-width copy (all four modes).
@@ -64,6 +80,7 @@ from repro_torch.core.ndb import NDBContext, plan_to_masks  # noqa: E402
 from repro_torch.data.pipeline import SyntheticLM  # noqa: E402
 from repro_torch.kernels import _build, plain_versions  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain  # noqa: E402
+from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain  # noqa: E402
 from repro_torch.kernels.lowrank_wgrad import (  # noqa: E402
     lowrank_wgrad_project, lowrank_wgrad_project_plain,
 )
@@ -76,11 +93,15 @@ from repro_torch.launch.profile import (  # noqa: E402
 )
 from repro_torch.launch.steps import loss_and_grads, to_device  # noqa: E402
 from repro_torch.models.kvcache import cache_structs  # noqa: E402
-from repro_torch.models.model import ExecFlags, forward_decode, forward_prefill  # noqa: E402
+from repro_torch.models.model import (  # noqa: E402
+    ExecFlags, forward_decode, forward_prefill, forward_prefill_chunk,
+)
 from repro_torch.models.params import init_params, tree_leaves, tree_map  # noqa: E402
 from repro_torch.serve import run  # noqa: E402
 from repro_torch.serve.engine import EngineConfig, ServeEngine  # noqa: E402
-from repro_torch.serve.kvpool import init_pool, pages_needed, scatter_prefill  # noqa: E402
+from repro_torch.serve.kvpool import (  # noqa: E402
+    gather_pages, init_pool, pages_needed, scatter_pages, scatter_prefill, scatter_token,
+)
 from repro_torch.serve.request import WorkloadSpec, build_workload  # noqa: E402
 from repro_torch.serve.sampling import greedy_token  # noqa: E402
 
@@ -95,7 +116,7 @@ TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-2, 2 ** -7)}
 WRAPPERS = {
     "rmsnorm": rmsnorm, "swiglu": swiglu,
     "flash_attention": flash_attention, "paged_decode": paged_decode,
-    "lowrank_wgrad": lowrank_wgrad_project,
+    "lowrank_wgrad": lowrank_wgrad_project, "flash_decode": flash_decode,
 }
 REPLACES = {
     "rmsnorm": "src/repro/kernels/rmsnorm.py:22",
@@ -103,8 +124,9 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:74",
     "paged_decode": "src/repro/kernels/paged_decode.py:51",
     "lowrank_wgrad": "src/repro/kernels/lowrank_wgrad.py:44",
+    "flash_decode": "src/repro/kernels/flash_decode.py:70",
 }
-SERVE_KERNELS = ("rmsnorm", "swiglu", "flash_attention", "paged_decode")
+SERVE_KERNELS = ("rmsnorm", "swiglu", "flash_attention", "paged_decode", "flash_decode")
 TRAIN_KERNELS = ("rmsnorm", "swiglu", "flash_attention", "lowrank_wgrad")
 
 # kernel #6 against its plain version, relative to max |ref|.  Both sides
@@ -135,9 +157,25 @@ TRAIN_ANCHOR_RATIO = 1.5
 B_PRE, S_PRE, H, KV, HD, D, DFF = 4, 512, 16, 8, 128, 1024, 3072
 B_DEC, PS, P_DEC = 8, 16, 64
 DEC_LENS = [0, 1, 15, 16, 17, 300, 777, 1024]
+# kernel #5 at the dense round's shapes: the dense view is (B_DEC, P_DEC *
+# PS) rows, walked in page-sized blocks; and a ragged Smax
+SMAX_DEC, SMAX_RAGGED = P_DEC * PS, 1000
+BLOCK_SWEEP = (16, 32, 64, 128)
 ECFG = EngineConfig(max_slots=8, page_size=16, pages_per_slot=64)
+PAGED_ECFG = dataclasses.replace(ECFG, use_paged_kernel=True)
 SPEC = WorkloadSpec(n_requests=16, vocab_size=151936, prompt_len=(64, 512),
                     new_tokens=(16, 64), seed=0)
+# chunked prefill and prefix sharing: two 128-token system prompts
+CHUNK_PAGES = 8
+SHARE_ECFG = dataclasses.replace(ECFG, prefill_chunk_pages=CHUNK_PAGES, prefix_sharing=True)
+SHARE_SPEC = dataclasses.replace(SPEC, shared_prefix=128, n_prefix_groups=2)
+# path parity in bf16 (parity and chunk/share phases): every layer rounds
+# its norm, activation and attention outputs to bf16 at places where the
+# two paths can land one ulp (2^-8 relative) apart; over 28 layers such
+# differences add up to a few percent of the logits' scale, while a wrong
+# kernel moves them by their whole scale.  (max |Δ| / max |logit|, mean
+# |Δ| / mean |logit|)
+BF16_PATH_TOL = (2 ** -3, 2 ** -5)
 
 
 def emit(obj) -> None:
@@ -309,6 +347,60 @@ def sdpa_call(q, k, v):
     return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
 
 
+def sdpa_decode_call(q, k, v, lens):
+    """One PyTorch call for length-masked GQA decode attention, as a
+    yardstick only (a length-0 lane gives NaN there, 0 in the kernel)."""
+    import torch.nn.functional as F
+
+    mask = torch.arange(k.shape[1], device=q.device)[None, :] < lens.long()[:, None]
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask[:, None, None, :],
+                                                  enable_gqa=True)
+
+
+def flash_decode_rows(dtype, timer, randn, qd, lens, paged_out, kp, vp, tables) -> dict:
+    """Kernel #5 at the dense round's shapes (B_DEC lanes of SMAX_DEC rows,
+    page-sized blocks, the paged rows' lengths); exact zeros on length-0
+    lanes; a ragged Smax; bitwise equal to kernel #1 over a gather_pages
+    view of the paged rows' shuffled pool.  Returns the timed row."""
+    es = torch.finfo(dtype).bits // 8
+    kd, vd = (randn(B_DEC, SMAX_DEC, KV, HD, dtype=dtype) for _ in range(2))
+    out = flash_decode(qd, kd, vd, lens, block_k=PS)
+    row = compare(
+        "flash_decode", dtype, [B_DEC, SMAX_DEC, H, KV, HD, PS], out,
+        flash_decode_plain(qd, kd, vd, lens), timer,
+        lambda: flash_decode(qd, kd, vd, lens, block_k=PS),
+        lambda: flash_decode_plain(qd, kd, vd, lens),
+        # q read, o written, and the K/V rows below each lane's length
+        2 * nbytes(qd) + 2 * sum(DEC_LENS) * KV * HD * es + nbytes(lens),
+        4.0 * H * HD * sum(DEC_LENS), sdpa_decode_call(qd, kd, vd, lens))
+    zero_lanes = lens == 0
+    zeros = bool(torch.equal(out[zero_lanes], torch.zeros_like(out[zero_lanes])))
+    # a ragged Smax: the last block holds SMAX_RAGGED % PS rows
+    kr, vr = kd[:, :SMAX_RAGGED].contiguous(), vd[:, :SMAX_RAGGED].contiguous()
+    lens_r = lens.clamp(max=SMAX_RAGGED)
+    ref_r = flash_decode_plain(qd, kr, vr, lens_r).float()
+    err_r = (flash_decode(qd, kr, vr, lens_r, block_k=PS).float() - ref_r).abs()
+    atol, rtol = TOL[dtype]
+    ragged_ok = bool((err_r <= atol + rtol * ref_r.abs()).all())
+    view = gather_pages(({"k": kp[None], "v": vp[None]},), tables, page_size=PS)[0]
+    bitwise = bool(torch.equal(flash_decode(qd, view["k"][0], view["v"][0], lens, block_k=PS),
+                               paged_out))
+    emit({"phase": "kernels", "kernel": "flash_decode", "dtype": row["dtype"],
+          "null_lanes_exact_zero": zeros, "ragged_smax": SMAX_RAGGED,
+          "ragged_max_abs_err": float(err_r.max()), "ragged_ok": ragged_ok,
+          "bitwise_equal_paged_decode_over_gather_pages_view": bitwise})
+    if not (zeros and ragged_ok and bitwise):
+        raise AssertionError(f"flash decode {dtype}: null lanes {zeros}, ragged Smax "
+                             f"{ragged_ok}, bitwise vs paged {bitwise}")
+    if dtype == torch.bfloat16:  # the block size the dense round does not fix
+        emit({"phase": "kernels", "kernel": "flash_decode", "dtype": row["dtype"],
+              "block_k_sweep_ms": {bk: timer(lambda bk=bk: flash_decode(qd, kd, vd, lens,
+                                                                        block_k=bk))
+                                   for bk in BLOCK_SWEEP}})
+    return row
+
+
 def kernel_phase(dev, timer) -> dict:
     import torch.nn.functional as F
 
@@ -374,52 +466,158 @@ def kernel_phase(dev, timer) -> dict:
               "layout_bitwise_invariant": invariant, "null_lanes_exact_zero": zeros})
         if not (invariant and zeros):
             raise AssertionError("paged decode: layout invariance or null lanes failed")
+        rows[("flash_decode", dtype)] = flash_decode_rows(dtype, timer, randn, qd, lens, out,
+                                                          kp, vp, tables)
     rows.update(lowrank_rows(dev, timer, randn))
     train_shape_rows(timer, randn)
     torch.cuda.synchronize()
     return rows
 
 
-def serve_phase(dev):
-    cfg, params = run.build("qwen3-0.6b", device=dev, seed=0)
-    workload = build_workload(SPEC)
-    eng = ServeEngine(cfg, params, ECFG, device=dev)
+def serve_run(dev, cfg, params, ecfg, workload):
+    """Serve ``workload`` to completion on a fresh engine; returns (engine,
+    result, launches per kernel, the run's own peak memory in GiB)."""
+    eng = ServeEngine(cfg, params, ecfg, device=dev)
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()  # the serve run's own peak
+    torch.cuda.reset_peak_memory_stats()
     reset_launches()
     res = run.serve(eng, workload)
     torch.cuda.synchronize()
     launches = {n: WRAPPERS[n].launches for n in SERVE_KERNELS}
-    per_prefill = {"rmsnorm": 4 * cfg.n_layers + 1, "swiglu": cfg.n_layers,
-                   "flash_attention": cfg.n_layers, "paged_decode": 0}
-    s = res.summary()
-    emit({"phase": "serve", "config": cfg.name, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
-          **s, "decode_rounds": eng.decode_rounds,
-          "decode_round_ms": 1e3 * eng.decode_wall_s / max(eng.decode_rounds, 1),
-          "prefill_calls": eng.prefill_calls,
-          "prefill_ms": 1e3 * eng.prefill_wall_s / max(eng.prefill_calls, 1),
-          "launches": launches,
-          "launches_per_decode_round": {n: (launches[n] - per_prefill[n] * eng.prefill_calls)
-                                        / max(eng.decode_rounds, 1) for n in launches},
-          "launches_per_prefill": per_prefill,
-          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
-    # every layer: 4 norms (2 sublayers + q/k), 1 activation, 1 attention;
-    # plus the final norm, per prefill call and per decode round alike
-    L, calls = cfg.n_layers, eng.prefill_calls + eng.decode_rounds
+    return eng, res, launches, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def check_serve(phase, cfg, ecfg, workload, eng, res, launches, peak, must_launch, **extra):
+    """Emit the run's line and hold it to its launch counts (every layer: 4
+    norms (2 sublayers + q/k), 1 activation, 1 attention; plus the final
+    norm, per batched prefill, prompt chunk and decode round alike; the
+    chunks' attention is plain history attention), to launching every
+    kernel of ``must_launch`` and to completing every request."""
+    L = cfg.n_layers
+    rounds = res.accounting["decode_rounds"]
+    calls = eng.prefill_calls + eng.chunk_calls + rounds
+    paged = ecfg.use_paged_kernel
     want = {"rmsnorm": (4 * L + 1) * calls, "swiglu": L * calls,
-            "flash_attention": L * eng.prefill_calls, "paged_decode": L * eng.decode_rounds}
+            "flash_attention": L * eng.prefill_calls,
+            "paged_decode": L * rounds if paged else 0,
+            "flash_decode": 0 if paged else L * rounds}
+    s = res.summary()
+    emit({"phase": phase, "config": cfg.name, "n_layers": L, "dtype": cfg.dtype,
+          "decode": "paged" if paged else "dense", **s, **res.accounting,
+          "decode_round_ms": 1e3 * eng.decode_wall_s / max(rounds, 1),
+          "prefill_calls": eng.prefill_calls, "chunk_calls": eng.chunk_calls,
+          "prefill_ms_per_call": 1e3 * eng.prefill_wall_s
+          / max(eng.prefill_calls + eng.chunk_calls, 1),
+          "launches": launches, "want_launches": want, "peak_mem_gib": peak, **extra})
     if launches != want:
-        raise AssertionError(f"launch counts {launches}, want {want}")
+        raise AssertionError(f"{phase}: launch counts {launches}, want {want}")
+    missing = [n for n in must_launch if launches[n] == 0]
+    if missing:
+        raise AssertionError(f"{phase}: the run never launched {missing}")
     for rs in res.states.values():
         if not rs.done or len(rs.emitted) != rs.req.max_new_tokens:
-            raise AssertionError(f"request {rs.rid} emitted {len(rs.emitted)} of "
+            raise AssertionError(f"{phase}: request {rs.rid} emitted {len(rs.emitted)} of "
                                  f"{rs.req.max_new_tokens} tokens")
-    if len(res.states) != SPEC.n_requests:
-        raise AssertionError(f"{len(res.states)} of {SPEC.n_requests} requests served")
-    missing = [n for n, c in launches.items() if c == 0]
-    if missing:
-        raise AssertionError(f"the serve run never launched {missing}")
+    if len(res.states) != len(workload):
+        raise AssertionError(f"{phase}: {len(res.states)} of {len(workload)} requests served")
+
+
+def serve_phase(dev):
+    """The paged round, then the dense round on the same requests."""
+    cfg, params = run.build("qwen3-0.6b", device=dev, seed=0)
+    workload = build_workload(SPEC)
+    eng, res, launches, peak = serve_run(dev, cfg, params, PAGED_ECFG, workload)
+    check_serve("serve", cfg, PAGED_ECFG, workload, eng, res, launches, peak,
+                ("rmsnorm", "swiglu", "flash_attention", "paged_decode"))
+    paged_streams = res.streams()
+    del eng, res  # the paged engine's pool must not count in the dense run's peak
+    eng, res, dense_launches, peak = serve_run(dev, cfg, params, ECFG, workload)
+    same = res.streams() == paged_streams
+    check_serve("serve dense", cfg, ECFG, workload, eng, res, dense_launches, peak,
+                ("rmsnorm", "swiglu", "flash_attention", "flash_decode"),
+                streams_equal_paged=same)
+    if not same:
+        raise AssertionError("serve dense: token streams differ from the paged round's")
+    launches["flash_decode"] = dense_launches["flash_decode"]
     return cfg, params, workload, launches
+
+
+def chunk_share_logits(params, cfg, prompts, n_shared, n_steps, forced=None):
+    """Two prompts through the chunk-and-share path: the first prefilled in
+    chunks of CHUNK_PAGES pages; the second forks the first's pages below
+    ``n_shared`` and prefills only its tail in chunks; then ``n_steps``
+    dense decode rounds (gather_pages, kernel #5, scatter_token) for both.
+    Returns (logits per step, tokens fed)."""
+    dev, dt = params["embed"].device, params["embed"].dtype
+    P = pages_needed(max(len(p) for p in prompts) + n_steps + 1, PS)
+    n_fork = n_shared // PS
+    pool = init_pool(cfg, 1 + 2 * P, PS, dt, dev)
+    pages = torch.arange(1, 2 * P + 1, dtype=torch.int32, device=dev)
+    tables = torch.stack([pages[:P], torch.cat([pages[:n_fork], pages[P:2 * P - n_fork]])])
+    first = []
+    for i, prompt in enumerate(prompts):
+        off = n_fork * PS if i else 0
+        while off < len(prompt):
+            end = min(len(prompt), (off // PS + CHUNK_PAGES) * PS)
+            pg_lo, pg_hi = off // PS, pages_needed(end, PS)
+            toks = torch.zeros(1, pg_hi * PS - off, dtype=torch.int32, device=dev)
+            toks[0, :end - off] = torch.tensor(prompt[off:end], dtype=torch.int32, device=dev)
+            dense = gather_pages(pool, tables[i:i + 1], page_size=PS)
+            dense, logits = forward_prefill_chunk(params, dense, {"tokens": toks}, off, cfg,
+                                                  end - off - 1)
+            scatter_pages(pool, dense, tables[i, pg_lo:pg_hi], pg_lo=pg_lo, n_pg=pg_hi - pg_lo,
+                          page_size=PS)
+            off = end
+        first.append(logits[0])
+    out = [torch.stack(first)]
+    lens = torch.tensor([len(p) for p in prompts], dtype=torch.int32, device=dev)
+    fed = []
+    for step in range(n_steps):
+        tok = greedy_token(out[-1], cfg) if forced is None else forced[step]
+        fed.append(tok)
+        dense = gather_pages(pool, tables, page_size=PS)
+        dense, logits = forward_decode(params, dense, tok, lens, cfg, page_size=PS)
+        scatter_token(pool, dense, tables, lens, page_size=PS)
+        out.append(logits)
+        lens = lens + 1
+    return torch.stack(out), fed
+
+
+def hold_bf16_path(phase, k_logits, p_logits, **extra) -> None:
+    """Kernel path against plain path in bf16, at BF16_PATH_TOL."""
+    diff = (k_logits - p_logits).abs()
+    scale, mean_ref = float(p_logits.abs().max()), float(p_logits.abs().mean())
+    max_err, mean_err = float(diff.max()), float(diff.mean())
+    tol, mean_tol = BF16_PATH_TOL
+    ok = (max_err <= tol * scale and mean_err <= mean_tol * mean_ref
+          and bool(torch.isfinite(k_logits).all()))
+    emit({"phase": phase, "dtype": "bfloat16", **extra, "max_abs_err": max_err,
+          "mean_abs_err": mean_err, "max_abs_logit": scale, "mean_abs_logit": mean_ref,
+          "limit": {"max_abs_err <=": tol * scale, "mean_abs_err <=": mean_tol * mean_ref},
+          "ok": ok})
+    if not ok:
+        raise AssertionError(f"{phase} bf16 path parity failed: max {max_err}, mean {mean_err}")
+
+
+def chunk_share_phase(dev, cfg, params) -> None:
+    workload = build_workload(SHARE_SPEC)
+    eng, res, launches, peak = serve_run(dev, cfg, params, SHARE_ECFG, workload)
+    check_serve("serve chunk/share", cfg, SHARE_ECFG, workload, eng, res, launches, peak,
+                ("rmsnorm", "swiglu", "flash_decode"))
+    if not (res.accounting["n_prefix_hits"] > 0 and eng.chunk_calls > 0):
+        raise AssertionError(f"serve chunk/share: prefix hits {res.accounting['n_prefix_hits']},"
+                             f" chunks {eng.chunk_calls}")
+    # two requests of one prefix group
+    head = SHARE_SPEC.shared_prefix
+    by_group = {}
+    for req in workload:
+        by_group.setdefault(tuple(req.prompt[:head]), []).append(list(req.prompt))
+    prompts = next(g[:2] for g in by_group.values() if len(g) >= 2)
+    k_logits, fed = chunk_share_logits(params, cfg, prompts, head, 16)
+    with plain_versions():
+        p_logits, _ = chunk_share_logits(params, cfg, prompts, head, 16, forced=fed)
+    hold_bf16_path("serve chunk/share parity", k_logits, p_logits, n_layers=cfg.n_layers,
+                   prompt_lens=[len(p) for p in prompts], shared=head, steps=1 + len(fed))
 
 
 def path_logits(params, cfg, prompts, n_steps, forced=None):
@@ -458,33 +656,23 @@ def parity_phase(dev, cfg, params, workload) -> None:
     prompts = [list(workload[0].prompt), list(workload[1].prompt)]
     f32_cfg, f32_params = run.build("qwen3-0.6b", device=dev, layers=4, dtype="float32",
                                     seed=1)
-    # bf16: every layer rounds its norm, activation and attention outputs
-    # to bf16 at places where the two paths can land one ulp (2^-8
-    # relative) apart; over 28 layers such differences add up to a few
-    # percent of the logits' scale, while a wrong kernel moves them by
-    # their whole scale.  f32: only the summation order differs.
-    checks = (("bfloat16", cfg, params, 2 ** -3, 2 ** -5),
-              ("float32", f32_cfg, f32_params, 1e-4, None))
-    for name, c, p, tol, mean_tol in checks:
-        k_logits, fed = path_logits(p, c, prompts, 16)
-        with plain_versions():
-            p_logits, _ = path_logits(p, c, prompts, 16, forced=fed)
-        diff = (k_logits - p_logits).abs()
-        scale = float(p_logits.abs().max())
-        max_err, mean_err = float(diff.max()), float(diff.mean())
-        mean_ref = float(p_logits.abs().mean())
-        if name == "bfloat16":
-            ok = max_err <= tol * scale and mean_err <= mean_tol * mean_ref
-            limit = {"max_abs_err <=": tol * scale, "mean_abs_err <=": mean_tol * mean_ref}
-        else:
-            ok = max_err <= tol
-            limit = {"max_abs_err <=": tol}
-        ok = ok and bool(torch.isfinite(k_logits).all())
-        emit({"phase": "parity", "dtype": name, "n_layers": c.n_layers, "requests": [0, 1],
-              "steps": 1 + len(fed), "max_abs_err": max_err, "mean_abs_err": mean_err,
-              "max_abs_logit": scale, "mean_abs_logit": mean_ref, "limit": limit, "ok": ok})
-        if not ok:
-            raise AssertionError(f"{name} path parity failed: max {max_err}, mean {mean_err}")
+    k_logits, fed = path_logits(params, cfg, prompts, 16)
+    with plain_versions():
+        p_logits, _ = path_logits(params, cfg, prompts, 16, forced=fed)
+    hold_bf16_path("parity", k_logits, p_logits, n_layers=cfg.n_layers, requests=[0, 1],
+                   steps=1 + len(fed))
+    # f32: only the summation order differs
+    k_logits, fed = path_logits(f32_params, f32_cfg, prompts, 16)
+    with plain_versions():
+        p_logits, _ = path_logits(f32_params, f32_cfg, prompts, 16, forced=fed)
+    max_err = float((k_logits - p_logits).abs().max())
+    ok = max_err <= 1e-4 and bool(torch.isfinite(k_logits).all())
+    emit({"phase": "parity", "dtype": "float32", "n_layers": f32_cfg.n_layers, "requests": [0, 1],
+          "steps": 1 + len(fed), "max_abs_err": max_err,
+          "max_abs_logit": float(p_logits.abs().max()), "limit": {"max_abs_err <=": 1e-4},
+          "ok": ok})
+    if not ok:
+        raise AssertionError(f"float32 path parity failed: max {max_err}")
 
 
 def train_launches_per_step(cfg, mode: str, flags: ExecFlags, mecefo: MeCeFOConfig) -> dict:
@@ -645,11 +833,12 @@ def main() -> int:
     timer = ColdTimer(dev)
     rows = kernel_phase(dev, timer)
     cfg, params, workload, launches = serve_phase(dev)
+    chunk_share_phase(dev, cfg, params)
     parity_phase(dev, cfg, params, workload)
     del cfg, params, workload
     torch.cuda.empty_cache()
-    # each kernel's launches from its own path: the four serving kernels
-    # from the serve run, kernel #6 from the training run
+    # each kernel's launches from its own path: the paged serve run's for
+    # #1-#4, the dense serve run's for #5, the training run's for #6
     launches["lowrank_wgrad"] = train_phase(dev)["lowrank_wgrad"]
     train_parity_phase(dev)
 

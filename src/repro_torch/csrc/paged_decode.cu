@@ -18,27 +18,19 @@
 // it reads (2·hd·2 bytes in bf16), far below the ridge, so the least time
 // is the pages covering each slot over 3.35 TB/s.  Design: one block per
 // (kv head, slot) serves all G query heads of its group, so each K/V page
-// row is read once per group and not once per query head.  A page's K and
-// V rows for this kv head are staged in shared memory with 16-byte loads;
-// warps compute the G·page_size scores (lanes split hd, shuffles reduce),
-// G threads fold them into (m, l), and every thread updates its slice of
-// the G·hd accumulator.  The result depends only on the logical K/V, not on
-// which physical pages hold it, so a shuffled page layout gives bitwise
-// the same output.
-#include "common.cuh"
+// row is read once per group and not once per query head.  Each page goes
+// through decode_fold.cuh's fold (stage K/V rows in shared memory, score,
+// fold into (m, l), update the accumulator), the same code kernel #5
+// (flash_decode.cu) runs over a dense cache.  The result depends only on
+// the logical K/V, not on which physical pages hold it, so a shuffled page
+// layout gives bitwise the same output, and so does kernel #5 over the
+// gathered dense view with block_k == page_size.
+#include "decode_fold.cuh"
 
 namespace {
 
-constexpr int NT = 128;
-constexpr int NWARPS = NT / 32;
-constexpr int MAX_PER_THREAD = 8;  // G * hd <= NT * MAX_PER_THREAD
-
-template <int HD>
-size_t smem_bytes(int G, int ps) {
-  // qs[G][HD] + ks[ps][HD] + vs[ps][HD] + ss[G][ps] + ms[G] + ls[G] + alphas[G]
-  return sizeof(float) * (static_cast<size_t>(G) * HD + 2 * static_cast<size_t>(ps) * HD +
-                          static_cast<size_t>(G) * ps + 3 * static_cast<size_t>(G));
-}
+using decode::MAX_PER_THREAD;
+using decode::NT;
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(NT)
@@ -46,39 +38,14 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                     const T* __restrict__ v_pages, const int* __restrict__ tables,
                     const int* __restrict__ lens, T* __restrict__ o, int H, int KV,
                     int n_pages, int ps, int P, float scale) {
-  constexpr int N = Vec<T>::N;
-  constexpr int VPR = HD / N;
   const int kvh = blockIdx.x;
   const int b = blockIdx.y;
   const int G = H / KV;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-
   extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);
-  float* ks = qs + G * HD;
-  float* vs = ks + ps * HD;
-  float* ss = vs + ps * HD;
-  float* ms = ss + G * ps;
-  float* ls = ms + G;
-  float* alphas = ls + G;
-
-  // the G query heads of this group are contiguous: h = kvh * G + g
-  const T* qb = q + (static_cast<size_t>(b) * H + static_cast<size_t>(kvh) * G) * HD;
-  for (int i = tid; i < G * VPR; i += NT) {
-    float v[N];
-    load_vec<T>(qb + i * N, v);
-#pragma unroll
-    for (int e = 0; e < N; ++e) qs[i * N + e] = v[e];
-  }
-  if (tid < G) {
-    ms[tid] = NEG_INF;
-    ls[tid] = 0.f;
-  }
+  const size_t qo = (static_cast<size_t>(b) * H + static_cast<size_t>(kvh) * G) * HD;
   float acc[MAX_PER_THREAD];
-#pragma unroll
-  for (int t = 0; t < MAX_PER_THREAD; ++t) acc[t] = 0.f;
+  const decode::State st =
+      decode::init<T, HD>(reinterpret_cast<float*>(smem4), q + qo, G, ps, acc);
 
   const int len = lens[b];
   int n_pg = len > 0 ? (len + ps - 1) / ps : 0;
@@ -90,75 +57,10 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
     int page = trow[pi];
     page = page < 0 ? 0 : (page >= n_pages ? n_pages - 1 : page);  // clamp, as XLA gathers do
     const size_t base = static_cast<size_t>(page) * ps * row_stride + static_cast<size_t>(kvh) * HD;
-    __syncthreads();  // previous page fully consumed (and qs/ms/ls visible)
-    for (int i = tid; i < ps * VPR; i += NT) {
-      const int r = i / VPR;
-      const int c = (i % VPR) * N;
-      float kv[N], vv[N];
-      load_vec<T>(k_pages + base + r * row_stride + c, kv);
-      load_vec<T>(v_pages + base + r * row_stride + c, vv);
-#pragma unroll
-      for (int e = 0; e < N; ++e) {
-        ks[r * HD + c + e] = kv[e];
-        vs[r * HD + c + e] = vv[e];
-      }
-    }
-    __syncthreads();
-
-    const int k_start = pi * ps;
-    for (int pair = warp; pair < G * ps; pair += NWARPS) {
-      const int g = pair / ps;
-      const int j = pair - g * ps;
-      float dot = 0.f;
-#pragma unroll
-      for (int d = lane; d < HD; d += 32) dot = fmaf(qs[g * HD + d], ks[j * HD + d], dot);
-      dot = warp_sum(dot);
-      if (lane == 0) ss[g * ps + j] = (k_start + j < len) ? dot * scale : NEG_INF;
-    }
-    __syncthreads();
-
-    if (tid < G) {
-      const int g = tid;
-      float mx = NEG_INF;
-      for (int j = 0; j < ps; ++j) mx = fmaxf(mx, ss[g * ps + j]);
-      const float m_prev = ms[g];
-      const float m_cur = fmaxf(m_prev, mx);
-      const float alpha = expf(m_prev - m_cur);
-      float sum = 0.f;
-      for (int j = 0; j < ps; ++j) {
-        const float p = expf(ss[g * ps + j] - m_cur);
-        ss[g * ps + j] = p;
-        sum += p;
-      }
-      ls[g] = ls[g] * alpha + sum;
-      ms[g] = m_cur;
-      alphas[g] = alpha;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int t = 0; t < MAX_PER_THREAD; ++t) {
-      const int idx = tid + t * NT;
-      if (idx < G * HD) {
-        const int g = idx / HD;
-        const int d = idx - g * HD;
-        float a = acc[t] * alphas[g];
-        for (int j = 0; j < ps; ++j) a = fmaf(ss[g * ps + j], vs[j * HD + d], a);
-        acc[t] = a;
-      }
-    }
+    decode::fold_block<T, HD>(st, k_pages + base, v_pages + base, row_stride, ps, pi * ps, len,
+                              scale, acc);
   }
-  __syncthreads();
-
-  T* ob = o + (static_cast<size_t>(b) * H + static_cast<size_t>(kvh) * G) * HD;
-#pragma unroll
-  for (int t = 0; t < MAX_PER_THREAD; ++t) {
-    const int idx = tid + t * NT;
-    if (idx < G * HD) {
-      const int g = idx / HD;
-      ob[idx] = from_f<T>(acc[t] / fmaxf(ls[g], 1e-30f));
-    }
-  }
+  decode::finish<T, HD>(st, o + qo, acc);
 }
 
 template <typename T, int HD>
@@ -167,7 +69,7 @@ int launch(const void* q, const void* kp, const void* vp, const int* tables,
            float scale, cudaStream_t stream) {
   const int G = H / KV;
   if (G * HD > NT * MAX_PER_THREAD) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes<HD>(G, ps);
+  const size_t smem = decode::smem_bytes<HD>(G, ps);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(paged_decode_kernel<T, HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -6,7 +6,8 @@ the libraries are loaded with ``ctypes``.  The build happens at first use
 (or all at once through :func:`build_all`, one ``nvcc`` per source, started
 together), into ``repro_torch/build/`` next to the sources; ``.gitignore``
 lists that directory.  A library's file name carries a hash of its source,
-so an edited source is rebuilt and never served stale.
+so an edited source (or any shared ``*.cuh`` header) is rebuilt and never
+served stale.
 
 Nothing here runs when the module is imported: the CPU tests import every
 module, and this machine may have no ``nvcc``.
@@ -31,7 +32,8 @@ NVCC_FLAGS = [
     "-Xptxas", "-v",
 ]
 
-SOURCES = ("rmsnorm", "swiglu", "flash_attention", "paged_decode", "lowrank_wgrad")
+SOURCES = ("rmsnorm", "swiglu", "flash_attention", "paged_decode", "lowrank_wgrad",
+           "flash_decode")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -50,7 +52,8 @@ def nvcc_path() -> str:
 def _lib_path(name: str) -> Path:
     src = CSRC_DIR / f"{name}.cu"
     h = hashlib.sha1(src.read_bytes())
-    h.update((CSRC_DIR / "common.cuh").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 

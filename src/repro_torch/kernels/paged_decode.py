@@ -19,30 +19,19 @@ from repro_torch.kernels import (
     FLOAT, INT, PTR, aligned16, check_launch, check_operand, dtype_code, kernel_fn,
     refuse_detach, runs_plain, stream_ptr,
 )
-
-NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128)
+from repro_torch.kernels.flash_decode import HEAD_DIMS, flash_decode_plain
 
 
 def paged_decode_plain(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
                        tables: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
-    """Gather each slot's pages into a dense view, then a masked f32
-    softmax; lanes of length 0 are set to exactly 0, as the kernel's clamped
-    denominator gives."""
-    B, _, H, hd = q.shape
-    _, ps, KV, _ = k_pages.shape
-    Pw = tables.shape[1]
+    """Gather each slot's pages into a dense view and run the dense decode's
+    plain version over it (f32 masked softmax, length-0 lanes exactly 0)."""
+    B = q.shape[0]
+    KV, hd = k_pages.shape[2:]
     idx = tables.long()
-    k = k_pages[idx].reshape(B, Pw * ps, KV, hd).float()
-    v = v_pages[idx].reshape(B, Pw * ps, KV, hd).float()
-    qg = q.reshape(B, KV, H // KV, hd).float()
-    s = torch.einsum("bkgh,bskh->bkgs", qg, k) * (1.0 / math.sqrt(hd))
-    lens = lens.long()
-    valid = torch.arange(Pw * ps, device=q.device)[None, :] < lens[:, None]
-    s = s.masked_fill(~valid[:, None, None, :], NEG_INF)
-    o = torch.einsum("bkgs,bskh->bkgh", torch.softmax(s, dim=-1), v)
-    o = torch.where((lens > 0)[:, None, None, None], o, torch.zeros_like(o))
-    return o.reshape(B, 1, H, hd).to(q.dtype)
+    k = k_pages[idx].reshape(B, -1, KV, hd)
+    v = v_pages[idx].reshape(B, -1, KV, hd)
+    return flash_decode_plain(q, k, v, lens)
 
 
 def paged_decode(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,

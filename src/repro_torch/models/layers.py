@@ -1,6 +1,6 @@
-"""Layers: RMSNorm, RoPE, GQA attention (training, prefill and paged
-decode), the SwiGLU FFN, the chunked cross-entropy and the serving head
-(counterpart of ``repro.models.layers``).
+"""Layers: RMSNorm, RoPE, GQA attention (training, prefill, chunk prefill,
+dense and paged decode), the SwiGLU FFN, the chunked cross-entropy and the
+serving head (counterpart of ``repro.models.layers``).
 
 Activations keep the JAX package's ``(B, S, H, hd)`` layout.  The norms,
 the FFN activation and the attention go through the kernel wrappers of
@@ -25,6 +25,7 @@ from repro_torch.core.lowrank import lowrank_linear
 from repro_torch.core.recompute import ffn_recompute
 from repro_torch.core.skipconn import cast_grad, grad_gate
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.kernels.paged_decode import paged_decode
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.swiglu import swiglu
@@ -44,6 +45,42 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, cur_len,
+                     *, block_k: Optional[int] = None) -> torch.Tensor:
+    """Single-token attention against a dense ``(B, Smax, KV, hd)`` cache.
+
+    q: (B, 1, H, hd); ``cur_len``: valid cache positions (after this step's
+    K/V were written), a scalar or a ``(B,)`` vector for the ragged
+    continuous-batching layout.  It computes :func:`flash_decode`'s function
+    (kernel #5 on the card): an f32 softmax whose probabilities multiply V in
+    f32.  The JAX ``decode_attention`` casts the probabilities to the cache
+    dtype before that product, so the two differ in bf16 only.
+    """
+    return flash_decode(q, k_cache, v_cache, cur_len, block_k=block_k)
+
+
+def history_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                      off: int) -> torch.Tensor:
+    """Chunk-prefill attention: C queries starting at position ``off`` attend
+    to the cache prefix plus themselves (their K/V were written at
+    ``off..off+C-1`` before the call).
+
+    q: (B, C, H, hd); caches: (B, Smax, KV, hd).  Query ``i`` attends to
+    cache positions ``<= off + i``.  Plain torch, as in the JAX package
+    (jnp, outside any Pallas kernel), with its cast of the f32
+    probabilities to the cache dtype before the PV product.
+    """
+    B, C, H, hd = q.shape
+    KV = k_cache.shape[2]
+    qg = q.reshape(B, C, KV, H // KV, hd)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg, k_cache).float() * hd ** -0.5
+    k_pos = torch.arange(k_cache.shape[1], device=q.device)[None, :]
+    q_pos = off + torch.arange(C, device=q.device)[:, None]
+    s = s.masked_fill(~(k_pos <= q_pos), -1e30)
+    p = torch.softmax(s, dim=-1).to(v_cache.dtype)
+    return torch.einsum("bkgqs,bskh->bqkgh", p, v_cache).reshape(B, C, H, hd)
+
+
 def attention_block(
     p,
     x: torch.Tensor,
@@ -52,20 +89,31 @@ def attention_block(
     *,
     keep=1.0,
     cache: Optional[dict] = None,
-    cur_len: Optional[torch.Tensor] = None,
+    cur_len=None,
+    history: bool = False,
     page_tables: Optional[torch.Tensor] = None,
     page_size: Optional[int] = None,
 ):
     """Pre-norm GQA sublayer with residual; returns (y, cache).
 
+    The branches, in the JAX package's order:
+
     * ``page_tables`` given: paged decode.  ``cache`` holds this layer's
       page pools ``(n_pages, page_size, KV, hd)``; each slot's new K/V row
       is written into its page **in place** (JAX's pool is functional and
-      donated instead), and the decode kernel walks the page tables over
+      donated instead), and the paged kernel walks the page tables over
       ``cur_len + 1`` positions.
-    * ``cache`` given: prefill.  ``cache`` holds ``(B, S, KV, hd)`` buffers
-      that receive this prompt's K/V; attention runs within the prompt
-      through the causal flash-attention kernel.
+    * ``cache`` and ``history``: chunk prefill.  The chunk's K/V rows are
+      written into the dense ``(B, Smax, KV, hd)`` cache at ``cur_len`` (an
+      int offset), then the chunk attends to the prefix plus itself.
+    * ``cache`` with one query row: dense decode.  Each slot's new K/V row
+      is written at ``cur_len[b]`` (or at the scalar ``cur_len``) of the
+      dense cache in place, then kernel #5 attends over ``cur_len + 1``
+      positions in blocks of ``page_size`` rows (the engine's dense view is
+      gathered page by page, so that is the paged kernel's block order).
+    * ``cache`` otherwise: prefill.  ``cache`` holds ``(B, S, KV, hd)``
+      buffers that receive this prompt's K/V; attention runs within the
+      prompt through the causal flash-attention kernel.
     * neither: training; causal attention within the sequence.
 
     ``keep`` is technique I's mask (a (B,) tensor or a constant).  The whole
@@ -75,17 +123,18 @@ def attention_block(
     branch runs under ``torch.no_grad()``, so autograd saves nothing of it
     and there is no MHA backward at all.
     """
+    args = (p, x, cfg, positions, cache, cur_len, history, page_tables, page_size)
     if not torch.is_tensor(keep) and keep == 0.0:
         with torch.no_grad():
-            y = _attention(p, x, cfg, positions, cache, cur_len, page_tables, page_size)
+            y = _attention(*args)
     else:
-        y = _attention(p, x, cfg, positions, cache, cur_len, page_tables, page_size)
+        y = _attention(*args)
         if torch.is_tensor(keep) or keep != 1.0:
             y = grad_gate(y, keep)
     return cast_grad(x + y), cache
 
 
-def _attention(p, x, cfg, positions, cache, cur_len, page_tables, page_size):
+def _attention(p, x, cfg, positions, cache, cur_len, history, page_tables, page_size):
     xn = rmsnorm(x, p["ln"], cfg.norm_eps)
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
@@ -98,7 +147,7 @@ def _attention(p, x, cfg, positions, cache, cur_len, page_tables, page_size):
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
 
-    if page_tables is not None:
+    if cache is not None and page_tables is not None:
         if cur_len is None or page_size is None:
             raise ValueError("paged decode requires cur_len and page_size")
         pids = torch.gather(page_tables, 1, (cur_len // page_size)[:, None].long())[:, 0]
@@ -106,10 +155,27 @@ def _attention(p, x, cfg, positions, cache, cur_len, page_tables, page_size):
         cache["k"][pids.long(), offs.long()] = k[:, 0].to(cache["k"].dtype)
         cache["v"][pids.long(), offs.long()] = v[:, 0].to(cache["v"].dtype)
         o = paged_decode(q, cache["k"], cache["v"], page_tables, cur_len + 1)
-    else:
-        if cache is not None:
+    elif cache is not None:
+        if cur_len is None:
+            raise ValueError("decode/prefill cache requires cur_len")
+        if history:
+            off = int(cur_len)
+            cache["k"][:, off:off + S] = k.to(cache["k"].dtype)
+            cache["v"][:, off:off + S] = v.to(cache["v"].dtype)
+            o = history_attention(q, cache["k"], cache["v"], off)
+        elif S == 1:
+            if torch.is_tensor(cur_len) and cur_len.dim():  # ragged per-slot rows
+                at = (torch.arange(B, device=x.device), cur_len.long())
+            else:
+                at = (slice(None), int(cur_len))
+            cache["k"][at] = k[:, 0].to(cache["k"].dtype)
+            cache["v"][at] = v[:, 0].to(cache["v"].dtype)
+            o = decode_attention(q, cache["k"], cache["v"], cur_len + 1, block_k=page_size)
+        else:
             cache["k"].copy_(k)
             cache["v"].copy_(v)
+            o = flash_attention(q, k, v)
+    else:
         o = flash_attention(q, k, v)
 
     return o.reshape(B, S, cfg.n_heads * hd) @ p["wo"]

@@ -62,7 +62,8 @@ def run_trunk(
     ctx: Optional[NDBContext] = None,
     flags: Optional[ExecFlags] = None,
     caches: Optional[Tree] = None,
-    cur_len: Optional[torch.Tensor] = None,
+    cur_len=None,
+    prefill_history: bool = False,
     page_tables: Optional[torch.Tensor] = None,
     page_size: Optional[int] = None,
 ):
@@ -70,10 +71,12 @@ def run_trunk(
 
     Training passes ``proj`` (the V1 tree), ``ctx`` (the NDB context with
     its ``(L, B)`` keep mask) and ``flags``; serving passes ``caches``,
-    whose leaves are stacked over periods like the params: dense prefill
-    buffers ``(n_periods, B, S, KV, hd)``, or with ``page_tables`` the
-    physical page pools ``(n_periods, n_pages, page_size, KV, hd)``.  Both
-    are written in place.
+    whose leaves are stacked over periods like the params: dense buffers
+    ``(n_periods, B, S, KV, hd)`` (a prefill's, or the engine's dense
+    view), or with ``page_tables`` the physical page pools ``(n_periods,
+    n_pages, page_size, KV, hd)``.  Both are written in place.
+    ``prefill_history`` marks a chunk prefill (queries at ``cur_len..``
+    attending to the cache prefix plus themselves).
     """
     layout = block_layout(cfg)
     if any(kind != "attn" or is_moe for kind, is_moe in layout):
@@ -100,7 +103,8 @@ def run_trunk(
                 {k: t[i] for k, t in bp["mixer"].items()}, h, cfg, positions,
                 keep=keep_l if ctx.mecefo.skip_mha_backward else 1.0,
                 cache=None if caches is None else _period(caches[pos], i),
-                cur_len=cur_len, page_tables=page_tables, page_size=page_size,
+                cur_len=cur_len, history=prefill_history, page_tables=page_tables,
+                page_size=page_size,
             )
             pj = None if layer_proj is None or layer_proj[pos] is None else {
                 k: t[i] for k, t in layer_proj[pos].items()}
@@ -171,7 +175,7 @@ def forward_prefill(
         {k: torch.empty(s.shape, dtype=s.dtype, device=h.device) for k, s in entry.items()}
         for entry in cache_structs_tree
     )
-    h, caches = run_trunk(params, h, cfg, positions=positions, caches=caches)
+    h, caches = run_trunk(params, h, cfg, positions=positions, caches=caches, cur_len=0)
     if logit_pos is None:
         h_last = h[:, -1]
     elif torch.is_tensor(logit_pos) and logit_pos.dim():
@@ -182,26 +186,61 @@ def forward_prefill(
     return caches, logits_for_position(h_last, _unembed(params), cfg.vocab_size)
 
 
+def forward_prefill_chunk(
+    params: Tree,
+    caches: Tree,
+    batch: Tree,
+    off: int,
+    cfg: ModelConfig,
+    logit_idx: int,
+):
+    """One page-aligned prompt chunk: tokens at positions ``off..off+C-1``
+    attend to the dense cache's prefix ``[0, off)`` (earlier chunks or a
+    forked shared prefix) plus themselves, and write their K/V rows into the
+    cache at ``off``, in place.  Returns (caches, (B, V) logits at
+    chunk-local position ``logit_idx``).  Pad tokens past the true chunk
+    length write rows at or past the slot's length, which are never read.
+    """
+    tokens = batch["tokens"]
+    h = params["embed"][tokens.long()]
+    positions = off + torch.arange(tokens.shape[1], device=h.device)
+    h, caches = run_trunk(params, h, cfg, positions=positions, caches=caches, cur_len=off,
+                          prefill_history=True)
+    h_last = rmsnorm(h[:, logit_idx].contiguous(), params["final_norm"], cfg.norm_eps)
+    return caches, logits_for_position(h_last, _unembed(params), cfg.vocab_size)
+
+
 def forward_decode(
     params: Tree,
     caches: Tree,
     token: torch.Tensor,
-    cur_len: torch.Tensor,
+    cur_len,
     cfg: ModelConfig,
     *,
-    page_tables: torch.Tensor,
-    page_size: int,
+    page_tables: Optional[torch.Tensor] = None,
+    page_size: Optional[int] = None,
 ):
-    """One decode step on the paged pool: returns (caches, (B, V) logits).
+    """One decode step: returns (caches, (B, V) logits).
 
-    ``token``: (B,) ids; ``cur_len``: (B,) int32 valid positions per slot
-    before this step; ``page_tables``: (B, P) int32.  Each slot's new K/V
-    row is written into its page in place and attention walks the page
-    tables; the dense-cache decode of the JAX package is not ported.
+    ``token``: (B,) ids; ``cur_len``: valid positions before this step, a
+    scalar (every sequence at one position) or a (B,) int32 tensor (ragged
+    per-slot positions).  With ``page_tables`` ((B, P) int32) the caches are
+    the physical page pools: each slot's new K/V row is written into its
+    page in place and the paged kernel walks the tables.  Without, the
+    caches are dense ``(n_periods, B, Smax, KV, hd)`` buffers: the new row
+    is written at ``cur_len`` in place and kernel #5 attends over them, in
+    blocks of ``page_size`` rows when given.
     """
     h = params["embed"][token.long()][:, None, :]
+    B = h.shape[0]
+    if torch.is_tensor(cur_len) and cur_len.dim():
+        positions = cur_len[:, None]
+    else:  # one shared position
+        positions = torch.full((1,), int(cur_len), dtype=torch.int32, device=h.device)
+        if page_tables is not None:
+            cur_len = positions.expand(B)
     h, caches = run_trunk(
-        params, h, cfg, positions=cur_len[:, None], caches=caches, cur_len=cur_len,
+        params, h, cfg, positions=positions, caches=caches, cur_len=cur_len,
         page_tables=page_tables, page_size=page_size,
     )
     h = rmsnorm(h[:, -1], params["final_norm"], cfg.norm_eps)

@@ -2,28 +2,46 @@
 (counterpart of ``repro.serve.engine``).
 
 The engine keeps a fixed decode batch of ``max_slots`` slots.  Each engine
-step, new requests are bound to free slots and prefilled (which also emits
-their first token), and then every occupied slot advances one decode round
-at the full ``(max_slots,)`` shape with per-slot lengths.  Empty slots carry
+step, pending chunked prefills advance one chunk, new requests are bound to
+free slots and prefilled (which also emits their first token), and then
+every occupied slot that is not mid-prefill advances one decode round at
+the full ``(max_slots,)`` shape with per-slot lengths.  Empty slots carry
 null page tables and length 0; their lanes write into the null page and
 compute values nobody reads.
 
-Data path on the card: the prefill runs the causal flash-attention kernel
-and scatters its K/V into pages; the decode round writes each slot's new
-K/V row into its page in place and walks the page tables in the
-paged-decode kernel; RMSNorm and SwiGLU run their kernels in both.  Greedy
-sampling follows each step.
+Decode data paths (``EngineConfig.use_paged_kernel``):
+  * dense (default) — ``gather_pages`` copies every table entry into a
+    slot-major dense view, ``forward_decode`` writes each slot's new K/V row
+    there and runs kernel #5 (``kernels/flash_decode.py``) over it in
+    page-sized blocks, and ``scatter_token`` copies the new rows back to
+    their pages;
+  * paged — each slot's new K/V row lands in its page in place and kernel
+    #1 (``kernels/paged_decode.py``) walks the page tables: no dense copy.
+Both fold the same rows in the same order, so they give bitwise the same
+attention output on the card.
 
-Ported so far: continuous admission with same-bucket batched prefill, the
-paged decode round and eviction.  Chunked prefill, prefix sharing,
-preemption, priority and lockstep admission, int8 pages and the failover
-restore paths are not.
+Prefill paths:
+  * batched — up to ``max_prefills_per_step`` same-bucket prompts (equal
+    page-aligned padded length) run as one ``forward_prefill`` call through
+    the causal flash-attention kernel;
+  * chunked — prompts longer than ``prefill_chunk_pages`` pages are split
+    into page-aligned chunks, one per engine step, interleaved with the
+    decode rounds; each chunk gathers its slot's dense view, attends to the
+    prefix plus itself (plain history attention) and scatters its pages
+    back;
+  * shared — with ``prefix_sharing``, prompts that extend an already-seen
+    prompt fork the matching pages (refcounted, copy-on-write on the first
+    write into a shared page) and prefill only their tail through the chunk
+    machinery.
+
+Not ported yet: preemption, priority and lockstep admission, int8 pages,
+KV snapshots and the failover restore paths.
 """
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
-from typing import Any, List, Optional, Tuple
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -31,19 +49,37 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.kvcache import cache_structs
-from repro_torch.models.model import forward_decode, forward_prefill
+from repro_torch.models.model import forward_decode, forward_prefill, forward_prefill_chunk
 from repro_torch.serve.kvpool import (
     NULL_PAGE,
     PageAllocator,
     check_attention_only,
+    copy_page,
+    gather_pages,
     init_pool,
+    page_nbytes,
     pages_needed,
+    scatter_pages,
     scatter_prefill,
+    scatter_token,
 )
 from repro_torch.serve.request import RequestState
 from repro_torch.serve.sampling import greedy_token
 
 Tree = Any
+
+# the engine's counters (the JAX package declares them in repro.obs.catalog
+# as ENGINE_STAT_KEYS; preemption's is not ported); ``drain_stats`` adds the
+# page allocator's n_pages_allocated, n_pages_forked and n_cow_pages
+ENGINE_STAT_KEYS: Tuple[str, ...] = (
+    "decode_rounds",
+    "kv_bytes_dense",
+    "kv_bytes_paged",
+    "shared_prefix_tokens",
+    "n_prefix_hits",
+    "n_pages_shared",
+    "n_admission_plans",
+)
 
 
 @dataclass(frozen=True)
@@ -55,6 +91,13 @@ class EngineConfig:
     pages_per_slot: int = 8     # page-table width -> max_len per request
     n_pages: int = 0            # physical pages incl. null; 0 -> full reserve
     max_prefills_per_step: int = 1  # admission budget per step
+    use_paged_kernel: bool = False  # page-table-walking decode (kernel #1)
+    prefill_chunk_pages: int = 0    # chunk prompts longer than this (0 = off)
+    prefix_sharing: bool = False    # COW page sharing for common prefixes
+
+    def __post_init__(self):
+        if self.prefill_chunk_pages < 0:
+            raise ValueError("prefill_chunk_pages must be >= 0")
 
     @property
     def max_len(self) -> int:
@@ -65,6 +108,35 @@ class EngineConfig:
         if self.n_pages:
             return self.n_pages
         return 1 + self.max_slots * self.pages_per_slot
+
+
+@dataclass
+class AdmitPlan:
+    """How a fresh request lands in a slot: forked shared-prefix pages plus
+    the free pages its own span still needs."""
+
+    n_shared: int = 0                       # prompt positions forked, not run
+    fork_pages: List[int] = field(default_factory=list)
+    need: int = 0                           # free pages required
+    donor: Optional[Tuple[int, ...]] = None  # registry key the fork came from
+
+
+@dataclass
+class _PendingPrefill:
+    """A slot mid-way through a chunked (or shared-suffix) prefill."""
+
+    prompt: Tuple[int, ...]
+    next_off: int   # cache positions already valid (forked prefix + chunks)
+    step: int       # last engine step a chunk ran (one chunk per step)
+
+
+def _lcp(a: Sequence[int], b: Sequence[int]) -> int:
+    n = 0
+    for x, y in zip(a, b):
+        if x != y:
+            break
+        n += 1
+    return n
 
 
 class ServeEngine:
@@ -85,12 +157,25 @@ class ServeEngine:
         self.slots: List[Optional[RequestState]] = [None] * ecfg.max_slots
         self._tables = np.full((ecfg.max_slots, ecfg.pages_per_slot), NULL_PAGE, np.int32)
         self._lens = np.zeros((ecfg.max_slots,), np.int32)
-        # wall time of the two data paths, each ending in the host copy of
-        # the sampled tokens (which waits for the device)
+        self._pending: Dict[int, _PendingPrefill] = {}
+        # prefix registry: prompt -> (pseudo-table id, full-page ids).  The
+        # registry holds a refcount on the pages (a pseudo table), so a
+        # prefix outlives its first request until page pressure releases it
+        self._registry: Dict[Tuple[int, ...], Tuple[str, List[int]]] = {}
+        self._reg_counter = 0
+        self._page_nbytes = page_nbytes(self.pool)
+        # admission-plan cache: (rid, state fingerprint, plan-or-None), so a
+        # can_admit probe and the bind that follows it plan once
+        self._planned: Optional[Tuple[int, Tuple[int, int, int], Optional[AdmitPlan]]] = None
+        self.stats: Dict[str, int] = {k: 0 for k in ENGINE_STAT_KEYS}
+        # wall time of the data paths, each ending in the host copy of the
+        # sampled tokens (which waits for the device; a chunk that is not its
+        # prompt's last samples nothing and ends when its work is queued);
+        # the calls counted beside them: batched prefills and prompt chunks
         self.decode_wall_s = 0.0
         self.prefill_wall_s = 0.0
-        self.decode_rounds = 0
         self.prefill_calls = 0
+        self.chunk_calls = 0
 
     # -- capacity ------------------------------------------------------
     @property
@@ -103,26 +188,119 @@ class ServeEngine:
                 return i
         return None
 
-    # -- admission -----------------------------------------------------
-    def try_bind(self, rs: RequestState, step: int) -> Optional[int]:
-        """Bind ``rs`` to a free slot, reserving pages for its whole span
-        (prompt plus every new token), or return None when it does not fit."""
+    def plan_admission(self, rs: RequestState) -> AdmitPlan:
+        """Fork-aware page plan for a fresh request (deterministic)."""
+        self.stats["n_admission_plans"] += 1
+        ps = self.ecfg.page_size
+        total = pages_needed(rs.req.total_len, ps)
+        S = len(rs.req.prompt)
+        if self.ecfg.prefix_sharing and not rs.emitted:
+            best_len, best_pages, best_key = 0, None, None
+            for key, (_pseudo, pages) in self._registry.items():
+                n = min(_lcp(key, rs.req.prompt), S - 1, len(pages) * ps)
+                if n > best_len:
+                    best_len, best_pages, best_key = n, pages, key
+            if best_len >= ps:
+                n_cov = pages_needed(best_len, ps)
+                return AdmitPlan(n_shared=best_len, fork_pages=list(best_pages[:n_cov]),
+                                 need=total - best_len // ps, donor=best_key)
+        return AdmitPlan(need=total)
+
+    def _fingerprint(self) -> Tuple[int, int, int]:
+        """Capacity-relevant state a cached admission plan depends on."""
+        return (self.alloc.free_count, self.n_active, len(self._registry))
+
+    def _admissible(self, rs: RequestState) -> Optional[AdmitPlan]:
+        """The admission plan when ``rs`` fits (possibly after releasing
+        registry-only prefix pages), else None; cached against ``(rid,
+        fingerprint)`` for the bind that follows."""
         if rs.req.total_len > self.ecfg.max_len:
             raise ValueError(
                 f"request {rs.rid} needs {rs.req.total_len} positions "
                 f"> max_len {self.ecfg.max_len}"
             )
+        if self.free_slot() is None:
+            plan = None
+        else:
+            plan = self.plan_admission(rs)
+            if self.alloc.free_count < plan.need:
+                self._release_prefixes(plan.need, protect=plan.donor)
+            if self.alloc.free_count < plan.need:
+                plan = None
+        self._planned = (rs.rid, self._fingerprint(), plan)
+        return plan
+
+    def _take_plan(self, rs: RequestState) -> Optional[AdmitPlan]:
+        """The cached admission plan for ``rs`` if still valid, else a new one."""
+        if self._planned is not None:
+            rid, fp, plan = self._planned
+            if rid == rs.rid and fp == self._fingerprint():
+                self._planned = None
+                return plan
+        return self._admissible(rs)
+
+    def can_admit(self, rs: RequestState) -> bool:
+        return self._admissible(rs) is not None
+
+    # -- admission -----------------------------------------------------
+    def _bind(self, rs: RequestState, plan: Optional[AdmitPlan] = None) -> int:
         slot = self.free_slot()
-        if slot is None or not self.alloc.can_allocate(slot, rs.req.total_len):
-            return None
+        assert slot is not None
+        if plan is not None and plan.fork_pages:
+            self.alloc.fork(slot, plan.fork_pages)
+        # reserve the whole span up front (prompt plus every new token)
         self.alloc.ensure(slot, rs.req.total_len)
         self.slots[slot] = rs
         self._tables[slot] = self.alloc.table_row(slot, self.ecfg.pages_per_slot)
-        rs.admit_step = step
         return slot
+
+    def try_bind(self, rs: RequestState, step: int
+                 ) -> Optional[Tuple[int, AdmitPlan, bool]]:
+        """Admission check and bind.  Returns (slot, plan, complex) or None
+        when ``rs`` does not fit; ``complex`` marks prompts that go through
+        the chunk machinery (a forked prefix, or longer than the prefill
+        chunk) instead of the batched prefill."""
+        plan = self._take_plan(rs)
+        if plan is None:
+            return None
+        slot = self._bind(rs, plan)
+        rs.admit_step = step
+        cp = self.ecfg.prefill_chunk_pages
+        n_pg = pages_needed(len(rs.req.prompt), self.ecfg.page_size)
+        return slot, plan, plan.n_shared > 0 or (0 < cp < n_pg)
 
     def prefill_bucket(self, rs: RequestState) -> int:
         return pages_needed(len(rs.req.prompt), self.ecfg.page_size)
+
+    def admit_new(self, rs: RequestState, step: int) -> Optional[int]:
+        """Single-request admission: bind and prefill.  Returns the first
+        token, or None when a chunked prefill started (its token comes from
+        :meth:`step_prefills` later)."""
+        bound = self.try_bind(rs, step)
+        assert bound is not None, "caller must check can_admit"
+        slot, plan, is_complex = bound
+        if is_complex:
+            return self.start_prefill(slot, rs, plan, step)
+        return self.prefill_bound([(slot, rs)], step)[0]
+
+    def start_prefill(self, slot: int, rs: RequestState, plan: AdmitPlan,
+                      step: int) -> Optional[int]:
+        """Begin a chunked or shared-suffix prefill on a bound slot.  The
+        first chunk runs now, later ones one per engine step.  Returns the
+        first token when the prompt finished within this call, else None."""
+        if plan.n_shared:
+            self.stats["shared_prefix_tokens"] += plan.n_shared
+            self.stats["n_prefix_hits"] += 1
+            # full pages never re-materialized (the forked partial page is
+            # copied on the first write, so it saves nothing)
+            self.stats["n_pages_shared"] += plan.n_shared // self.ecfg.page_size
+        self._pending[slot] = _PendingPrefill(tuple(rs.req.prompt), plan.n_shared, step)
+        tok = self._advance_prefill(slot, step)
+        if tok is not None:
+            rs.record_token(tok, step)
+            if rs.done:
+                self._evict(slot)
+        return tok
 
     def prefill_bound(self, pairs: List[Tuple[int, RequestState]], step: int) -> List[int]:
         """One batched prefill for bound slots whose prompts pad to the same
@@ -157,29 +335,172 @@ class ServeEngine:
             self._lens[slot] = len(rs.req.prompt)
             tok = int(toks[i])
             rs.record_token(tok, step)
+            self._register_prefix(slot)
             if rs.done:
                 self._evict(slot)
             out.append(tok)
         return out
 
+    # -- chunked prefill ----------------------------------------------
+    def _advance_prefill(self, slot: int, step: int) -> Optional[int]:
+        """Run the next page-aligned chunk of ``slot``'s pending prompt.
+
+        Gathers the slot's dense view (the forked prefix pages plus earlier
+        chunks), runs the chunk forward into it, and scatters the written
+        pages back.  Shared pages in the write range are copied first
+        (write-triggered COW: this is where a forked partial page detaches).
+        Returns the first token when this chunk was the last.
+        """
+        t0 = time.perf_counter()
+        pend = self._pending[slot]
+        ps = self.ecfg.page_size
+        S = len(pend.prompt)
+        pg_hi = pages_needed(S, ps) - 1
+        off = pend.next_off
+        pg_lo = off // ps
+        cp = self.ecfg.prefill_chunk_pages
+        pg_end = pg_hi if cp <= 0 else min(pg_lo + cp - 1, pg_hi)
+        true_c = min(S, (pg_end + 1) * ps) - off
+        final = pg_end == pg_hi
+        for idx in range(pg_lo, pg_end + 1):
+            self._cow_slot_page(slot, idx)
+        C_pad = (pg_end + 1) * ps - off
+        toks = np.zeros((1, C_pad), np.int32)
+        toks[0, :true_c] = pend.prompt[off:off + true_c]
+        dense = gather_pages(self.pool, self._dev(self._tables[slot][None]), page_size=ps)
+        dense, logits = forward_prefill_chunk(
+            self.params, dense, {"tokens": self._dev(toks)}, off, self.cfg, true_c - 1)
+        page_ids = np.asarray(self.alloc.tables[slot][pg_lo:pg_end + 1], np.int32)
+        scatter_pages(self.pool, dense, self._dev(page_ids), pg_lo=pg_lo,
+                      n_pg=pg_end - pg_lo + 1, page_size=ps)
+        pend.step = step
+        self.chunk_calls += 1
+        if not final:
+            pend.next_off = (pg_end + 1) * ps
+            self.prefill_wall_s += time.perf_counter() - t0
+            return None
+        tok = int(greedy_token(logits, self.cfg)[0])
+        self.prefill_wall_s += time.perf_counter() - t0
+        del self._pending[slot]
+        self._lens[slot] = S
+        self._register_prefix(slot)
+        return tok
+
+    def step_prefills(self, step: int) -> List[Tuple[RequestState, int, bool]]:
+        """Advance every pending chunked prefill one chunk.  Returns
+        [(state, first_token, completed)] for the prompts that finished."""
+        out = []
+        for slot in sorted(self._pending):
+            if self._pending[slot].step >= step:
+                continue  # already advanced this step (a fresh admission)
+            rs = self.slots[slot]
+            tok = self._advance_prefill(slot, step)
+            if tok is None:
+                continue
+            rs.record_token(tok, step)
+            if rs.done:
+                self._evict(slot)
+            out.append((rs, tok, rs.done))
+        return out
+
+    # -- prefix sharing -----------------------------------------------
+    def _register_prefix(self, slot: int) -> None:
+        """Retain the full prompt pages of a freshly prefilled slot under a
+        registry pseudo-table, so later prompts sharing the prefix can fork
+        them (even after this request completes)."""
+        if not self.ecfg.prefix_sharing:
+            return
+        prompt = tuple(self.slots[slot].req.prompt)
+        n_full = len(prompt) // self.ecfg.page_size
+        if n_full < 1 or prompt in self._registry:
+            return
+        pages = list(self.alloc.tables[slot][:n_full])
+        pseudo = f"~pfx{self._reg_counter}"
+        self._reg_counter += 1
+        self.alloc.fork(pseudo, pages)
+        self._registry[prompt] = (pseudo, pages)
+
+    def _release_prefixes(self, need: int, protect: Optional[Tuple[int, ...]] = None) -> None:
+        """Page pressure: drop registry entries (oldest first) until ``need``
+        pages are free.  Only entries whose release returns pages are
+        dropped; ``protect`` keeps a planned fork donor resident."""
+        while self.alloc.free_count < need:
+            key = next(
+                (k for k, (_pseudo, pages) in self._registry.items()
+                 if k != protect and any(self.alloc.refcount.get(p) == 1 for p in pages)),
+                None,
+            )
+            if key is None:
+                return
+            pseudo, _pages = self._registry.pop(key)
+            self.alloc.free(pseudo)
+
+    def _cow_slot_page(self, slot: int, idx: int) -> None:
+        """Copy-on-write: detach table entry ``idx`` before a write if the
+        page is shared, duplicating its physical contents."""
+        table = self.alloc.tables.get(slot, [])
+        if idx >= len(table) or not self.alloc.shared(table[idx]):
+            return
+        if self.alloc.free_count == 0:
+            self._release_prefixes(1)
+            if not self.alloc.shared(table[idx]):
+                return  # the release dropped the only other holder
+        old, new = self.alloc.cow(slot, idx)
+        copy_page(self.pool, old, new)
+        self._tables[slot][idx] = new
+
     # -- decode --------------------------------------------------------
+    def _decode(self, tables: torch.Tensor, lens: torch.Tensor, toks: torch.Tensor
+                ) -> torch.Tensor:
+        """One decode round on the configured data path; returns the (B, V)
+        logits.  The pool is written in place."""
+        ps = self.ecfg.page_size
+        if self.ecfg.use_paged_kernel:
+            _, logits = forward_decode(self.params, self.pool, toks, lens, self.cfg,
+                                       page_tables=tables, page_size=ps)
+            return logits
+        dense = gather_pages(self.pool, tables, page_size=ps)
+        dense, logits = forward_decode(self.params, dense, toks, lens, self.cfg, page_size=ps)
+        scatter_token(self.pool, dense, tables, lens, page_size=ps)
+        return logits
+
     def decode_round(self, step: int) -> List[Tuple[RequestState, int, bool]]:
         """Advance every occupied slot one token.  Returns [(state, token,
-        completed)] in slot order; completed requests are evicted."""
-        active = [i for i, s in enumerate(self.slots) if s is not None]
+        completed)] in slot order; completed requests are evicted.  Slots
+        still mid-chunk-prefill are skipped."""
+        active = [i for i, s in enumerate(self.slots)
+                  if s is not None and i not in self._pending]
         if not active:
             return []
+        ps = self.ecfg.page_size
+        if self.ecfg.prefix_sharing:
+            # write-triggered COW: this round writes each slot's K/V row at
+            # position lens[i]; detach that page if it is shared
+            for i in active:
+                self._cow_slot_page(i, int(self._lens[i]) // ps)
         toks = np.zeros((self.ecfg.max_slots,), np.int32)
         for i in active:
             toks[i] = self.slots[i].emitted[-1]
+        tables = self._tables
+        if self._pending:
+            # mid-chunk-prefill slots hold real pages at length 0: give their
+            # lanes the null table so the round's padded write cannot stomp
+            # position 0 of their first page
+            tables = tables.copy()
+            for i in self._pending:
+                tables[i] = NULL_PAGE
         t0 = time.perf_counter()
-        self.pool, logits = forward_decode(
-            self.params, self.pool, self._dev(toks), self._dev(self._lens), self.cfg,
-            page_tables=self._dev(self._tables), page_size=self.ecfg.page_size,
-        )
+        logits = self._decode(self._dev(tables), self._dev(self._lens), self._dev(toks))
         new_toks = greedy_token(logits, self.cfg).cpu().numpy()
         self.decode_wall_s += time.perf_counter() - t0
-        self.decode_rounds += 1
+        # modeled KV traffic: the dense gather copies every table entry of
+        # every slot; the paged walk reads only the pages covering each
+        # active slot's length
+        B, P = self.ecfg.max_slots, self.ecfg.pages_per_slot
+        self.stats["decode_rounds"] += 1
+        self.stats["kv_bytes_dense"] += B * P * self._page_nbytes
+        self.stats["kv_bytes_paged"] += self._page_nbytes * sum(
+            pages_needed(int(self._lens[i]) + 1, ps) for i in active)
         out = []
         for i in active:
             rs = self.slots[i]
@@ -188,9 +509,7 @@ class ServeEngine:
             rs.record_token(tok, step)
             if rs.done:
                 self._evict(i)
-                out.append((rs, tok, True))
-            else:
-                out.append((rs, tok, False))
+            out.append((rs, tok, rs.done))
         return out
 
     def _evict(self, slot: int) -> None:
@@ -198,6 +517,19 @@ class ServeEngine:
         self.slots[slot] = None
         self._tables[slot] = NULL_PAGE
         self._lens[slot] = 0
+
+    def drain_stats(self) -> Dict[str, int]:
+        """Harvest (and reset) the modeled-traffic and sharing counters."""
+        out = dict(self.stats)
+        out["n_pages_allocated"] = self.alloc.n_pages_allocated
+        out["n_pages_forked"] = self.alloc.n_pages_forked
+        out["n_cow_pages"] = self.alloc.n_cow_copies
+        for k in self.stats:
+            self.stats[k] = 0
+        self.alloc.n_pages_allocated = 0
+        self.alloc.n_pages_forked = 0
+        self.alloc.n_cow_copies = 0
+        return out
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)

@@ -2,20 +2,27 @@
 (counterpart of ``repro.serve.kvpool``).
 
   * :class:`PageAllocator` — plain-Python bookkeeping, from the JAX
-    package: a free list of page ids and per-slot page tables.  Page 0 is
-    the reserved *null* page; every unused page-table entry points at it, so
-    the padded writes of inactive slots never touch a live page.  Prefix
-    sharing (refcounts, fork / copy-on-write) and the preemption dry run
-    are not ported yet, so every page belongs to exactly one table.
+    package: a free list of page ids and refcounted per-slot page tables.
+    Page 0 is the reserved *null* page; every unused page-table entry
+    points at it, so the padded writes of inactive slots never touch a live
+    page.  Pages may be shared between tables (copy-on-write prefix
+    sharing): :meth:`~PageAllocator.fork` adds a live page to another table
+    and bumps its refcount, :meth:`~PageAllocator.free` decrements instead
+    of freeing, and :meth:`~PageAllocator.cow` detaches a shared page into
+    a private copy before a write.
   * physical pages — tensors shaped ``(n_periods, n_pages, page_size, KV,
     hd)``.  They are updated in place (JAX's pool is a functional value
-    donated to each step).  Positions at or past a slot's length hold
-    whatever the page holds; the decode length mask gives them no weight.
+    donated to each step): the writers below are index copies into the
+    pool.  :func:`gather_pages` materializes a slot-major dense view
+    ``(n_periods, B, pages_per_slot * page_size, KV, hd)`` (the dense decode
+    round's and the chunk prefill's working copy).  Positions at or past a
+    slot's length hold whatever the page holds; the decode length mask
+    gives them no weight.
 """
 from __future__ import annotations
 
 from collections import deque
-from typing import Any, Deque, Dict, Hashable, List, Optional
+from typing import Any, Deque, Dict, Hashable, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
@@ -34,8 +41,11 @@ def pages_needed(n_tokens: int, page_size: int) -> int:
 
 
 class PageAllocator:
-    """Free-list page allocator over ids ``1..n_pages-1`` (0 is null).
+    """Refcounted free-list page allocator over ids ``1..n_pages-1`` (0 is
+    null).
 
+    Table keys are engine slot ids (ints) or opaque hashable handles (the
+    prefix registry retains shared-prefix pages under pseudo-slot keys).
     ``rng`` (a ``numpy.random.Generator``) shuffles the initial free list,
     to show that results do not depend on the physical page layout.
     """
@@ -53,10 +63,21 @@ class PageAllocator:
             rng.shuffle(order)
         self._free: Deque[int] = deque(order)
         self.tables: Dict[Hashable, List[int]] = {}
+        self.refcount: Dict[int, int] = {}
+        # accounting (monotonic until the engine drains them)
+        self.n_pages_allocated = 0
+        self.n_pages_forked = 0
+        self.n_cow_copies = 0
 
     @property
     def free_count(self) -> int:
         return len(self._free)
+
+    def live_pages(self) -> Set[int]:
+        return {p for t in self.tables.values() for p in t}
+
+    def shared(self, page: int) -> bool:
+        return self.refcount.get(page, 0) > 1
 
     def can_allocate(self, slot: Hashable, n_tokens: int) -> bool:
         have = len(self.tables.get(slot, ()))
@@ -76,12 +97,71 @@ class PageAllocator:
                 f"{len(self._free)} free"
             )
         new = [self._free.popleft() for _ in range(need)]
+        for p in new:
+            self.refcount[p] = 1
         table.extend(new)
+        self.n_pages_allocated += len(new)
         return new
 
+    def fork(self, slot: Hashable, pages: Sequence[int]) -> None:
+        """Append existing *live* pages to ``slot``'s table, sharing them
+        (copy-on-write): each forked page's refcount is incremented, and any
+        holder must :meth:`cow` before writing into it."""
+        table = self.tables.setdefault(slot, [])
+        for p in pages:
+            if self.refcount.get(p, 0) < 1 or p == NULL_PAGE:
+                raise ValueError(f"cannot fork dead/null page {p}")
+            if p in table:
+                raise ValueError(f"slot {slot} already holds page {p}")
+            self.refcount[p] += 1
+            table.append(p)
+        self.n_pages_forked += len(pages)
+
+    def cow(self, slot: Hashable, idx: int) -> Optional[Tuple[int, int]]:
+        """Detach table entry ``idx`` of ``slot`` before a write.  Returns
+        ``(old, new)`` page ids when the page was shared (the caller copies
+        the physical contents ``old -> new``), or None when it was private.
+        Raises ``MemoryError`` when no free page is left for the copy."""
+        table = self.tables[slot]
+        old = table[idx]
+        if self.refcount.get(old, 0) <= 1:
+            return None
+        if not self._free:
+            raise MemoryError(
+                f"KV pool exhausted: no free page for copy-on-write of "
+                f"page {old} (slot {slot})"
+            )
+        new = self._free.popleft()
+        table[idx] = new
+        self.refcount[old] -= 1
+        self.refcount[new] = 1
+        self.n_pages_allocated += 1
+        self.n_cow_copies += 1
+        return old, new
+
+    def releasable(self, slots: Sequence[Hashable]) -> int:
+        """Dry run of evicting ``slots`` together: how many pages would
+        return to the free list.  A shared page counts only when every
+        holder outside ``slots`` has let go."""
+        rc = dict(self.refcount)
+        freed = 0
+        for s in slots:
+            for p in self.tables.get(s, ()):
+                rc[p] -= 1
+                if rc[p] == 0:
+                    freed += 1
+        return freed
+
     def free(self, slot: Hashable) -> List[int]:
-        """Evict ``slot``: its pages return to the free list.  Returns them."""
-        released = self.tables.pop(slot, [])
+        """Evict ``slot``: decrement refcounts; pages reaching zero return
+        to the free list.  Returns the released pages (shared pages another
+        table still holds are not released)."""
+        released: List[int] = []
+        for p in self.tables.pop(slot, []):
+            self.refcount[p] -= 1
+            if self.refcount[p] == 0:
+                del self.refcount[p]
+                released.append(p)
         self._free.extend(released)
         return released
 
@@ -131,4 +211,61 @@ def scatter_prefill(pool: Tree, dense: Tree, page_ids: torch.Tensor, *,
     for entry, dn in zip(pool, dense):
         for k, pg in entry.items():
             pg[:, idx] = dn[k].reshape(pg.shape[0], n, n_pg, page_size, *pg.shape[3:])
+    return pool
+
+
+def page_nbytes(pool: Tree) -> int:
+    """Bytes one page id holds across every cache entry and layer period
+    (the unit of the modeled decode-traffic accounting)."""
+    return sum(pg.element_size() * pg.shape[0] * int(np.prod(pg.shape[2:]))
+               for entry in pool for pg in entry.values())
+
+
+def gather_pages(pool: Tree, tables: torch.Tensor, *, page_size: int) -> Tree:
+    """(B, P) page tables -> a fresh dense copy ``(n_periods, B, P *
+    page_size, KV, hd)`` of every cache leaf."""
+    B, P = tables.shape
+    idx = tables.long()
+    return tuple(
+        {k: pg[:, idx].reshape(pg.shape[0], B, P * page_size, *pg.shape[3:])
+         for k, pg in entry.items()}
+        for entry in pool
+    )
+
+
+def scatter_pages(pool: Tree, dense: Tree, page_ids: torch.Tensor, *, pg_lo: int,
+                  n_pg: int, page_size: int) -> Tree:
+    """Write pages ``[pg_lo, pg_lo + n_pg)`` of one slot's dense view
+    ``(n_periods, 1, P * page_size, KV, hd)`` back into the pool, in place
+    (the chunk-prefill commit).  ``page_ids``: (n_pg,) destination pages."""
+    idx = page_ids.long()
+    for entry, dn in zip(pool, dense):
+        for k, pg in entry.items():
+            chunks = dn[k][:, 0].reshape(pg.shape[0], -1, page_size, *pg.shape[3:])
+            pg[:, idx] = chunks[:, pg_lo:pg_lo + n_pg]
+    return pool
+
+
+def copy_page(pool: Tree, src: int, dst: int) -> Tree:
+    """Physical copy-on-write: duplicate page ``src`` into page ``dst``, in
+    place."""
+    for entry in pool:
+        for pg in entry.values():
+            pg[:, dst] = pg[:, src]
+    return pool
+
+
+def scatter_token(pool: Tree, dense: Tree, tables: torch.Tensor, lens: torch.Tensor, *,
+                  page_size: int) -> Tree:
+    """Write each slot's freshly decoded K/V row (position ``lens[b]`` of the
+    dense view) back to its page, in place.  Inactive slots (null tables,
+    length 0) write into the null page, never into live data."""
+    B = tables.shape[0]
+    lens = lens.long()
+    pids = torch.gather(tables.long(), 1, (lens // page_size)[:, None])[:, 0]
+    offs = lens % page_size
+    rows = torch.arange(B, device=lens.device)
+    for entry, dn in zip(pool, dense):
+        for k, pg in entry.items():
+            pg[:, pids, offs] = dn[k][:, rows, lens]
     return pool

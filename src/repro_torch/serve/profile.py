@@ -1,13 +1,13 @@
 """Where a serve run's time goes on the card.
 
-    PYTHONPATH=src python -m repro_torch.serve.profile --config qwen3-0.6b
+    PYTHONPATH=src python -m repro_torch.serve.profile --config qwen3-0.6b [--paged-kernel]
 
-Serves the same seeded workload as :mod:`repro_torch.serve.run` once to
-warm up, then again under ``torch.profiler`` (CPU and CUDA activities), and
-prints one JSON line: the wall time of the profiled run, the device time
-summed over all kernels, the device busy and idle shares, the engine's own
-decode and prefill wall times, and the kernels that take the most device
-time.
+Serves the same seeded workload as :mod:`repro_torch.serve.run` (with the
+same engine flags) once to warm up, then again under ``torch.profiler``
+(CPU and CUDA activities), and prints one JSON line: the wall time of the
+profiled run, the device time summed over all kernels, the device busy and
+idle shares, the engine's own decode and prefill wall times, and the
+kernels that take the most device time.
 """
 from __future__ import annotations
 
@@ -20,17 +20,18 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import resolve_device
 from repro_torch.serve import run
-from repro_torch.serve.engine import EngineConfig, ServeEngine
+from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.request import WorkloadSpec, build_workload
 
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--config", default=run.DEFAULT_CONFIG)
+    run.add_engine_args(ap)
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
     cfg, params = run.build(args.config, device=dev)
-    ecfg = EngineConfig(max_slots=8, page_size=16, pages_per_slot=64)
+    ecfg = run.engine_config(args)
     spec = WorkloadSpec(n_requests=16, vocab_size=cfg.vocab_size,
                         prompt_len=(64, 512), new_tokens=(16, 64), seed=0)
     run.serve(ServeEngine(cfg, params, ecfg, device=dev), build_workload(spec))  # warm-up
@@ -56,7 +57,8 @@ def main(argv=None) -> dict:
         "device_kernel_s": kernel_us / 1e6,
         "device_busy_share": kernel_us / 1e6 / wall,
         "device_idle_share": 1.0 - kernel_us / 1e6 / wall,
-        "decode_rounds": eng.decode_rounds, "decode_wall_s": eng.decode_wall_s,
+        "decode": "paged" if ecfg.use_paged_kernel else "dense",
+        "decode_rounds": res.accounting["decode_rounds"], "decode_wall_s": eng.decode_wall_s,
         "prefill_calls": eng.prefill_calls, "prefill_wall_s": eng.prefill_wall_s,
         "top_kernels": [{"name": e.key[:80], "calls": e.count, "device_s": dev_us(e) / 1e6}
                         for e in top],

@@ -5,10 +5,15 @@
 Builds the model from a seed at the config's published widths (``--layers``
 cuts the depth), generates a seeded workload, and serves it to completion
 with one :class:`ServeEngine`.  Each step follows the JAX package's
-``ReplicaSet.step`` without chaos, snapshots or chunked prefill: arrivals,
-then continuous admission (same-bucket prompts grouped into one batched
-prefill, up to ``max_prefills_per_step``), then one decode round.  Prints
-one JSON line with tokens/s and TTFT/TPOT in steps and in ms.
+``ReplicaSet.step`` for one replica without chaos or snapshots: arrivals,
+then one chunk of every pending chunked prefill, then continuous admission
+(same-bucket prompts grouped into one batched prefill, up to
+``max_prefills_per_step``; a forked prefix or a chunked prompt starts its
+own prefill), then one decode round.  Engine flags: ``--paged-kernel``
+(the paged decode round; default the dense one), ``--chunk-pages N``
+(chunked prefill), ``--prefix-sharing``; workload flags ``--shared-prefix
+N`` and ``--prefix-groups N``.  Prints one JSON line with tokens/s,
+TTFT/TPOT in steps and in ms, and the engine's counters.
 """
 from __future__ import annotations
 
@@ -39,6 +44,8 @@ class ServeResult:
     # the host copy of its sampled tokens, so the device work is inside it
     step_start: List[float] = field(default_factory=list)
     step_end: List[float] = field(default_factory=list)
+    # the engine's counters, drained at the end of the run
+    accounting: Dict[str, int] = field(default_factory=dict)
 
     def streams(self) -> Dict[int, List[int]]:
         return {rid: list(rs.emitted) for rid, rs in self.states.items()}
@@ -81,9 +88,10 @@ def check_workload_fits(workload: Sequence[Request], ecfg: EngineConfig) -> None
 
 def admit(eng: ServeEngine, queue: List[RequestState], t: int):
     """Continuous admission, as ``ReplicaSet._admit_into``: bind requests
-    from the queue head while the budget lasts and they fit, and run each
-    run of equal-bucket prompts as one batched prefill.  Returns
-    ``[(state, first_token, completed)]``."""
+    from the queue head while the budget lasts and they fit; each run of
+    equal-bucket prompts becomes one batched prefill, and a forked prefix
+    or a chunked prompt flushes the batch and starts its own prefill.
+    Returns ``[(state, first_token, completed)]``."""
     group: List = []
     out = []
 
@@ -96,14 +104,21 @@ def admit(eng: ServeEngine, queue: List[RequestState], t: int):
     admitted = 0
     while queue and admitted < eng.ecfg.max_prefills_per_step:
         rs = queue[0]
-        slot = eng.try_bind(rs, t)
-        if slot is None:
+        bound = eng.try_bind(rs, t)
+        if bound is None:
             break
         queue.pop(0)
-        bucket = eng.prefill_bucket(rs)
-        if group and group[0][2] != bucket:
+        slot, plan, is_complex = bound
+        if is_complex:
             flush()
-        group.append((slot, rs, bucket))
+            tok = eng.start_prefill(slot, rs, plan, t)
+            if tok is not None:  # else the first token comes from a later chunk
+                out.append((rs, tok, rs.done))
+        else:
+            bucket = eng.prefill_bucket(rs)
+            if group and group[0][2] != bucket:
+                flush()
+            group.append((slot, rs, bucket))
         admitted += 1
     flush()
     return out
@@ -112,7 +127,8 @@ def admit(eng: ServeEngine, queue: List[RequestState], t: int):
 def serve(eng: ServeEngine, workload: Sequence[Request], max_steps: int = 100_000
           ) -> ServeResult:
     """Serve ``workload`` to completion: each step releases the arrivals
-    due, admits, and runs one decode round."""
+    due, advances the pending chunked prefills, admits, and runs one decode
+    round."""
     check_workload_fits(workload, eng.ecfg)
     wl = sorted(workload, key=lambda req: (req.arrival_step, req.rid))
     states: Dict[int, RequestState] = {}
@@ -127,12 +143,16 @@ def serve(eng: ServeEngine, workload: Sequence[Request], max_steps: int = 100_00
             queue.append(rs)
             states[rs.rid] = rs
             nxt += 1
-        for rs, _tok, done in admit(eng, queue, t) + eng.decode_round(t):
+        events = eng.step_prefills(t)
+        events += admit(eng, queue, t)
+        events += eng.decode_round(t)
+        for rs, _tok, done in events:
             if done:
                 pending.discard(rs.rid)
         res.step_end.append(time.perf_counter())
         t += 1
     res.n_steps = t
+    res.accounting = eng.drain_stats()
     return res
 
 
@@ -154,6 +174,31 @@ def build(config: str, *, device="cuda", layers: int = 0, dtype: str = "",
     return cfg, init_params(cfg, gen, dev)
 
 
+def add_engine_args(ap: argparse.ArgumentParser) -> None:
+    """The engine's flags, shared with :mod:`repro_torch.serve.profile`."""
+    ap.add_argument("--max-slots", type=int, default=8)
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--pages-per-slot", type=int, default=64)
+    ap.add_argument("--max-prefills-per-step", type=int, default=1)
+    ap.add_argument("--paged-kernel", action="store_true",
+                    help="decode by walking the page tables (kernel #1); default: the "
+                         "dense gather view through kernel #5")
+    ap.add_argument("--chunk-pages", type=int, default=0,
+                    help="prefill prompts longer than this many pages in chunks (0 = off)")
+    ap.add_argument("--prefix-sharing", action="store_true",
+                    help="fork the pages of an already-seen prompt prefix (copy-on-write)")
+
+
+def engine_config(args) -> EngineConfig:
+    return EngineConfig(
+        max_slots=args.max_slots, page_size=args.page_size,
+        pages_per_slot=args.pages_per_slot,
+        max_prefills_per_step=args.max_prefills_per_step,
+        use_paged_kernel=args.paged_kernel, prefill_chunk_pages=args.chunk_pages,
+        prefix_sharing=args.prefix_sharing,
+    )
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--config", default=DEFAULT_CONFIG)
@@ -165,29 +210,27 @@ def main(argv=None) -> dict:
     ap.add_argument("--n-requests", type=int, default=16)
     ap.add_argument("--prompt-len", type=int, nargs=2, default=(64, 512))
     ap.add_argument("--new-tokens", type=int, nargs=2, default=(16, 64))
-    ap.add_argument("--max-slots", type=int, default=8)
-    ap.add_argument("--page-size", type=int, default=16)
-    ap.add_argument("--pages-per-slot", type=int, default=64)
-    ap.add_argument("--max-prefills-per-step", type=int, default=1)
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="a common seeded prompt prefix of this many tokens")
+    ap.add_argument("--prefix-groups", type=int, default=0,
+                    help="draw each prompt's prefix from this many distinct ones")
+    add_engine_args(ap)
     args = ap.parse_args(argv)
 
     cfg, params = build(args.config, device=args.device, layers=args.layers,
                         dtype=args.dtype, use_reduced=args.reduced, seed=args.seed)
-    ecfg = EngineConfig(
-        max_slots=args.max_slots, page_size=args.page_size,
-        pages_per_slot=args.pages_per_slot,
-        max_prefills_per_step=args.max_prefills_per_step,
-    )
     spec = WorkloadSpec(
         n_requests=args.n_requests, vocab_size=cfg.vocab_size, seed=args.seed,
         prompt_len=tuple(args.prompt_len), new_tokens=tuple(args.new_tokens),
+        shared_prefix=args.shared_prefix, n_prefix_groups=args.prefix_groups,
     )
-    eng = ServeEngine(cfg, params, ecfg, device=args.device)
+    eng = ServeEngine(cfg, params, engine_config(args), device=args.device)
     res = serve(eng, build_workload(spec))
     out = {"config": cfg.name, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
-           "device": str(eng.device), **res.summary(),
-           "decode_rounds": eng.decode_rounds, "decode_wall_s": eng.decode_wall_s,
-           "prefill_calls": eng.prefill_calls, "prefill_wall_s": eng.prefill_wall_s}
+           "device": str(eng.device), "decode": "paged" if args.paged_kernel else "dense",
+           **res.summary(), **res.accounting, "decode_wall_s": eng.decode_wall_s,
+           "prefill_calls": eng.prefill_calls, "chunk_calls": eng.chunk_calls,
+           "prefill_wall_s": eng.prefill_wall_s}
     print(json.dumps(out))
     return out
 

@@ -99,19 +99,86 @@ def test_paged_decode_kernel(cuda, dtype):
     assert torch.equal(out[0], torch.zeros_like(out[0]))
 
 
-def test_engine_goes_through_every_kernel(cuda):
+FLASH_DECODE_CASES = [
+    # (B, Smax, H, KV, hd, lens, block_k)
+    (5, 96, 16, 8, 128, [0, 1, 17, 96, 50], 16),
+    (3, 100, 8, 2, 64, [100, 33, 64], 64),     # ragged last block
+    (2, 40, 4, 1, 32, [7, 40], 128),           # block_k > Smax
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", FLASH_DECODE_CASES)
+def test_flash_decode_kernel(cuda, dtype, case):
+    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
+
+    B, Smax, H, KV, hd, lens, bk = case
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn(B, 1, H, hd, generator=gen, device=cuda).to(dtype)
+    k = torch.randn(B, Smax, KV, hd, generator=gen, device=cuda).to(dtype)
+    v = torch.randn(B, Smax, KV, hd, generator=gen, device=cuda).to(dtype)
+    lens = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = flash_decode.launches
+    out = flash_decode(q, k, v, lens, block_k=bk)
+    assert flash_decode.launches == before + 1
+    _close(out, flash_decode_plain(q, k, v, lens), dtype)
+    zero = lens == 0
+    assert torch.equal(out[zero], torch.zeros_like(out[zero]))
+    _close(flash_decode(q, k, v, int(lens[-1]), block_k=bk),
+           flash_decode_plain(q, k, v, int(lens[-1])), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_decode_bitwise_equals_paged_over_gathered_view(cuda, dtype):
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.paged_decode import paged_decode
+
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    B, H, KV, hd, ps, P = 4, 16, 8, 128, 16, 6
+    n_pages = 1 + B * P
+    q = torch.randn(B, 1, H, hd, generator=gen, device=cuda).to(dtype)
+    kp = torch.randn(n_pages, ps, KV, hd, generator=gen, device=cuda).to(dtype)
+    vp = torch.randn(n_pages, ps, KV, hd, generator=gen, device=cuda).to(dtype)
+    tables = (torch.randperm(n_pages - 1, generator=gen, device=cuda) + 1).reshape(B, P)
+    tables = tables.to(torch.int32)
+    lens = torch.tensor([0, 5, 48, 96], dtype=torch.int32, device=cuda)
+    kd = kp[tables.long()].reshape(B, P * ps, KV, hd)
+    vd = vp[tables.long()].reshape(B, P * ps, KV, hd)
+    assert torch.equal(flash_decode(q, kd, vd, lens, block_k=ps),
+                       paged_decode(q, kp, vp, tables, lens))
+
+
+def test_flash_decode_refuses_autograd(cuda):
+    from repro_torch.kernels.flash_decode import flash_decode
+
+    q = torch.randn(1, 1, 4, 32, device=cuda, requires_grad=True)
+    k = torch.randn(1, 16, 2, 32, device=cuda)
+    with pytest.raises(RuntimeError, match="autograd"):
+        flash_decode(q, k, k, 3)
+    with torch.no_grad():
+        assert flash_decode(q, k, k, 3).grad_fn is None
+
+
+@pytest.mark.parametrize("decode", ["paged", "dense"])
+def test_engine_goes_through_every_kernel(cuda, decode):
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_decode import flash_decode
     from repro_torch.kernels.paged_decode import paged_decode
     from repro_torch.kernels.rmsnorm import rmsnorm
     from repro_torch.kernels.swiglu import swiglu
     from repro_torch.serve import run
 
-    wrappers = (rmsnorm, swiglu, flash_attention, paged_decode)
+    used, unused = (paged_decode, flash_decode) if decode == "paged" else (flash_decode,
+                                                                           paged_decode)
+    wrappers = (rmsnorm, swiglu, flash_attention, used)
     before = [w.launches for w in wrappers]
+    idle = unused.launches
     out = run.main(["--reduced", "--n-requests", "4", "--prompt-len", "4", "40",
-                    "--new-tokens", "2", "9", "--max-slots", "2", "--pages-per-slot", "4"])
+                    "--new-tokens", "2", "9", "--max-slots", "2", "--pages-per-slot", "4"]
+                   + (["--paged-kernel"] if decode == "paged" else []))
     assert out["n_completed"] == 4
     assert all(w.launches > n for w, n in zip(wrappers, before))
+    assert unused.launches == idle
 
 
 # ---------------------------------------------------------------------------

@@ -3,8 +3,10 @@
 Both engines serve the same seeded workload with the same weights (carried
 across the bridge), the same engine geometry and the same step order
 (arrivals, continuous admission with same-bucket batched prefill, one
-decode round), the JAX one on its interpret-mode Pallas page walk.  Their
-token streams and first-token steps must be identical.
+decode round), both on the paged decode round (``use_paged_kernel=True``),
+the JAX one on its interpret-mode Pallas page walk.  Their token streams
+and first-token steps must be identical.  The dense round, chunked prefill
+and prefix sharing are held against JAX in ``test_torch_serve_paths.py``.
 """
 import dataclasses
 
@@ -59,7 +61,8 @@ def port_setup(jax_run):
 
 def _port_serve(port_setup, alloc_rng=None):
     cfg, params = port_setup
-    eng = ServeEngine(cfg, params, EngineConfig(**GEOM), device="cpu", alloc_rng=alloc_rng)
+    eng = ServeEngine(cfg, params, EngineConfig(**GEOM, use_paged_kernel=True), device="cpu",
+                      alloc_rng=alloc_rng)
     return eng, serve(eng, build_workload(WorkloadSpec(**SPEC)))
 
 
@@ -114,7 +117,7 @@ def test_page_allocator_reserves_and_frees():
 
 def test_engine_rejects_oversized_request(port_setup):
     cfg, params = port_setup
-    eng = ServeEngine(cfg, params, EngineConfig(**GEOM), device="cpu")
+    eng = ServeEngine(cfg, params, EngineConfig(**GEOM, use_paged_kernel=True), device="cpu")
     from repro_torch.serve.request import Request, RequestState
 
     with pytest.raises(ValueError, match="max_len"):
