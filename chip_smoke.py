@@ -18,7 +18,11 @@ each printing JSON lines:
              on a ragged Smax, and bitwise equal to the paged decode over a
              gather_pages view of a shuffled pool; the low-rank Wgrad
              bitwise repeatable, and its limit shown to catch a kernel that
-             rounds x @ V1 to bf16; the norm, activation and attention
+             rounds x @ V1 to bf16; the flash attention's bf16 output within
+             half a bf16 ulp (plus a stated slack) of the f32 function, a
+             limit shown to catch P rounded to bf16; #2 and #6 timed in turns
+             against their library call (kernel, call, call, kernel; three
+             rounds; the median factor); the norm, activation and attention
              kernels also at the training path's shapes, where each
              autograd Function's gradient must equal the plain version's
              (a check of the wiring: the backward recomputes the plain
@@ -64,6 +68,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -79,7 +84,9 @@ from repro_torch.core.lowrank import refresh_projections  # noqa: E402
 from repro_torch.core.ndb import NDBContext, plan_to_masks  # noqa: E402
 from repro_torch.data.pipeline import SyntheticLM  # noqa: E402
 from repro_torch.kernels import _build, plain_versions  # noqa: E402
-from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    ROUND_SLACK, flash_attention, flash_attention_plain, rounding_ratio,
+)
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain  # noqa: E402
 from repro_torch.kernels.lowrank_wgrad import (  # noqa: E402
     lowrank_wgrad_project, lowrank_wgrad_project_plain,
@@ -211,6 +218,66 @@ class ColdTimer:
         return times[len(times) // 2]
 
 
+def turns(name, shape, timer, call_k, call_lib, rounds: int = 3) -> dict:
+    """The kernel against its library call in turns (kernel, call, call,
+    kernel), ``rounds`` times, each time a cold median: kernel times move
+    several-fold between calls, so the factor is read inside one call."""
+    times, factors = [], []
+    for _ in range(rounds):
+        k1, l1, l2, k2 = timer(call_k), timer(call_lib), timer(call_lib), timer(call_k)
+        times.append([k1, l1, l2, k2])
+        factors.append((k1 + k2) / (l1 + l2))
+    row = {"phase": "kernels", "kernel": name, "dtype": "bfloat16", "shape": shape,
+           "turns_ms": times, "factors": factors,
+           "median_factor": sorted(factors)[len(factors) // 2]}
+    emit(row)
+    return row
+
+
+def flash_rounding_row(q, k, v, shape) -> None:
+    """Kernel #2's bf16 output against the f32 function (the plain version
+    on the inputs cast to f32): every element within half a bf16 ulp plus
+    ROUND_SLACK of the magnitude of its terms (``rounding_ratio`` <= 1).  The
+    control, the plain version with P rounded to bf16 before PV, must fall
+    outside; the row prints by how much."""
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    y = flash_attention_plain(q32, k32, v32)
+    mag = flash_attention_plain(q32, k32, v32.abs())
+    ratio = rounding_ratio(flash_attention(q, k, v), y, mag)
+    control = rounding_ratio(flash_attention_plain(q, k, v, p_precision="bf16"), y, mag)
+    ok = float(ratio.max()) <= 1.0
+    caught = float(control.max()) > 1.0
+    emit({"phase": "kernels", "kernel": "flash_attention", "dtype": "bfloat16", "shape": shape,
+          "rounding": "half bf16 ulp + slack x magnitude", "slack": ROUND_SLACK,
+          "max_ratio": float(ratio.max()), "n_over": int((ratio > 1).sum()), "ok": ok,
+          "control_p_in_bf16_max_ratio": float(control.max()),
+          "control_n_over": int((control > 1).sum()), "n": ratio.numel(),
+          "control_caught": caught})
+    if not ok:
+        raise AssertionError(f"flash attention {shape}: bf16 output off the f32 function by "
+                             f"{float(ratio.max())} of the rounding limit")
+    if not caught:
+        raise AssertionError(f"flash attention {shape}: the rounding limit passes a P rounded "
+                             f"to bf16 ({float(control.max())})")
+
+
+def ptxas_info(log: str) -> list:
+    """Per compiled kernel, from ``-Xptxas -v``: [mangled name, registers,
+    spill store bytes, spill load bytes]."""
+    out, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = [m.group(1), None, None, None]
+            out.append(cur)
+        elif cur is not None and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                                                 r"spill loads", ln)):
+            cur[2], cur[3] = int(m.group(1)), int(m.group(2))
+        elif cur is not None and (m := re.search(r"Used (\d+) registers", ln)):
+            cur[1] = int(m.group(1))
+    return out
+
+
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
@@ -276,8 +343,8 @@ def lowrank_rows(dev, timer, randn) -> dict:
                 lambda: lowrank_wgrad_project_plain(x, dy, v1),
                 nbytes(x, dy, v1) + r * m * 4, 2.0 * T * r * (n + m),
                 lambda: torch.linalg.multi_dot([v1.T, x.T, dy]))
-            p_bf16 = (x.float() @ v1.float()).to(torch.bfloat16).float()
-            control = float((p_bf16.T @ dy.float() - ref).abs().max())
+            control = float((lowrank_wgrad_project_plain(x, dy, v1, p_precision="bf16")
+                             - ref).abs().max())
             caught = control > LOWRANK_TOL[dtype] * row["max_abs_ref"]
             emit({"phase": "kernels", "kernel": "lowrank_wgrad", "dtype": row["dtype"],
                   "shape": [T, n, m, r], "bitwise_repeat": repeat,
@@ -288,6 +355,10 @@ def lowrank_rows(dev, timer, randn) -> dict:
                 raise AssertionError(f"lowrank_wgrad {dtype} {[T, n, m, r]}: the limit passes "
                                      f"a P rounded to bf16 ({control})")
             rows.setdefault(("lowrank_wgrad", dtype), row)
+            if dtype == torch.bfloat16 and T >= 8192:  # the main path's shapes
+                turns("lowrank_wgrad", [T, n, m, r], timer,
+                      lambda: lowrank_wgrad_project(x, dy, v1),
+                      lambda: torch.linalg.multi_dot([v1.T, x.T, dy]))
     return rows
 
 
@@ -325,6 +396,9 @@ def train_shape_rows(timer, randn) -> None:
             ya, yb = kernel(*a), plain(*b)
             compare(name, dtype, shape, ya.detach(), yb.detach(), timer,
                     lambda: kernel(*inputs), lambda: plain(*inputs), moved, ops, lib)
+            if name == "flash_attention" and dtype == torch.bfloat16:
+                flash_rounding_row(q, k, v, shape)
+                turns(name, shape, timer, lambda: kernel(*inputs), lib)
             go = torch.randn_like(yb)
             ga = torch.autograd.grad(ya, a, go)
             gb = torch.autograd.grad(yb, b, go)
@@ -436,6 +510,10 @@ def kernel_phase(dev, timer) -> dict:
             flash_attention(q, k, v), flash_attention_plain(q, k, v), timer,
             lambda: flash_attention(q, k, v), lambda: flash_attention_plain(q, k, v),
             2 * nbytes(q) + 2 * nbytes(k), 4.0 * HD * pairs, sdpa_call(q, k, v))
+        if dtype == torch.bfloat16:
+            flash_rounding_row(q, k, v, [B_PRE, S_PRE, H, KV, HD])
+            turns("flash_attention", [B_PRE, S_PRE, H, KV, HD], timer,
+                  lambda: flash_attention(q, k, v), sdpa_call(q, k, v))
         # paged decode over a shuffled pool, ragged lengths including 0
         n_pages = 1 + B_DEC * P_DEC
         qd = randn(B_DEC, 1, H, HD, dtype=dtype)
@@ -827,8 +905,7 @@ def main() -> int:
     logs = _build.build_all()
     build_s = time.perf_counter() - t0
     emit({"phase": "build", "seconds": build_s, "sources": sorted(logs),
-          "registers": {n: [ln.strip() for ln in log.splitlines() if "registers" in ln]
-                        for n, log in logs.items()}})
+          "kernels_registers_spills": {n: ptxas_info(log) for n, log in logs.items()}})
 
     timer = ColdTimer(dev)
     rows = kernel_phase(dev, timer)

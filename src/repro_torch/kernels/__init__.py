@@ -54,6 +54,28 @@ def runs_plain(*tensors: torch.Tensor) -> bool:
     return _PLAIN
 
 
+# How a plain version carries an f32 intermediate P (the probabilities of
+# flash attention, x @ V1 of the low-rank Wgrad) into its second product:
+# "f32" as the reference does; "split" as the bf16 tensor-core kernels do,
+# P = P_hi + P_lo with P_hi = bf16(P), P_lo = bf16(P - P_hi) and one f32
+# product each (P to ~2^-17 relative); "bf16" rounds P once, the precision
+# the checks must catch.
+P_PRECISIONS = ("f32", "split", "bf16")
+
+
+def p_terms(p: torch.Tensor, precision: str = "f32") -> list:
+    """The f32 terms whose products with the second operand the plain
+    version sums, for P in ``precision`` (one of :data:`P_PRECISIONS`)."""
+    if precision == "f32":
+        return [p]
+    if precision == "bf16":
+        return [p.to(torch.bfloat16).float()]
+    if precision == "split":
+        hi = p.to(torch.bfloat16).float()
+        return [hi, (p - hi).to(torch.bfloat16).float()]
+    raise ValueError(f"P precision {precision!r} not in {P_PRECISIONS}")
+
+
 def check_operand(t: torch.Tensor, name: str, dtype=None) -> None:
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
@@ -79,15 +101,15 @@ def stream_ptr(t: torch.Tensor) -> int:
 _FNS = {}
 
 
-def kernel_fn(lib: str, fn: str, argtypes):
-    """The C launch function ``fn`` of ``csrc/<lib>.cu`` with its ctypes
-    signature set (loaded, and built if needed, on first use)."""
+def kernel_fn(lib: str, fn: str, argtypes, restype=ctypes.c_int):
+    """The C function ``fn`` of ``csrc/<lib>.cu`` with its ctypes signature
+    set (loaded, and built if needed, on first use)."""
     key = (lib, fn)
     f = _FNS.get(key)
     if f is None:
         f = getattr(_build.load(lib), fn)
         f.argtypes = argtypes
-        f.restype = ctypes.c_int
+        f.restype = restype
         _FNS[key] = f
     return f
 

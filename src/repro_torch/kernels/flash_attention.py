@@ -3,12 +3,15 @@
 
 Replaces the TPU kernel ``repro/kernels/flash_attention.py:flash_attention``
 and, in the port's prefill, the jnp ``layers.causal_attention`` that the JAX
-trunk runs in its place.  Everything is computed in f32 (scores, softmax
-and the PV product) and the output cast to ``q``'s dtype once, as the TPU
-kernel and ``kernels/ref.py:flash_attention_ref`` do; ``causal_attention``
-rounds the probabilities to the V dtype before PV, which differs in bf16
-and agrees at f32.  See ``csrc/flash_attention.cu`` for the bound and the
-design.
+trunk runs in its place.  Everything is computed in f32 precision (scores,
+softmax and the PV product) and the output cast to ``q``'s dtype once, as
+the TPU kernel and ``kernels/ref.py:flash_attention_ref`` do; the bf16
+kernel carries the f32 probabilities into PV as two bf16 terms on the
+tensor cores (``p_precision="split"`` emulates it), and
+:func:`rounding_ratio` holds its output to half a bf16 ulp of the f32
+function.  ``causal_attention`` rounds the probabilities to the V dtype
+before PV, which differs in bf16 and agrees at f32.  See
+``csrc/flash_attention.cu`` for the bound and the design.
 
 Under grad the kernel runs inside :class:`FlashAttentionFn`, whose backward
 recomputes the plain version and differentiates it.  That holds one
@@ -24,14 +27,19 @@ import torch
 
 from repro_torch.kernels import (
     FLOAT, INT, PTR, aligned16, check_launch, check_operand, dtype_code, kernel_fn, needs_grad,
-    recompute_grads, refuse_detach, runs_plain, stream_ptr,
+    p_terms, recompute_grads, refuse_detach, runs_plain, stream_ptr,
 )
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)
 
 
-def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          p_precision: str = "f32") -> torch.Tensor:
+    """q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd) -> (B, Sq, H, hd) in q's
+    dtype.  ``p_precision`` ("f32", the reference; "split", the bf16
+    kernel's scheme; "bf16") says how the probabilities enter the PV
+    product (:func:`p_terms`)."""
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     qg = q.reshape(B, Sq, KV, H // KV, hd).float()
@@ -39,7 +47,10 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> 
     mask = torch.arange(Sk, device=q.device)[None, :] <= torch.arange(Sq, device=q.device)[:, None]
     s = s.masked_fill(~mask, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqs,bskh->bqkgh", p, v.float())
+    terms = p_terms(p, p_precision)
+    o = torch.einsum("bkgqs,bskh->bqkgh", terms[0], v.float())
+    for t in terms[1:]:
+        o = o + torch.einsum("bkgqs,bskh->bqkgh", t, v.float())
     return o.reshape(B, Sq, H, hd).to(q.dtype)
 
 
@@ -99,3 +110,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
 
 
 flash_attention.launches = 0
+
+
+# The rounding limit that holds a bf16 output to the f32 function: half a
+# bf16 ulp of the f32 value y, plus ROUND_SLACK times the magnitude of y's
+# terms, mag = sum p |v| / sum p.  The slack covers the kernel's own f32
+# arithmetic before its one cast: the split P and f32 sums in another
+# order sit ~2^-17 of mag from y.  A P rounded to bf16 moves the pre-cast
+# value by ~2^-9 of mag over few keys, so its outputs fall outside.
+ROUND_SLACK = 2.0 ** -14
+
+
+def rounding_ratio(out: torch.Tensor, y: torch.Tensor, mag: torch.Tensor) -> torch.Tensor:
+    """|out - y| over the rounding limit, elementwise (<= 1 passes).  ``y``
+    and ``mag`` are f32: :func:`flash_attention_plain` on the f32 inputs,
+    and on the f32 inputs with |v|."""
+    _, e = torch.frexp(y)
+    half_ulp = torch.where(y == 0, torch.zeros_like(y), torch.ldexp(torch.ones_like(y), e - 9))
+    return (out.float() - y).abs() / (half_ulp + ROUND_SLACK * mag)

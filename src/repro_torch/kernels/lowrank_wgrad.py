@@ -16,19 +16,30 @@ where autograd does not record; on CUDA it raises when autograd would.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels import (
-    INT, PTR, check_launch, check_operand, dtype_code, kernel_fn, refuse_detach, runs_plain,
-    stream_ptr,
+    INT, PTR, check_launch, check_operand, dtype_code, kernel_fn, p_terms, refuse_detach,
+    runs_plain, stream_ptr,
 )
 
 MAX_RANK = 256
 
 
-def lowrank_wgrad_project_plain(x: torch.Tensor, dy: torch.Tensor, v1: torch.Tensor) -> torch.Tensor:
-    """x: (T, n), dy: (T, m), v1: (n, r) -> A (r, m) f32."""
-    return (x.float() @ v1.float()).T @ dy.float()
+def lowrank_wgrad_project_plain(x: torch.Tensor, dy: torch.Tensor, v1: torch.Tensor,
+                                p_precision: str = "f32") -> torch.Tensor:
+    """x: (T, n), dy: (T, m), v1: (n, r) -> A (r, m) f32.  ``p_precision``
+    ("f32", the reference; "split", the bf16 kernel's scheme; "bf16") says
+    how P = x @ V1 enters the second product (:func:`p_terms`)."""
+    p = x.float() @ v1.float()
+    dyf = dy.float()
+    terms = p_terms(p, p_precision)
+    a = terms[0].T @ dyf
+    for t in terms[1:]:
+        a = a + t.T @ dyf
+    return a
 
 
 def lowrank_wgrad_project_launch(x: torch.Tensor, dy: torch.Tensor, v1: torch.Tensor) -> torch.Tensor:
@@ -49,11 +60,12 @@ def lowrank_wgrad_project_launch(x: torch.Tensor, dy: torch.Tensor, v1: torch.Te
     a = torch.empty(r, m, dtype=torch.float32, device=x.device)
     if T == 0 or n == 0 or m == 0:
         return a.zero_()
-    chunks = kernel_fn("lowrank_wgrad", "lowrank_wgrad_chunks", [INT])(T)
-    part = torch.empty(chunks, r, m, dtype=torch.float32, device=x.device)
+    n_scratch = kernel_fn("lowrank_wgrad", "lowrank_wgrad_scratch", [INT] * 5,
+                          ctypes.c_longlong)(T, n, m, r, code)
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=x.device)
     fn = kernel_fn("lowrank_wgrad", "lowrank_wgrad_launch",
                    [PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, PTR])
-    err = fn(x.data_ptr(), dy.data_ptr(), v1.data_ptr(), part.data_ptr(), a.data_ptr(),
+    err = fn(x.data_ptr(), dy.data_ptr(), v1.data_ptr(), scratch.data_ptr(), a.data_ptr(),
              T, n, m, r, code, stream_ptr(x))
     check_launch("lowrank_wgrad", err)
     lowrank_wgrad_project.launches += 1

@@ -8,8 +8,9 @@ B=8, S=1024, rank 64, FFN recompute, under ``NDBPlan(n_dp=4, n_stages=8,
 failed={(1, 3)})``.  The profile refreshes V1 and, for each NDB mode, runs
 two warm-up steps and then one step under ``torch.profiler`` (CPU and CUDA
 activities).  Prints one JSON line per mode: the step's wall time, the
-device time summed over its kernels, the device busy and idle shares, and
-the kernels that take the most device time.
+device time summed over its kernels, the device busy and idle shares, the
+kernels that take the most device time, and each of the port's kernels'
+share of the device time.
 """
 from __future__ import annotations
 
@@ -39,6 +40,9 @@ from repro_torch.optim.optimizers import init_opt_state
 CONFIG, BATCH, SEQ_LEN, RANK = "llama-350m", 8, 1024, 64
 PLAN = NDBPlan(n_dp=4, n_stages=8, failed=frozenset({(1, 3)}))
 FLAGS = ExecFlags(remat="ffn")  # the Trainer's default (repro/launch/train.py:83-85)
+# the port's kernels by the names of their CUDA functions (csrc/*.cu)
+PORT_KERNELS = {"lowrank_wgrad": "lowrank_", "flash_attention": "flash_fwd_",
+                "rmsnorm": "rmsnorm_kernel", "swiglu": "swiglu_kernel"}
 
 
 @dataclass
@@ -122,6 +126,9 @@ def main(argv=None) -> list:
             "device_idle_share": 1.0 - kernel_s / wall,
             "top_kernels": [{"name": e.key[:80], "calls": e.count, "device_s": dev_us(e) / 1e6}
                             for e in top],
+            "port_kernel_share": {
+                name: sum(dev_us(e) for e in kernels if tag in e.key) / 1e6 / kernel_s
+                for name, tag in PORT_KERNELS.items()},
         }
         print(json.dumps(row), flush=True)
         out.append(row)

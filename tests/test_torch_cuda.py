@@ -12,7 +12,10 @@ rounded on either side of a bf16 boundary.  Gradients through a kernel's
 autograd Function are the plain version's exactly (its backward recomputes
 the plain version).  Kernel #6 is held at 1e-4 relative to max |ref| in
 both dtypes: both sides multiply the same operands with f32 products and
-sums, and differ only in summation order.
+sums, and differ only in summation order (bf16: P split into two bf16
+terms, ~2^-17 relative).  The bf16 flash attention is also held within
+half a bf16 ulp of the f32 function plus ``ROUND_SLACK`` of the magnitude
+of its terms (``kernels/flash_attention.py:rounding_ratio``).
 """
 import pytest
 
@@ -80,6 +83,34 @@ def test_flash_attention_kernel(cuda, dtype, case):
     k = torch.randn(B, S, KV, hd, generator=gen, device=cuda).to(dtype)
     v = torch.randn(B, S, KV, hd, generator=gen, device=cuda).to(dtype)
     _close(flash_attention(q, k, v), flash_attention_plain(q, k, v), dtype)
+
+
+# the bf16 kernel's tile edges: 64-row q tiles and 64-key K/V tiles
+FLASH_EDGE_SEQS = [1, 63, 65, 200, 1000]
+FLASH_EDGE_HEADS = [(hd, g) for hd in (32, 64, 128) for g in (1, 2, 4)]
+
+
+@pytest.mark.parametrize("heads", FLASH_EDGE_HEADS)
+@pytest.mark.parametrize("seqs", [(s, s) for s in FLASH_EDGE_SEQS] + [(65, 200), (200, 63)])
+def test_flash_attention_bf16_tile_edges_within_rounding_limit(cuda, seqs, heads):
+    """bf16 at sequence lengths around the kernel's tiles: within half a
+    bf16 ulp (plus the stated slack) of the f32 function, and at the
+    kernel-vs-plain tolerance."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_plain, rounding_ratio,
+    )
+
+    (Sq, Sk), (hd, G) = seqs, heads
+    B, KV = 2, 2
+    gen = torch.Generator(device=cuda).manual_seed(Sq + Sk + hd + G)
+    q = torch.randn(B, Sq, KV * G, hd, generator=gen, device=cuda).to(torch.bfloat16)
+    k = torch.randn(B, Sk, KV, hd, generator=gen, device=cuda).to(torch.bfloat16)
+    v = torch.randn(B, Sk, KV, hd, generator=gen, device=cuda).to(torch.bfloat16)
+    out = flash_attention(q, k, v)
+    _close(out, flash_attention_plain(q, k, v), torch.bfloat16)
+    y = flash_attention_plain(q.float(), k.float(), v.float())
+    mag = flash_attention_plain(q.float(), k.float(), v.float().abs())
+    assert float(rounding_ratio(out, y, mag).max()) <= 1.0
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -257,6 +288,32 @@ def test_lowrank_wgrad_kernel(cuda, dtype, shape):
     assert a.dtype == torch.float32 and a.shape == (r, m)
     assert float((a - ref).abs().max()) <= tol * scale
     assert torch.equal(a, lowrank_wgrad_project(x, dy, v1))  # no float atomics: bitwise repeat
+
+
+# the bf16 kernel's edges: T not a multiple of its 64-token steps or of the
+# split, m not a multiple of the 64-column tile or of 8 (element loads), n
+# not a multiple of 8, r from 1 to past one 64-rank tile
+LOWRANK_EDGE_SHAPES = [(1000, 256, 300, 1), (777, 100, 130, 12), (4100, 1024, 1000, 64),
+                       (2000, 520, 2736, 200), (8191, 64, 1030, 64)]
+
+
+@pytest.mark.parametrize("shape", LOWRANK_EDGE_SHAPES)
+def test_lowrank_wgrad_bf16_tile_edges_bitwise_repeatable(cuda, shape):
+    from repro_torch.kernels.lowrank_wgrad import (
+        lowrank_wgrad_project, lowrank_wgrad_project_plain,
+    )
+
+    T, n, m, r = shape
+    gen = torch.Generator(device=cuda).manual_seed(T + r)
+    x = torch.randn(T, n, generator=gen, device=cuda).to(torch.bfloat16)
+    dy = torch.randn(T, m, generator=gen, device=cuda).to(torch.bfloat16)
+    v1 = torch.randn(n, r, generator=gen, device=cuda).to(torch.bfloat16)
+    a = lowrank_wgrad_project(x, dy, v1)
+    ref = lowrank_wgrad_project_plain(x, dy, v1)
+    assert a.dtype == torch.float32 and a.shape == (r, m)
+    assert float((a - ref).abs().max()) <= 1e-4 * (float(ref.abs().max()) + 1e-6)
+    for _ in range(3):
+        assert torch.equal(a, lowrank_wgrad_project(x, dy, v1))
 
 
 def test_train_step_kernels_match_plain_on_the_card(cuda):

@@ -23,7 +23,9 @@ from repro.kernels.rmsnorm import rmsnorm as jax_rmsnorm  # noqa: E402
 from repro.kernels.swiglu import swiglu as jax_swiglu  # noqa: E402
 
 from repro_torch.bridge import tensor_from_numpy, tensor_to_numpy  # noqa: E402
-from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention, flash_attention_plain, rounding_ratio,
+)
 from repro_torch.kernels.paged_decode import paged_decode, paged_decode_plain  # noqa: E402
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain  # noqa: E402
 from repro_torch.kernels.swiglu import swiglu, swiglu_plain  # noqa: E402
@@ -93,6 +95,38 @@ def test_flash_attention_matches_pallas_and_ref(case, dtype):
     np.testing.assert_allclose(_np(out), _np(pallas), atol=tol, rtol=0)
     np.testing.assert_allclose(_np(out), _np(ref.flash_attention_ref(qj, kj, vj)),
                                atol=tol, rtol=0)
+
+
+ROUND_CASES = [
+    # (B, S, H, KV, hd, block): causal GQA with S not a multiple of the CUDA
+    # kernel's 64-row tiles (JAX needs S % block == 0)
+    (1, 72, 4, 4, 64, 24),
+    (1, 100, 4, 2, 128, 20),
+]
+
+
+@pytest.mark.parametrize("case", ROUND_CASES)
+def test_flash_attention_split_p_within_rounding_limit_of_pallas(case):
+    """The bf16 kernel's precision scheme, emulated in plain torch (P split
+    into bf16 P_hi + P_lo, f32 products and sums, one cast), against the
+    Pallas kernel in interpret mode on the inputs cast to f32: every output
+    within half a bf16 ulp plus the stated slack (the card's rounding row).
+    The control rounds P once to bf16 and must fall outside."""
+    B, S, H, KV, hd, blk = case
+    rng = np.random.default_rng(S + hd + 1)
+    qj, qt = _pair(rng.standard_normal((B, S, H, hd)), "bfloat16")
+    kj, kt = _pair(rng.standard_normal((B, S, KV, hd)), "bfloat16")
+    vj, vt = _pair(rng.standard_normal((B, S, KV, hd)), "bfloat16")
+    f32 = [a.astype(jnp.float32) for a in (qj, kj, vj)]
+    y = _np(jax_flash(*f32, block_q=blk, block_k=blk, interpret=True))
+    mag = _np(jax_flash(f32[0], f32[1], jnp.abs(f32[2]), block_q=blk, block_k=blk,
+                        interpret=True))
+    y, mag = torch.from_numpy(y), torch.from_numpy(mag)
+    split = flash_attention_plain(qt, kt, vt, p_precision="split")
+    assert split.dtype == torch.bfloat16
+    assert float(rounding_ratio(split, y, mag).max()) <= 1.0
+    control = rounding_ratio(flash_attention_plain(qt, kt, vt, p_precision="bf16"), y, mag)
+    assert float(control.max()) > 2.0 and int((control > 1).sum()) > 0.01 * control.numel()
 
 
 def _paged_case(dtype, seed=0, B=3, H=4, KV=2, hd=32, ps=4, P=5, n_pages=17):

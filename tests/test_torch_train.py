@@ -194,6 +194,28 @@ def test_lowrank_wgrad_limit_catches_p_rounded_to_bf16(t, n, m, r):
     assert err > 3e-4 * float(ref.abs().max())
 
 
+@pytest.mark.parametrize("t,n,m,r", [(1024, 256, 300, 64), (300, 100, 260, 12)])
+def test_lowrank_wgrad_split_p_within_card_limit_of_pallas(t, n, m, r):
+    """The bf16 kernel's precision scheme, emulated in plain torch (P split
+    into bf16 P_hi + P_lo, f32 products and sums), against the Pallas
+    kernel in interpret mode (f32 P): within the card's limit, 1e-4 of
+    max |ref|, which the same emulation with P rounded once to bf16 misses."""
+    rng = np.random.default_rng(t + n + m + r)
+    xj, dyj, vj = (jnp.asarray(rng.standard_normal(s), "bfloat16")
+                   for s in ((t, n), (t, m), (n, r)))
+    bt, bm = 128, 256
+    pad_t, pad_m = -t % bt, -m % bm
+    a_ref = _np(jax_project(jnp.pad(xj, ((0, pad_t), (0, 0))),
+                            jnp.pad(dyj, ((0, pad_t), (0, pad_m))), vj,
+                            block_t=bt, block_m=bm, interpret=True)[:, :m])
+    scale = float(np.abs(a_ref).max())
+    x, dy, v = _t(xj), _t(dyj), _t(vj)
+    split = _np(lowrank_wgrad_project_plain(x, dy, v, p_precision="split"))
+    assert float(np.abs(split - a_ref).max()) <= 1e-4 * scale
+    once = _np(lowrank_wgrad_project_plain(x, dy, v, p_precision="bf16"))
+    assert float(np.abs(once - a_ref).max()) > 1e-4 * scale
+
+
 def test_lowrank_wgrad_cpu_takes_the_plain_version_without_counting():
     rng = np.random.default_rng(0)
     x, dy, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
