@@ -16,7 +16,11 @@ each printing JSON lines:
              layout, with exact zeros on length-0 lanes; the dense flash
              decode (kernel #5) with exact zeros on length-0 lanes, right
              on a ragged Smax, and bitwise equal to the paged decode over a
-             gather_pages view of a shuffled pool; the low-rank Wgrad
+             gather_pages view of a shuffled pool; both decode kernels
+             bitwise repeatable and batch invariant (each lane alone equal
+             to it among the others), timed in turns against the masked
+             SDPA call (#1 over the gathered view, the gather excluded), and
+             swept over the split size; the low-rank Wgrad
              bitwise repeatable, and its limit shown to catch a kernel that
              rounds x @ V1 to bf16; the flash attention's bf16 output within
              half a bf16 ulp (plus a stated slack) of the f32 function, a
@@ -87,11 +91,15 @@ from repro_torch.kernels import _build, plain_versions  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     ROUND_SLACK, flash_attention, flash_attention_plain, rounding_ratio,
 )
-from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain  # noqa: E402
+from repro_torch.kernels.flash_decode import (  # noqa: E402
+    SPLIT_BLOCKS, flash_decode, flash_decode_launch, flash_decode_plain,
+)
 from repro_torch.kernels.lowrank_wgrad import (  # noqa: E402
     lowrank_wgrad_project, lowrank_wgrad_project_plain,
 )
-from repro_torch.kernels.paged_decode import paged_decode, paged_decode_plain  # noqa: E402
+from repro_torch.kernels.paged_decode import (  # noqa: E402
+    paged_decode, paged_decode_launch, paged_decode_plain,
+)
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain  # noqa: E402
 from repro_torch.kernels.swiglu import swiglu, swiglu_plain  # noqa: E402
 from repro_torch.launch.profile import (  # noqa: E402
@@ -168,6 +176,9 @@ DEC_LENS = [0, 1, 15, 16, 17, 300, 777, 1024]
 # PS) rows, walked in page-sized blocks; and a ragged Smax
 SMAX_DEC, SMAX_RAGGED = P_DEC * PS, 1000
 BLOCK_SWEEP = (16, 32, 64, 128)
+# fold blocks per split of the decode kernels (SPLIT_BLOCKS is the one the
+# wrappers pass)
+SPLIT_SWEEP = (2, 4, 8, 16)
 ECFG = EngineConfig(max_slots=8, page_size=16, pages_per_slot=64)
 PAGED_ECFG = dataclasses.replace(ECFG, use_paged_kernel=True)
 SPEC = WorkloadSpec(n_requests=16, vocab_size=151936, prompt_len=(64, 512),
@@ -196,7 +207,12 @@ def reset_launches() -> None:
 
 class ColdTimer:
     """Median device time of one call, with the 50 MB L2 cache flushed
-    before every call (CUDA events around the call alone)."""
+    before every call (CUDA events around the call alone).  A spin kernel
+    between the flush and the start event keeps the stream busy while the
+    host enqueues the call, so the host's time to reach its first launch
+    (tens of µs for a wrapper) does not fall between the events."""
+
+    SPIN_CYCLES = 1_000_000  # ~0.5 ms at the H100's clock
 
     def __init__(self, dev):
         self.flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
@@ -207,6 +223,7 @@ class ColdTimer:
         times = []
         for _ in range(iters):
             self.flush.zero_()
+            torch.cuda._sleep(self.SPIN_CYCLES)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
@@ -218,7 +235,7 @@ class ColdTimer:
         return times[len(times) // 2]
 
 
-def turns(name, shape, timer, call_k, call_lib, rounds: int = 3) -> dict:
+def turns(name, shape, timer, call_k, call_lib, rounds: int = 3, **extra) -> dict:
     """The kernel against its library call in turns (kernel, call, call,
     kernel), ``rounds`` times, each time a cold median: kernel times move
     several-fold between calls, so the factor is read inside one call."""
@@ -227,7 +244,7 @@ def turns(name, shape, timer, call_k, call_lib, rounds: int = 3) -> dict:
         k1, l1, l2, k2 = timer(call_k), timer(call_lib), timer(call_lib), timer(call_k)
         times.append([k1, l1, l2, k2])
         factors.append((k1 + k2) / (l1 + l2))
-    row = {"phase": "kernels", "kernel": name, "dtype": "bfloat16", "shape": shape,
+    row = {"phase": "kernels", "kernel": name, "dtype": "bfloat16", "shape": shape, **extra,
            "turns_ms": times, "factors": factors,
            "median_factor": sorted(factors)[len(factors) // 2]}
     emit(row)
@@ -467,12 +484,69 @@ def flash_decode_rows(dtype, timer, randn, qd, lens, paged_out, kp, vp, tables) 
     if not (zeros and ragged_ok and bitwise):
         raise AssertionError(f"flash decode {dtype}: null lanes {zeros}, ragged Smax "
                              f"{ragged_ok}, bitwise vs paged {bitwise}")
+    repeat_and_batch_rows("flash_decode", dtype, out,
+                          lambda sl: flash_decode(qd[sl], kd[sl], vd[sl], lens[sl], block_k=PS))
     if dtype == torch.bfloat16:  # the block size the dense round does not fix
         emit({"phase": "kernels", "kernel": "flash_decode", "dtype": row["dtype"],
               "block_k_sweep_ms": {bk: timer(lambda bk=bk: flash_decode(qd, kd, vd, lens,
                                                                         block_k=bk))
                                    for bk in BLOCK_SWEEP}})
+        decode_speed_rows(timer, qd, lens, kd, vd, kp, vp, tables, view)
     return row
+
+
+def repeat_and_batch_rows(name, dtype, out, call_lanes) -> None:
+    """A decode kernel bitwise repeatable over all DEC_LENS lanes, and batch
+    invariant: each lane decoded alone (``call_lanes(slice(b, b + 1))``)
+    gives bitwise what it gives among the other lanes."""
+    repeat = bool(torch.equal(call_lanes(slice(None)), out))
+    alone = [bool(torch.equal(call_lanes(slice(b, b + 1)), out[b:b + 1]))
+             for b in range(len(DEC_LENS))]
+    emit({"phase": "kernels", "kernel": name, "dtype": str(dtype).replace("torch.", ""),
+          "lens": DEC_LENS, "bitwise_repeat": repeat, "batch_invariant": all(alone),
+          "lane_alone_equal": alone})
+    if not (repeat and all(alone)):
+        raise AssertionError(f"{name} {dtype}: bitwise repeat {repeat}, lanes alone equal {alone}")
+
+
+def decode_speed_rows(timer, qd, lens, kd, vd, kp, vp, tables, view) -> None:
+    """bf16 decode kernels against the masked SDPA call in turns (#5 over its
+    dense cache; #1 against the call over the gathered view, a yardstick for
+    the same attention function that leaves the gather out), then both
+    swept over the split size: each split right against the plain version
+    and #5 over the view bitwise equal to #1 at it; times are cold medians,
+    the sweep taken up and then down."""
+    turns("flash_decode", [B_DEC, SMAX_DEC, H, KV, HD, PS], timer,
+          lambda: flash_decode(qd, kd, vd, lens, block_k=PS), sdpa_decode_call(qd, kd, vd, lens))
+    turns("paged_decode", [B_DEC, H, KV, HD, PS, P_DEC], timer,
+          lambda: paged_decode(qd, kp, vp, tables, lens),
+          sdpa_decode_call(qd, view["k"][0], view["v"][0], lens),
+          yardstick="masked SDPA over the gathered dense view, gather excluded")
+    atol, rtol = TOL[torch.bfloat16]
+    refs = {"flash_decode": flash_decode_plain(qd, kd, vd, lens).float(),
+            "paged_decode": paged_decode_plain(qd, kp, vp, tables, lens).float()}
+    calls = {}
+    for sb in SPLIT_SWEEP:
+        calls[("flash_decode", sb)] = (lambda sb=sb: flash_decode_launch(
+            qd, kd, vd, lens, block_k=PS, split_blocks=sb))
+        calls[("paged_decode", sb)] = (lambda sb=sb: paged_decode_launch(
+            qd, kp, vp, tables, lens, split_blocks=sb))
+        outs = {n: calls[(n, sb)]() for n in refs}
+        same = bool(torch.equal(flash_decode_launch(qd, view["k"][0], view["v"][0], lens,
+                                                    block_k=PS, split_blocks=sb),
+                                outs["paged_decode"]))
+        errs = {n: (outs[n].float() - ref).abs() for n, ref in refs.items()}
+        if not (same and all(bool((e <= atol + rtol * refs[n].abs()).all())
+                             for n, e in errs.items())):
+            raise AssertionError(f"split sweep {sb}: max errors "
+                                 f"{ {n: float(e.max()) for n, e in errs.items()} }, "
+                                 f"#5 == #1 bitwise {same}")
+    up = {key: timer(call) for key, call in calls.items()}
+    down = {key: timer(call) for key, call in reversed(list(calls.items()))}
+    emit({"phase": "kernels", "kernel": "flash_decode+paged_decode", "dtype": "bfloat16",
+          "split_blocks": SPLIT_BLOCKS, "split_sweep_ms": {
+              n: {sb: [up[(n, sb)], down[(n, sb)]] for sb in SPLIT_SWEEP}
+              for n in ("flash_decode", "paged_decode")}})
 
 
 def kernel_phase(dev, timer) -> dict:
@@ -544,6 +618,8 @@ def kernel_phase(dev, timer) -> dict:
               "layout_bitwise_invariant": invariant, "null_lanes_exact_zero": zeros})
         if not (invariant and zeros):
             raise AssertionError("paged decode: layout invariance or null lanes failed")
+        repeat_and_batch_rows("paged_decode", dtype, out,
+                              lambda sl: paged_decode(qd[sl], kp, vp, tables[sl], lens[sl]))
         rows[("flash_decode", dtype)] = flash_decode_rows(dtype, timer, randn, qd, lens, out,
                                                           kp, vp, tables)
     rows.update(lowrank_rows(dev, timer, randn))

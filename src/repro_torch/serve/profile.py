@@ -6,8 +6,12 @@ Serves the same seeded workload as :mod:`repro_torch.serve.run` (with the
 same engine flags) once to warm up, then again under ``torch.profiler``
 (CPU and CUDA activities), and prints one JSON line: the wall time of the
 profiled run, the device time summed over all kernels, the device busy and
-idle shares, the engine's own decode and prefill wall times, and the
-kernels that take the most device time.
+idle shares, the engine's own decode and prefill wall times, the kernels
+that take the most device time, and each of the port's kernels' device time
+and share of it.  The decode kernels' combine pass is launched with
+programmatic dependence on their split pass and waits for it on the card, so
+its span overlaps the split pass's: the sum over kernels counts that overlap
+twice.
 """
 from __future__ import annotations
 
@@ -22,6 +26,12 @@ from repro_torch import resolve_device
 from repro_torch.serve import run
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.request import WorkloadSpec, build_workload
+
+# the port's kernels by the names of their CUDA functions (csrc/*.cu); the
+# decode kernels' split passes by their row policy, their shared combine pass
+PORT_KERNELS = {"paged_decode": "PagedRows", "flash_decode": "DenseRows",
+                "decode_combine": "decode::combine_kernel", "flash_attention": "flash_fwd_",
+                "rmsnorm": "rmsnorm_kernel", "swiglu": "swiglu_kernel"}
 
 
 def main(argv=None) -> dict:
@@ -50,6 +60,13 @@ def main(argv=None) -> dict:
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     kernel_us = sum(dev_us(e) for e in kernels)
     top = sorted(kernels, key=dev_us, reverse=True)[:12]
+
+    def port(tag: str) -> dict:
+        mine = [e for e in kernels if tag in e.key]
+        us = sum(dev_us(e) for e in mine)
+        return {"calls": sum(e.count for e in mine), "device_s": us / 1e6,
+                "share": us / kernel_us if kernel_us else 0.0}
+
     out = {
         "config": cfg.name, "n_layers": cfg.n_layers,
         "device": torch.cuda.get_device_name(0),
@@ -62,6 +79,7 @@ def main(argv=None) -> dict:
         "prefill_calls": eng.prefill_calls, "prefill_wall_s": eng.prefill_wall_s,
         "top_kernels": [{"name": e.key[:80], "calls": e.count, "device_s": dev_us(e) / 1e6}
                         for e in top],
+        "port_kernels": {name: port(tag) for name, tag in PORT_KERNELS.items()},
     }
     print(json.dumps(out))
     return out

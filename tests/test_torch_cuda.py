@@ -179,6 +179,93 @@ def test_flash_decode_bitwise_equals_paged_over_gathered_view(cuda, dtype):
                        paged_decode(q, kp, vp, tables, lens))
 
 
+# split-KV edges: with SPLIT_BLOCKS blocks a split, lengths at and around a
+# split's end (in rows: SPLIT_BLOCKS * block), one row, a lane of many
+# splits, and a Smax (1000) that is no multiple of a split or of a block
+def _split_lens(block: int, smax: int) -> list:
+    from repro_torch.kernels.flash_decode import SPLIT_BLOCKS
+
+    span = SPLIT_BLOCKS * block
+    return sorted({min(n, smax) for n in (0, 1, span - 1, span, span + 1, 2 * span + 1,
+                                          smax - 1, smax)})
+
+
+def _dense_case(dev, dtype, B, smax, H=16, KV=8, hd=128, seed=9):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, 1, H, hd, generator=gen, device=dev).to(dtype)
+    k = torch.randn(B, smax, KV, hd, generator=gen, device=dev).to(dtype)
+    v = torch.randn(B, smax, KV, hd, generator=gen, device=dev).to(dtype)
+    return q, k, v
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("block_k", [16, 32, 64, 128])
+def test_flash_decode_split_edges(cuda, dtype, block_k):
+    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
+
+    smax = 1000
+    lens = torch.tensor(_split_lens(block_k, smax), dtype=torch.int32, device=cuda)
+    q, k, v = _dense_case(cuda, dtype, len(lens), smax)
+    out = flash_decode(q, k, v, lens, block_k=block_k)
+    _close(out, flash_decode_plain(q, k, v, lens), dtype)
+    zero = lens == 0
+    assert torch.equal(out[zero], torch.zeros_like(out[zero]))
+    assert torch.equal(out, flash_decode(q, k, v, lens, block_k=block_k))  # bitwise repeat
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("heads", [(16, 8, 128), (8, 8, 64), (16, 4, 32), (12, 4, 64)])
+def test_split_decode_kernels_bitwise_equal_at_split_edges(cuda, dtype, heads):
+    """#1 against its plain version at split edges; #5 over the gathered
+    view with block_k == page_size bitwise equal to it; both repeatable.
+    G = 2, 1, 4 take the kernels' instantiations for their group size, G = 3
+    the general one."""
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.paged_decode import paged_decode, paged_decode_plain
+
+    H, KV, hd = heads
+    ps, P = 16, 63
+    lens = torch.tensor(_split_lens(ps, P * ps), dtype=torch.int32, device=cuda)
+    B, n_pages = len(lens), 1 + len(lens) * P
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    q = torch.randn(B, 1, H, hd, generator=gen, device=cuda).to(dtype)
+    kp = torch.randn(n_pages, ps, KV, hd, generator=gen, device=cuda).to(dtype)
+    vp = torch.randn(n_pages, ps, KV, hd, generator=gen, device=cuda).to(dtype)
+    tables = (torch.randperm(n_pages - 1, generator=gen, device=cuda) + 1).reshape(B, P)
+    tables = tables.to(torch.int32)
+    out = paged_decode(q, kp, vp, tables, lens)
+    _close(out, paged_decode_plain(q, kp, vp, tables, lens), dtype)
+    assert torch.equal(out, paged_decode(q, kp, vp, tables, lens))
+    kd = kp[tables.long()].reshape(B, P * ps, KV, hd)
+    vd = vp[tables.long()].reshape(B, P * ps, KV, hd)
+    assert torch.equal(flash_decode(q, kd, vd, lens, block_k=ps), out)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_split_decode_kernels_batch_invariant(cuda, dtype):
+    """Each lane decoded alone (B = 1) gives bitwise what it gives among the
+    other lanes, through #1 and through #5."""
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.paged_decode import paged_decode
+
+    ps, P = 16, 64
+    lens = torch.tensor([0, 1, 15, 16, 17, 300, 777, 1024], dtype=torch.int32, device=cuda)
+    B, n_pages = len(lens), 1 + len(lens) * P
+    q, kd, vd = _dense_case(cuda, dtype, B, P * ps, seed=11)
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    kp = torch.randn(n_pages, ps, 8, 128, generator=gen, device=cuda).to(dtype)
+    vp = torch.randn(n_pages, ps, 8, 128, generator=gen, device=cuda).to(dtype)
+    tables = (torch.randperm(n_pages - 1, generator=gen, device=cuda) + 1).reshape(B, P)
+    tables = tables.to(torch.int32)
+    dense = flash_decode(q, kd, vd, lens, block_k=ps)
+    paged = paged_decode(q, kp, vp, tables, lens)
+    for b in range(B):
+        one = slice(b, b + 1)
+        assert torch.equal(flash_decode(q[one], kd[one], vd[one], lens[one], block_k=ps),
+                           dense[one]), b
+        assert torch.equal(paged_decode(q[one], kp, vp, tables[one], lens[one]), paged[one]), b
+
+
 def test_flash_decode_refuses_autograd(cuda):
     from repro_torch.kernels.flash_decode import flash_decode
 
