@@ -8,10 +8,18 @@ each printing JSON lines:
 
 1. build   — compile every kernel from ``src/repro_torch/csrc`` (one nvcc
              per source, in parallel).
-2. kernels — each kernel against its plain PyTorch version on the card at
+2. kernels — the launch floor (an empty kernel, plainly launched and
+             launched as kernel #3 is, cold and warm); each kernel against
+             its plain PyTorch version on the card at
              the serving and training paths' shapes, in bf16 and f32, with
              its time, the plain version's time, its bound and (where one
-             PyTorch call computes the same function) that call's time; the
+             PyTorch call computes the same function) that call's time;
+             RMSNorm at the five main-path shapes (the decode round's three
+             and the prefill's two) in turns against F.rms_norm, warm at the
+             decode shapes beside the floor, after a clean L2 flush at the
+             prefill's (2048, 1024), and batch invariant (rows alone equal
+             to the same rows among 2048 or 32768); SwiGLU at the decode
+             round's (8, 3072), cold and warm; the
              paged decode also bitwise-invariant to the physical page
              layout, with exact zeros on length-0 lanes; the dense flash
              decode (kernel #5) with exact zeros on length-0 lanes, right
@@ -26,7 +34,11 @@ each printing JSON lines:
              half a bf16 ulp (plus a stated slack) of the f32 function, a
              limit shown to catch P rounded to bf16; #2 and #6 timed in turns
              against their library call (kernel, call, call, kernel; three
-             rounds; the median factor); the norm, activation and attention
+             rounds; the median factor); #1 and #5 at the decode head shapes
+             of the repo's configs (DEC_HEADS: groups of 16 and 48, head
+             widths 96 and 192), each against its plain version, #5 == #1
+             bitwise, both batch invariant, and #2 at head widths 96 and 192
+             with its rounding row; the norm, activation and attention
              kernels also at the training path's shapes, where each
              autograd Function's gradient must equal the plain version's
              (a check of the wiring: the backward recomputes the plain
@@ -34,7 +46,9 @@ each printing JSON lines:
 3. serve   — full-width qwen3-0.6b (bf16, seeded weights) serves 16 seeded
              requests to completion through the port's engine on the paged
              decode round; launch counts must be exactly those the engine's
-             calls imply.
+             calls imply.  In this and the next two phases the request with
+             the most new tokens is then served alone and must emit the
+             stream it emitted among the 16.
 4. serve dense — the same requests on the default dense decode round
              (gather_pages, kernel #5, scatter_token): launch counts exact
              (kernel #5 28 per round, the paged kernel none), token streams
@@ -87,7 +101,7 @@ from repro_torch.configs.base import MeCeFOConfig, get_config  # noqa: E402
 from repro_torch.core.lowrank import refresh_projections  # noqa: E402
 from repro_torch.core.ndb import NDBContext, plan_to_masks  # noqa: E402
 from repro_torch.data.pipeline import SyntheticLM  # noqa: E402
-from repro_torch.kernels import _build, plain_versions  # noqa: E402
+from repro_torch.kernels import PTR, _build, check_launch, kernel_fn, plain_versions  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     ROUND_SLACK, flash_attention, flash_attention_plain, rounding_ratio,
 )
@@ -179,6 +193,17 @@ BLOCK_SWEEP = (16, 32, 64, 128)
 # fold blocks per split of the decode kernels (SPLIT_BLOCKS is the one the
 # wrappers pass)
 SPLIT_SWEEP = (2, 4, 8, 16)
+# RMSNorm's main-path shapes: the decode round's (B_DEC, D) sublayer and
+# final norms, its (B_DEC * H, HD) q_norm and (B_DEC * KV, HD) k_norm; the
+# prefill's (B_PRE * S_PRE, D) and (B_PRE * S_PRE * H, HD)
+NORM_DECODE = [(B_DEC, D), (B_DEC * H, HD), (B_DEC * KV, HD)]
+NORM_PREFILL = [(B_PRE * S_PRE, D), (B_PRE * S_PRE * H, HD)]
+# the decode head shapes of the repo's configs, one chip's share of heads:
+# (H, KV, hd) of glm4-9b and qwen3-moe (G 16), granite-34b (G 48),
+# nemotron-4-340b (hd 192, G 12) and phi-3-vision (hd 96, G 1)
+DEC_HEADS = [(32, 2, 128), (48, 1, 128), (24, 2, 192), (32, 32, 96)]
+# prefill attention at the new head widths: phi-3-vision, nemotron's share
+PRE_HEADS = [(32, 32, 96), (24, 2, 192)]
 ECFG = EngineConfig(max_slots=8, page_size=16, pages_per_slot=64)
 PAGED_ECFG = dataclasses.replace(ECFG, use_paged_kernel=True)
 SPEC = WorkloadSpec(n_requests=16, vocab_size=151936, prompt_len=(64, 512),
@@ -214,15 +239,22 @@ class ColdTimer:
 
     SPIN_CYCLES = 1_000_000  # ~0.5 ms at the H100's clock
 
-    def __init__(self, dev):
-        self.flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
+    def __init__(self, dev, read_flush: bool = False):
+        """``read_flush``: flush by reading the buffer instead of zeroing
+        it, which leaves L2 full of clean lines rather than of dirty ones
+        whose write-back to memory could fall inside the timed call."""
+        self.flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev).zero_()
+        self.read_flush = read_flush
 
     def __call__(self, fn, iters: int = 15, warmup: int = 2) -> float:
         for _ in range(warmup):
             fn()
         times = []
         for _ in range(iters):
-            self.flush.zero_()
+            if self.read_flush:
+                self.flush.max()
+            else:
+                self.flush.zero_()
             torch.cuda._sleep(self.SPIN_CYCLES)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
@@ -233,6 +265,54 @@ class ColdTimer:
             times.append(s.elapsed_time(e))
         times.sort()
         return times[len(times) // 2]
+
+
+class WarmTimer:
+    """Median device time per call over N back-to-back calls between two
+    events: the call finds its inputs in L2, as a decode round finds the
+    output of the GEMM before it.  A spin kernel ahead of the start event
+    covers the host's enqueue of all N calls; a reading whose enqueue took
+    longer than the spin is taken again behind a spin twice as long."""
+
+    N = 100
+    SPIN_CYCLES = 8_000_000  # ~4 ms at the H100's clock
+
+    def __call__(self, fn, reps: int = 5) -> float:
+        fn()
+        torch.cuda.synchronize()
+        cycles, times = self.SPIN_CYCLES, []
+        while len(times) < reps:
+            s0, s, e = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+            s0.record()
+            torch.cuda._sleep(cycles)
+            s.record()
+            t0 = time.perf_counter()
+            for _ in range(self.N):
+                fn()
+            host_ms = 1e3 * (time.perf_counter() - t0)
+            e.record()
+            e.synchronize()
+            if host_ms >= s0.elapsed_time(s):
+                cycles *= 2
+                if cycles > 64 * self.SPIN_CYCLES:
+                    raise RuntimeError(f"warm timer: the host's enqueue ({host_ms} ms for "
+                                       f"{self.N} calls) outlasts every spin")
+                continue
+            times.append(s.elapsed_time(e) / self.N)
+        times.sort()
+        return times[len(times) // 2]
+
+
+def empty_call(dev, pdl: bool = False):
+    """One launch of ``csrc/empty.cu``'s empty kernel on the current stream
+    (``pdl``: with programmatic stream serialization, as kernel #3 is
+    launched): the launch floor under either timer."""
+    fn = kernel_fn("empty", "empty_pdl_launch" if pdl else "empty_launch", [PTR])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def call():
+        check_launch("empty", fn(stream))
+    return call
 
 
 def turns(name, shape, timer, call_k, call_lib, rounds: int = 3, **extra) -> dict:
@@ -306,16 +386,21 @@ def bound(bytes_moved: int, ops: float, dtype) -> tuple:
 
 
 def compare(name, dtype, shape, out, ref, timer, call_k, call_p, moved, ops, call_lib=None):
+    """The kernel's output against its plain version's at TOL, with its cold
+    time beside the plain version's, the bound and the library call's (no
+    times when ``timer`` is None)."""
     atol, rtol = TOL[dtype]
     err = (out.float() - ref.float()).abs()
     ok = bool((err <= atol + rtol * ref.float().abs()).all()) and bool(torch.isfinite(out.float()).all())
     b_ms, b_by = bound(moved, ops, dtype)
+    timed = timer is not None
     row = {
         "phase": "kernels", "kernel": name, "dtype": str(dtype).replace("torch.", ""),
         "shape": shape, "max_abs_err": float(err.max()), "atol": atol, "rtol": rtol,
-        "ok": ok, "ms": timer(call_k), "plain_ms": timer(call_p),
+        "ok": ok, "ms": timer(call_k) if timed else None,
+        "plain_ms": timer(call_p) if timed else None,
         "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": timer(call_lib) if call_lib is not None else None,
+        "library_ms": timer(call_lib) if timed and call_lib is not None else None,
     }
     emit(row)
     if not ok:
@@ -495,7 +580,7 @@ def flash_decode_rows(dtype, timer, randn, qd, lens, paged_out, kp, vp, tables) 
     return row
 
 
-def repeat_and_batch_rows(name, dtype, out, call_lanes) -> None:
+def repeat_and_batch_rows(name, dtype, out, call_lanes, **extra) -> None:
     """A decode kernel bitwise repeatable over all DEC_LENS lanes, and batch
     invariant: each lane decoded alone (``call_lanes(slice(b, b + 1))``)
     gives bitwise what it gives among the other lanes."""
@@ -503,7 +588,7 @@ def repeat_and_batch_rows(name, dtype, out, call_lanes) -> None:
     alone = [bool(torch.equal(call_lanes(slice(b, b + 1)), out[b:b + 1]))
              for b in range(len(DEC_LENS))]
     emit({"phase": "kernels", "kernel": name, "dtype": str(dtype).replace("torch.", ""),
-          "lens": DEC_LENS, "bitwise_repeat": repeat, "batch_invariant": all(alone),
+          **extra, "lens": DEC_LENS, "bitwise_repeat": repeat, "batch_invariant": all(alone),
           "lane_alone_equal": alone})
     if not (repeat and all(alone)):
         raise AssertionError(f"{name} {dtype}: bitwise repeat {repeat}, lanes alone equal {alone}")
@@ -549,6 +634,120 @@ def decode_speed_rows(timer, qd, lens, kd, vd, kp, vp, tables, view) -> None:
               for n in ("flash_decode", "paged_decode")}})
 
 
+def launch_floor_row(dev, timer, warm) -> dict:
+    """The empty kernels' times under both timers: the least any launch can
+    read here, plainly launched and launched as kernel #3 is (``pdl_``)."""
+    plain, pdl = empty_call(dev), empty_call(dev, pdl=True)
+    row = {"phase": "kernels", "kernel": "empty (launch floor)",
+           "source": "src/repro_torch/csrc/empty.cu", "cold_ms": timer(plain), "warm_ms": warm(plain),
+           "pdl_cold_ms": timer(pdl), "pdl_warm_ms": warm(pdl)}
+    emit(row)
+    return row
+
+
+def warm_row(name, shape, row, floor, warm, call_k, call_lib=None, pdl=False) -> None:
+    """A decode-shape kernel warm (WarmTimer) beside its cold time, the
+    library call's and the launch floor's (the floor of a launch like the
+    kernel's: ``pdl`` for #3); each time over the floor's."""
+    k_warm = warm(call_k)
+    lib_warm = warm(call_lib) if call_lib is not None else None
+    key = "pdl_" if pdl else ""
+    emit({"phase": "kernels", "kernel": name, "dtype": "bfloat16", "shape": shape,
+          "ms": row["ms"], "warm_ms": k_warm, "library_ms": row["library_ms"],
+          "library_warm_ms": lib_warm, "bound_ms": row["bound_ms"],
+          "floor_launch": "programmatic dependent" if pdl else "plain",
+          "floor_cold_ms": floor[key + "cold_ms"], "floor_warm_ms": floor[key + "warm_ms"],
+          "cold_over_floor": row["ms"] / floor[key + "cold_ms"],
+          "warm_over_floor": k_warm / floor[key + "warm_ms"],
+          "warm_over_plain_floor": k_warm / floor["warm_ms"]})
+
+
+def clean_flush_row(dev, floor, randn) -> None:
+    """Kernel #3 at (B_PRE * S_PRE, D) and the empty kernel timed cold after
+    an L2 flush that reads (clean lines) beside the default one that writes
+    (dirty lines): how much of the cold time is the flush's write-back."""
+    timer = ColdTimer(dev, read_flush=True)
+    x, s = randn(B_PRE * S_PRE, D, dtype=torch.bfloat16), randn(D, dtype=torch.bfloat16)
+    emit({"phase": "kernels", "kernel": "rmsnorm", "dtype": "bfloat16", "shape": [B_PRE * S_PRE, D],
+          "flush": "read (clean L2)", "ms": timer(lambda: rmsnorm(x, s, 1e-5)),
+          "floor_cold_ms": timer(empty_call(dev, pdl=True)),
+          "write_flush_floor_cold_ms": floor["pdl_cold_ms"]})
+
+
+def norm_batch_rows(randn) -> None:
+    """Kernel #3 batch invariant: rows 0..B_DEC-1 of a prefill-shaped input
+    are bitwise what the same rows give alone, at d = D and d = HD (the
+    engine's determinism contract needs a row's norm independent of the
+    rows around it)."""
+    for rows_, d in NORM_PREFILL:
+        x, s = randn(rows_, d, dtype=torch.bfloat16), randn(d, dtype=torch.bfloat16)
+        same = bool(torch.equal(rmsnorm(x, s, 1e-5)[:B_DEC],
+                                rmsnorm(x[:B_DEC].contiguous(), s, 1e-5)))
+        emit({"phase": "kernels", "kernel": "rmsnorm", "dtype": "bfloat16",
+              "shape": [rows_, d], "rows_alone": [B_DEC, d], "batch_invariant": same})
+        if not same:
+            raise AssertionError(f"rmsnorm ({rows_}, {d}): rows 0..{B_DEC - 1} differ from "
+                                 f"the same rows alone")
+
+
+def head_shape_rows(dtype, timer, randn, gen) -> None:
+    """#1 and #5 at the configs' decode head shapes (DEC_HEADS) and #2 at the
+    new head widths (PRE_HEADS), each against its plain version; #5 over
+    the gathered view bitwise equal to #1, both bitwise repeatable and
+    batch invariant.  ``timer`` (bf16) times each shape once."""
+    dev = gen.device
+    es = torch.finfo(dtype).bits // 8
+    dname = str(dtype).replace("torch.", "")
+    lens = torch.tensor(DEC_LENS, dtype=torch.int32, device=dev)
+    n_pages = 1 + B_DEC * P_DEC
+    covered = sum(pages_needed(n, PS) * PS for n in DEC_LENS)
+    for h, kv, hd in DEC_HEADS:
+        qd = randn(B_DEC, 1, h, hd, dtype=dtype)
+        kp, vp = (randn(n_pages, PS, kv, hd, dtype=dtype) for _ in range(2))
+        tables = (torch.randperm(n_pages - 1, generator=gen, device=dev) + 1).reshape(
+            B_DEC, P_DEC).to(torch.int32)
+        out = paged_decode(qd, kp, vp, tables, lens)
+        compare("paged_decode", dtype, [B_DEC, h, kv, hd, PS, P_DEC], out,
+                paged_decode_plain(qd, kp, vp, tables, lens), timer,
+                lambda: paged_decode(qd, kp, vp, tables, lens),
+                lambda: paged_decode_plain(qd, kp, vp, tables, lens),
+                2 * nbytes(qd) + 2 * covered * kv * hd * es + nbytes(tables, lens),
+                4.0 * h * hd * sum(DEC_LENS))
+        repeat_and_batch_rows("paged_decode", dtype, out,
+                              lambda sl: paged_decode(qd[sl], kp, vp, tables[sl], lens[sl]),
+                              heads=[h, kv, hd])
+        view = gather_pages(({"k": kp[None], "v": vp[None]},), tables, page_size=PS)[0]
+        kd, vd = view["k"][0], view["v"][0]
+        dense = flash_decode(qd, kd, vd, lens, block_k=PS)
+        compare("flash_decode", dtype, [B_DEC, SMAX_DEC, h, kv, hd, PS], dense,
+                flash_decode_plain(qd, kd, vd, lens), timer,
+                lambda: flash_decode(qd, kd, vd, lens, block_k=PS),
+                lambda: flash_decode_plain(qd, kd, vd, lens),
+                2 * nbytes(qd) + 2 * sum(DEC_LENS) * kv * hd * es + nbytes(lens),
+                4.0 * h * hd * sum(DEC_LENS), sdpa_decode_call(qd, kd, vd, lens))
+        bitwise = bool(torch.equal(dense, out))
+        emit({"phase": "kernels", "kernel": "flash_decode", "dtype": dname,
+              "heads": [h, kv, hd], "bitwise_equal_paged_decode_over_gather_pages_view": bitwise})
+        if not bitwise:
+            raise AssertionError(f"flash decode {dtype} heads {(h, kv, hd)}: not bitwise equal "
+                                 f"to the paged decode over the gathered view")
+        repeat_and_batch_rows("flash_decode", dtype, dense,
+                              lambda sl: flash_decode(qd[sl], kd[sl], vd[sl], lens[sl],
+                                                      block_k=PS),
+                              heads=[h, kv, hd])
+        del qd, kp, vp, kd, vd, view
+    for h, kv, hd in PRE_HEADS:
+        q = randn(B_PRE, S_PRE, h, hd, dtype=dtype)
+        k, v = (randn(B_PRE, S_PRE, kv, hd, dtype=dtype) for _ in range(2))
+        pairs = B_PRE * h * S_PRE * (S_PRE + 1) // 2
+        compare("flash_attention", dtype, [B_PRE, S_PRE, h, kv, hd], flash_attention(q, k, v),
+                flash_attention_plain(q, k, v), timer, lambda: flash_attention(q, k, v),
+                lambda: flash_attention_plain(q, k, v), 2 * nbytes(q) + 2 * nbytes(k),
+                4.0 * hd * pairs, sdpa_call(q, k, v))
+        if dtype == torch.bfloat16:
+            flash_rounding_row(q, k, v, [B_PRE, S_PRE, h, kv, hd])
+
+
 def kernel_phase(dev, timer) -> dict:
     import torch.nn.functional as F
 
@@ -558,10 +757,14 @@ def kernel_phase(dev, timer) -> dict:
     def randn(*shape, dtype):
         return torch.randn(*shape, generator=gen, device=dev).to(dtype)
 
+    warm = WarmTimer()
+    floor = launch_floor_row(dev, timer, warm)
     for dtype in (torch.bfloat16, torch.float32):
         es = torch.finfo(dtype).bits // 8
-        # rmsnorm: the (B*S, d) sublayer norms and the (B*S*H, hd) q/k norms
-        for rows_, d in ((B_PRE * S_PRE, D), (B_PRE * S_PRE * H, HD)):
+        # rmsnorm: the prefill's (B*S, d) sublayer norms and (B*S*H, hd) q/k
+        # norms; in bf16 also the decode round's shapes, warm and in turns
+        shapes = NORM_PREFILL + (NORM_DECODE if dtype == torch.bfloat16 else [])
+        for rows_, d in shapes:
             x, s = randn(rows_, d, dtype=dtype), randn(d, dtype=dtype)
             lib = (lambda x=x, s=s, d=d: F.rms_norm(x, (d,), s, 1e-5))
             r = compare("rmsnorm", dtype, [rows_, d], rmsnorm(x, s, 1e-5),
@@ -569,6 +772,19 @@ def kernel_phase(dev, timer) -> dict:
                         lambda: rmsnorm(x, s, 1e-5), lambda: rmsnorm_plain(x, s, 1e-5),
                         2 * x.numel() * es + d * es, 4.0 * x.numel(), lib)
             rows.setdefault(("rmsnorm", dtype), r)
+            if dtype == torch.bfloat16:
+                turns("rmsnorm", [rows_, d], timer, lambda: rmsnorm(x, s, 1e-5), lib)
+                if (rows_, d) in NORM_DECODE:
+                    warm_row("rmsnorm", [rows_, d], r, floor, warm,
+                             lambda: rmsnorm(x, s, 1e-5), lib, pdl=True)
+        if dtype == torch.bfloat16:
+            clean_flush_row(dev, floor, randn)
+            norm_batch_rows(randn)
+            g, u = randn(B_DEC, DFF, dtype=dtype), randn(B_DEC, DFF, dtype=dtype)
+            r = compare("swiglu", dtype, [B_DEC, DFF], swiglu(g, u), swiglu_plain(g, u), timer,
+                        lambda: swiglu(g, u), lambda: swiglu_plain(g, u), 3 * g.numel() * es,
+                        5.0 * g.numel())
+            warm_row("swiglu", [B_DEC, DFF], r, floor, warm, lambda: swiglu(g, u))
         # swiglu over the FFN hidden
         g, u = randn(B_PRE * S_PRE, DFF, dtype=dtype), randn(B_PRE * S_PRE, DFF, dtype=dtype)
         rows[("swiglu", dtype)] = compare(
@@ -588,6 +804,7 @@ def kernel_phase(dev, timer) -> dict:
             flash_rounding_row(q, k, v, [B_PRE, S_PRE, H, KV, HD])
             turns("flash_attention", [B_PRE, S_PRE, H, KV, HD], timer,
                   lambda: flash_attention(q, k, v), sdpa_call(q, k, v))
+        head_shape_rows(dtype, timer if dtype == torch.bfloat16 else None, randn, gen)
         # paged decode over a shuffled pool, ragged lengths including 0
         n_pages = 1 + B_DEC * P_DEC
         qd = randn(B_DEC, 1, H, HD, dtype=dtype)
@@ -676,8 +893,24 @@ def check_serve(phase, cfg, ecfg, workload, eng, res, launches, peak, must_launc
         raise AssertionError(f"{phase}: {len(res.states)} of {len(workload)} requests served")
 
 
+def alone_row(phase, dev, cfg, params, ecfg, workload, streams) -> None:
+    """Whole-run batch invariance: the request with the most new tokens,
+    served alone on a fresh engine, gives the token stream it gave among
+    all of ``workload``."""
+    req = max(workload, key=lambda r: (r.max_new_tokens, -r.rid))
+    res = run.serve(ServeEngine(cfg, params, ecfg, device=dev), [req])
+    same = res.streams()[req.rid] == streams[req.rid]
+    emit({"phase": phase, "request": req.rid, "prompt_len": len(req.prompt),
+          "new_tokens": req.max_new_tokens, "served_with": len(workload),
+          "stream_alone_equal_among_all": same})
+    if not same:
+        raise AssertionError(f"{phase}: request {req.rid} alone streams "
+                             f"{res.streams()[req.rid]}, among all {streams[req.rid]}")
+
+
 def serve_phase(dev):
-    """The paged round, then the dense round on the same requests."""
+    """The paged round, then the dense round on the same requests; each
+    also with one request served alone."""
     cfg, params = run.build("qwen3-0.6b", device=dev, seed=0)
     workload = build_workload(SPEC)
     eng, res, launches, peak = serve_run(dev, cfg, params, PAGED_ECFG, workload)
@@ -685,6 +918,7 @@ def serve_phase(dev):
                 ("rmsnorm", "swiglu", "flash_attention", "paged_decode"))
     paged_streams = res.streams()
     del eng, res  # the paged engine's pool must not count in the dense run's peak
+    alone_row("serve", dev, cfg, params, PAGED_ECFG, workload, paged_streams)
     eng, res, dense_launches, peak = serve_run(dev, cfg, params, ECFG, workload)
     same = res.streams() == paged_streams
     check_serve("serve dense", cfg, ECFG, workload, eng, res, dense_launches, peak,
@@ -692,6 +926,8 @@ def serve_phase(dev):
                 streams_equal_paged=same)
     if not same:
         raise AssertionError("serve dense: token streams differ from the paged round's")
+    del eng
+    alone_row("serve dense", dev, cfg, params, ECFG, workload, res.streams())
     launches["flash_decode"] = dense_launches["flash_decode"]
     return cfg, params, workload, launches
 
@@ -761,6 +997,8 @@ def chunk_share_phase(dev, cfg, params) -> None:
     if not (res.accounting["n_prefix_hits"] > 0 and eng.chunk_calls > 0):
         raise AssertionError(f"serve chunk/share: prefix hits {res.accounting['n_prefix_hits']},"
                              f" chunks {eng.chunk_calls}")
+    del eng
+    alone_row("serve chunk/share", dev, cfg, params, SHARE_ECFG, workload, res.streams())
     # two requests of one prefix group
     head = SHARE_SPEC.shared_prefix
     by_group = {}

@@ -22,7 +22,12 @@
 //    ceil(Smax / block_k), never from the lengths; a block whose split
 //    starts at or past its lane's length exits at once.  One block serves
 //    the G query heads of its (kv head, lane) group, so each K/V row is read
-//    once per group.
+//    once per group.  A group wider than MAX_GHD elements (G * hd: glm4's
+//    16 x 128, granite's 48 x 128) is cut into sub-groups of GS heads
+//    (sub_group: G itself when it fits, else the largest of 8, 4, 2, 1 that
+//    divides G and fits), each with its own blocks, so the middle grid axis
+//    is KV * G / GS; a K/V row is then read once per sub-group.  GS depends
+//    on G and hd alone.
 // 2. Within a split, cache rows stream through a ring of STAGES stages of
 //    TILE rows, loaded with 16-byte cp.async in their own type (bf16 stays
 //    bf16 in shared memory, widened in registers); rows at or past the
@@ -38,9 +43,11 @@
 //    p = 2^(s - m) is one special-function op; the softmax runs in every
 //    lane with no barrier.  At the split's end the four warps' states are
 //    merged in warp order into the split's partial (m, l, acc[hd]) per
-//    head, written in f32.  The kernel is instantiated for G = 1, 2, 4 and
-//    8, so a lane holds only its group's heads in registers (any other G
-//    takes the general one).
+//    head, written in f32.  The kernel is instantiated for GS = 1, 2, 4 and
+//    8, so a lane holds only its sub-group's heads in registers (any other
+//    GS takes the general one).  Head widths 32, 64, 96, 128 and 192: a
+//    lane holds hd / 32 elements, loaded as the widest aligned vectors
+//    (hd 96 in bf16: three 2-byte loads).
 // 4. A second kernel (launched with programmatic dependence on the first)
 //    merges each lane's splits in ascending order: m = max m_i, l = sum
 //    2^(m_i - m) l_i, acc = sum 2^(m_i - m) acc_i, o = acc / max(l, 1e-30)
@@ -81,14 +88,14 @@ constexpr int NWARPS = NT / 32;
 constexpr int TILE = 16;               // cache rows a ring stage holds
 constexpr int RW = TILE / NWARPS;      // rows of a tile each warp folds
 constexpr int STAGES = 4;              // ring depth
-constexpr int MAX_GHD = 1024;          // G * hd the kernels take
+constexpr int MAX_GHD = 1024;          // GS * hd a block holds
 constexpr int MAX_SPLIT_BLOCKS = NT;   // one thread loads each page id
 constexpr float kLog2e = 1.4426950408889634f;
 
 template <typename T, int HD>
 struct Shape {
   static constexpr int E = HD / 32;                  // elements of a row per lane
-  static constexpr int GMAX = MAX_GHD / HD;          // most heads per group
+  static constexpr int GMAX = MAX_GHD / HD;          // most heads a block holds
   static constexpr int N = 16 / sizeof(T);           // elements per 16-byte chunk
   static constexpr int VPR = HD / N;                 // chunks per row
   static constexpr int STAGE = 2 * TILE * HD;        // K rows then V rows, elements
@@ -102,27 +109,29 @@ inline size_t smem_bytes(int G, int split_blocks) {
          sizeof(int) * static_cast<size_t>(split_blocks);
 }
 
-// E consecutive elements of T (E * sizeof(T) bytes, so aligned) widened to f32
+// the unsigned type of B bytes
+template <int B> struct Chunk;
+template <> struct Chunk<16> { using type = uint4; };
+template <> struct Chunk<8> { using type = uint2; };
+template <> struct Chunk<4> { using type = uint32_t; };
+template <> struct Chunk<2> { using type = uint16_t; };
+
+// E consecutive elements of T widened to f32.  p is E * sizeof(T) bytes
+// past a 16-byte boundary times the lane, so it is aligned to the largest
+// power of two (at most 16) dividing E * sizeof(T): loaded in chunks of that
+// size.
 template <typename T, int E>
 __device__ __forceinline__ void load_e(const T* p, float (&out)[E]) {
   constexpr int BYTES = E * static_cast<int>(sizeof(T));
-  if constexpr (BYTES == 16) {
-    const uint4 r = *reinterpret_cast<const uint4*>(p);
+  constexpr int CH = BYTES % 16 == 0 ? 16 : BYTES % 8 == 0 ? 8 : BYTES % 4 == 0 ? 4 : 2;
+  constexpr int PER = CH / static_cast<int>(sizeof(T));
+  using C = typename Chunk<CH>::type;
+#pragma unroll
+  for (int c = 0; c < BYTES / CH; ++c) {
+    const C r = reinterpret_cast<const C*>(p)[c];
     const T* e = reinterpret_cast<const T*>(&r);
 #pragma unroll
-    for (int i = 0; i < E; ++i) out[i] = to_f<T>(e[i]);
-  } else if constexpr (BYTES == 8) {
-    const uint2 r = *reinterpret_cast<const uint2*>(p);
-    const T* e = reinterpret_cast<const T*>(&r);
-#pragma unroll
-    for (int i = 0; i < E; ++i) out[i] = to_f<T>(e[i]);
-  } else if constexpr (BYTES == 4) {
-    const uint32_t r = *reinterpret_cast<const uint32_t*>(p);
-    const T* e = reinterpret_cast<const T*>(&r);
-#pragma unroll
-    for (int i = 0; i < E; ++i) out[i] = to_f<T>(e[i]);
-  } else {
-    out[0] = to_f<T>(p[0]);
+    for (int i = 0; i < PER; ++i) out[c * PER + i] = to_f<T>(e[i]);
   }
 }
 
@@ -162,8 +171,8 @@ struct PagedRows {
   }
 };
 
-// Heads held in registers: GT when the group size is a compile-time
-// constant (the common G = 1, 2, 4, 8), else the most a group may have.
+// Heads held in registers: GT when the sub-group size is a compile-time
+// constant (the common GS = 1, 2, 4, 8), else the most a block may hold.
 template <typename T, int HD, int GT>
 struct HeadsHeld {
   static constexpr int value = GT > 0 ? GT : Shape<T, HD>::GMAX;
@@ -276,24 +285,26 @@ __device__ __forceinline__ void fold_tile(
   }
 }
 
-// Pass 1: grid (splits, KV, B), NT threads.  Writes the split partials of
-// the G heads of (kv head blockIdx.y, lane blockIdx.z) into part: acc
-// [B][H][NS][HD], then (m, l) [B][H][NS][2], f32.  G = H / KV, which is GT
-// when GT > 0.
+// Pass 1: grid (splits, H / GS, B), NT threads.  Block y holds
+// query heads y * GS .. y * GS + GS - 1 (all of one kv head's group) of lane
+// blockIdx.z and writes their split partials into part: acc [B][H][NS][HD],
+// then (m, l) [B][H][NS][2], f32.  GS is GT when GT > 0.
 template <typename T, int HD, int GT, typename Rows>
 __global__ void __launch_bounds__(NT)
 split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
              const int* __restrict__ lens, Rows rows, float* __restrict__ part, int H, int KV,
-             int bk, int rows_max, int split_blocks, float scale2) {
+             int gs, int bk, int rows_max, int split_blocks, float scale2) {
   using S = Shape<T, HD>;
   constexpr int E = S::E;
   constexpr int GA = HeadsHeld<T, HD, GT>::value;
   // the combine pass may be scheduled now; it waits for this grid before
   // it reads the partials
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int split = blockIdx.x, b = blockIdx.z;
   const int NS = gridDim.x;
-  const int G = H / KV;
+  const int G = GT > 0 ? GT : gs;  // heads of this block
+  const int head0 = blockIdx.y * G;
+  const int kvh = head0 / (H / KV);
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -337,7 +348,7 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   }
 
   float qr[GA][E], m[GA], l[GA], acc[GA][E];
-  const T* qb = q + (static_cast<size_t>(b) * H + static_cast<size_t>(kvh) * G) * HD + lane * E;
+  const T* qb = q + (static_cast<size_t>(b) * H + head0) * HD + lane * E;
 #pragma unroll
   for (int g = 0; g < GA; ++g) {
     if (GT > 0 || g < G) load_e<T, E>(qb + g * HD, qr[g]);
@@ -389,7 +400,7 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
       a = __fmaf_rn(c, w_acc[(w * G + g) * HD + d], a);
       ls = __fmaf_rn(c, w_l[w * G + g], ls);
     }
-    const size_t row = (static_cast<size_t>(b) * H + static_cast<size_t>(kvh) * G + g) * NS + split;
+    const size_t row = (static_cast<size_t>(b) * H + head0 + g) * NS + split;
     part[row * HD + d] = a;
     if (d == 0) {
       part_ml[row * 2] = mx;
@@ -427,33 +438,53 @@ combine_kernel(const float* __restrict__ part, const int* __restrict__ lens, T* 
   o[(static_cast<size_t>(b) * H + h) * HD + d] = from_f<T>(__fdiv_rn(a, fmaxf(ls, 1e-30f)));
 }
 
+// Heads a block holds for a group of G query heads of width HD: G itself
+// when G * HD <= MAX_GHD, else the largest of 8, 4, 2, 1 that divides G
+// with GS * HD <= MAX_GHD.  A function of (G, HD) only.
+inline int sub_group(int G, int HD) {
+  if (G * HD <= MAX_GHD) return G;
+  for (int gs = 8; gs > 1; gs >>= 1)
+    if (G % gs == 0 && gs * HD <= MAX_GHD) return gs;
+  return 1;
+}
+
+// the split kernel for GT heads a block; GT = 0, or a GT too wide for HD
+// (never chosen by sub_group), is the general one
+template <typename T, int HD, int GT, typename Rows>
+inline auto split_fn() {
+  if constexpr (GT * HD <= MAX_GHD) return split_kernel<T, HD, GT, Rows>;
+  else return split_kernel<T, HD, 0, Rows>;
+}
+
 // Both passes on `stream`: pass 1 over NS = ceil(n_blocks / split_blocks)
-// splits of every (kv head, lane), then the combine with programmatic
-// dependence on it.  rows_max: the most rows a lane has (P * ps, or Smax);
-// lengths are clamped to [0, rows_max].  Returns a cudaError_t.
+// splits of every (head sub-group, lane), then the combine with
+// programmatic dependence on it.  rows_max: the most rows a lane has (P *
+// ps, or Smax); lengths are clamped to [0, rows_max].  Returns a
+// cudaError_t.
 template <typename T, int HD, typename Rows>
 int launch(const T* q, const T* k, const T* v, const int* lens, const Rows& rows, float* part,
            T* o, int B, int H, int KV, int bk, int n_blocks, int rows_max, int split_blocks,
            float scale, cudaStream_t stream) {
-  const int G = H / KV;
-  if (G * HD > MAX_GHD || bk < 1 || split_blocks < 1 || split_blocks > MAX_SPLIT_BLOCKS ||
+  if (KV < 1 || H % KV || bk < 1 || split_blocks < 1 || split_blocks > MAX_SPLIT_BLOCKS ||
       n_blocks < 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int G = H / KV;
+  const int GS = sub_group(G, HD);
   const int NS = (n_blocks + split_blocks - 1) / split_blocks;
   if (NS > 0) {
-    const size_t smem = smem_bytes<T, HD>(G, split_blocks);
-    auto kern = G == 1 ? split_kernel<T, HD, 1, Rows>
-                : G == 2 ? split_kernel<T, HD, 2, Rows>
-                : G == 4 ? split_kernel<T, HD, 4, Rows>
-                : G == 8 ? split_kernel<T, HD, 8, Rows>
-                : split_kernel<T, HD, 0, Rows>;
+    const size_t smem = smem_bytes<T, HD>(GS, split_blocks);
+    auto kern = GS == 1 ? split_fn<T, HD, 1, Rows>()
+                : GS == 2 ? split_fn<T, HD, 2, Rows>()
+                : GS == 4 ? split_fn<T, HD, 4, Rows>()
+                : GS == 8 ? split_fn<T, HD, 8, Rows>()
+                : split_fn<T, HD, 0, Rows>();
     if (smem > 48 * 1024) {
       cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
       if (e != cudaSuccess) return static_cast<int>(e);
     }
-    kern<<<dim3(NS, KV, B), NT, smem, stream>>>(q, k, v, lens, rows, part, H, KV, bk, rows_max,
-                                                split_blocks, scale * kLog2e);
+    kern<<<dim3(NS, H / GS, B), NT, smem, stream>>>(q, k, v, lens, rows, part, H, KV, GS, bk,
+                                                   rows_max, split_blocks, scale * kLog2e);
     const int err = static_cast<int>(cudaGetLastError());
     if (err) return err;
   }

@@ -71,12 +71,17 @@ constexpr int TC_BQ = 64;   // query rows per block
 constexpr int TC_BK = 64;   // keys per K/V tile
 constexpr float LOG2E = 1.4426950408889634f;
 
+// Head widths 32, 64, 96, 128 and 192 (hd / 16 k-steps of QK^T, hd / 8
+// output column tiles).  At hd 192 the Q fragments (12 k-steps, 48
+// registers) would join the 96-register accumulator, so Q stays in shared
+// memory and each k-step's fragment is loaded with ldmatrix as it is used.
 template <int HD>
 struct TcCfg {
   static constexpr int PITCH = HD + 8;  // bf16 per shared-memory row: 16-byte pad
   static constexpr int STAGES = HD >= 128 ? 2 : 3;
   static constexpr int TILE = TC_BK * PITCH;  // one K or V tile
   static constexpr size_t SMEM = sizeof(bf16) * (TC_BQ * PITCH + STAGES * 2 * TILE);
+  static constexpr bool Q_REGS = HD <= 128;  // Q fragments held in registers
 };
 
 // rows [row0, row0 + n_rows) of a (limit x HD) slab with row stride `stride`
@@ -139,7 +144,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_commit();
   }
 
-  uint32_t qf[KS][4];
+  uint32_t qf[C::Q_REGS ? KS : 1][4];
   float acc[NO][4];
 #pragma unroll
   for (int j = 0; j < NO; ++j)
@@ -155,10 +160,10 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (t + STAGES - 1 < n_tiles) load_kv(t + STAGES - 1);
     cp_async_commit();
 
-    if (t == 0) {
+    const bf16* q_frag = Qs + (warp * 16 + (lane & 15)) * PITCH + (lane >> 4) * 8;
+    if (C::Q_REGS && t == 0) {
 #pragma unroll
-      for (int ks = 0; ks < KS; ++ks)
-        ldsm_x4(qf[ks], Qs + (warp * 16 + (lane & 15)) * PITCH + ks * 16 + (lane >> 4) * 8);
+      for (int ks = 0; ks < KS; ++ks) ldsm_x4(qf[C::Q_REGS ? ks : 0], q_frag + ks * 16);
     }
     const bf16* Ks = ring + (t % STAGES) * 2 * C::TILE;
     const bf16* Vs = Ks + C::TILE;
@@ -172,13 +177,15 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
+      if (!C::Q_REGS) ldsm_x4(qf[0], q_frag + ks * 16);
+      const uint32_t(&a)[4] = qf[C::Q_REGS ? ks : 0];
 #pragma unroll
       for (int j2 = 0; j2 < NS / 2; ++j2) {
         uint32_t kf[4];
         ldsm_x4(kf, Ks + (j2 * 16 + (lane & 7) + ((lane >> 4) << 3)) * PITCH + ks * 16 +
                         ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * j2], qf[ks], kf[0], kf[1]);
-        mma_bf16(s[2 * j2 + 1], qf[ks], kf[2], kf[3]);
+        mma_bf16(s[2 * j2], a, kf[0], kf[1]);
+        mma_bf16(s[2 * j2 + 1], a, kf[2], kf[3]);
       }
     }
 
@@ -505,16 +512,18 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, 
 }  // namespace
 
 // q, o: (B, Sq, H, hd); k, v: (B, Sk, KV, hd); all contiguous, 16-byte
-// aligned; hd in {32, 64, 128}; H a multiple of KV.
+// aligned; hd in {32, 64, 96, 128, 192}; H a multiple of KV.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
                                       void* o, int B, int Sq, int Sk, int H, int KV,
                                       int hd, float scale, int dtype, void* stream) {
   if (B <= 0 || Sq <= 0) return 0;
+  if (KV < 1 || H % KV) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 32: return launch<32>(q, k, v, o, B, Sq, Sk, H, KV, scale, dtype, s);
-    case 64: return launch<64>(q, k, v, o, B, Sq, Sk, H, KV, scale, dtype, s);
-    case 128: return launch<128>(q, k, v, o, B, Sq, Sk, H, KV, scale, dtype, s);
+#define CASE(HD_) \
+  case HD_: return launch<HD_>(q, k, v, o, B, Sq, Sk, H, KV, scale, dtype, s);
+    CASE(32) CASE(64) CASE(96) CASE(128) CASE(192)
+#undef CASE
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -45,12 +45,11 @@ int dispatch(const void* q, const void* k, const void* v, const int* lens, void*
              int B, int H, int KV, int hd, int Smax, int bk, int split_blocks, float scale,
              cudaStream_t s) {
   switch (hd) {
-    case 32: return launch<T, 32>(q, k, v, lens, part, o, B, H, KV, Smax, bk, split_blocks,
-                                  scale, s);
-    case 64: return launch<T, 64>(q, k, v, lens, part, o, B, H, KV, Smax, bk, split_blocks,
-                                  scale, s);
-    case 128: return launch<T, 128>(q, k, v, lens, part, o, B, H, KV, Smax, bk, split_blocks,
-                                    scale, s);
+#define CASE(HD_)                                                                             \
+  case HD_:                                                                                   \
+    return launch<T, HD_>(q, k, v, lens, part, o, B, H, KV, Smax, bk, split_blocks, scale, s);
+    CASE(32) CASE(64) CASE(96) CASE(128) CASE(192)
+#undef CASE
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -60,8 +59,8 @@ int dispatch(const void* q, const void* k, const void* v, const int* lens, void*
 // q, o: (B, 1, H, hd); k_cache, v_cache: (B, Smax, KV, hd); lens: (B,)
 // int32 valid positions per sequence; part: f32 scratch of B * H *
 // ceil(ceil(Smax / bk) / split_blocks) * (hd + 2) elements.  All contiguous
-// and 16-byte aligned; hd in {32, 64, 128}; H a multiple of KV; 1 <= bk <=
-// Smax.
+// and 16-byte aligned; hd in {32, 64, 96, 128, 192}; H a multiple of KV;
+// 1 <= bk <= Smax.
 extern "C" int flash_decode_launch(const void* q, const void* k_cache, const void* v_cache,
                                    const void* lens, void* part, void* o, int B, int H, int KV,
                                    int hd, int Smax, int bk, int split_blocks, float scale,

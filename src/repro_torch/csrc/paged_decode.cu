@@ -45,12 +45,12 @@ int dispatch(const void* q, const void* kp, const void* vp, const int* tables, c
              void* part, void* o, int B, int H, int KV, int hd, int n_pages, int ps, int P,
              int split_blocks, float scale, cudaStream_t s) {
   switch (hd) {
-    case 32: return launch<T, 32>(q, kp, vp, tables, lens, part, o, B, H, KV, n_pages, ps, P,
-                                  split_blocks, scale, s);
-    case 64: return launch<T, 64>(q, kp, vp, tables, lens, part, o, B, H, KV, n_pages, ps, P,
-                                  split_blocks, scale, s);
-    case 128: return launch<T, 128>(q, kp, vp, tables, lens, part, o, B, H, KV, n_pages, ps, P,
-                                    split_blocks, scale, s);
+#define CASE(HD_)                                                                        \
+  case HD_:                                                                              \
+    return launch<T, HD_>(q, kp, vp, tables, lens, part, o, B, H, KV, n_pages, ps, P,    \
+                          split_blocks, scale, s);
+    CASE(32) CASE(64) CASE(96) CASE(128) CASE(192)
+#undef CASE
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -60,7 +60,8 @@ int dispatch(const void* q, const void* kp, const void* vp, const int* tables, c
 // q, o: (B, 1, H, hd); k_pages, v_pages: (n_pages, ps, KV, hd); tables:
 // (B, P) int32; lens: (B,) int32 valid positions per slot; part: f32
 // scratch of B * H * ceil(P / split_blocks) * (hd + 2) elements.  All
-// contiguous and 16-byte aligned; hd in {32, 64, 128}; H a multiple of KV.
+// contiguous and 16-byte aligned; hd in {32, 64, 96, 128, 192}; H a
+// multiple of KV.
 extern "C" int paged_decode_launch(const void* q, const void* k_pages, const void* v_pages,
                                    const void* tables, const void* lens, void* part, void* o,
                                    int B, int H, int KV, int hd, int n_pages, int ps, int P,

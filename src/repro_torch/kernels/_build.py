@@ -32,8 +32,9 @@ NVCC_FLAGS = [
     "-Xptxas", "-v",
 ]
 
+# the six kernels' sources, and an empty kernel that times the launch floor
 SOURCES = ("rmsnorm", "swiglu", "flash_attention", "paged_decode", "lowrank_wgrad",
-           "flash_decode")
+           "flash_decode", "empty")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -31,7 +31,8 @@ from repro_torch.kernels import (
 )
 
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128)
+# head widths the source is built for
+HEAD_DIMS = (32, 64, 96, 128, 192)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -54,6 +55,14 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.reshape(B, Sq, H, hd).to(q.dtype)
 
 
+def check_attention_heads(H: int, KV: int, hd: int) -> None:
+    """Raises for head shapes the source was not built for."""
+    if KV < 1 or H % KV:
+        raise ValueError(f"{H} query heads are not a multiple of {KV} kv heads")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
+
+
 def flash_attention_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """The bare CUDA launch (no autograd history; raises under grad)."""
     refuse_detach("flash_attention", q, k, v)
@@ -61,10 +70,7 @@ def flash_attention_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) ->
     if k.shape[0] != B or k.shape[3] != hd or v.shape != k.shape:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
     Sk, KV = k.shape[1], k.shape[2]
-    if H % KV:
-        raise ValueError(f"{H} query heads are not a multiple of {KV} kv heads")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
+    check_attention_heads(H, KV, hd)
     check_operand(q, "q")
     check_operand(k, "k", q.dtype)
     check_operand(v, "v", q.dtype)

@@ -25,7 +25,9 @@ from repro_torch.kernels import (
 )
 
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128)
+# head widths the decode sources are built for; any group size G = H / KV
+# (a group wider than 1024 elements is cut into sub-groups in the kernel)
+HEAD_DIMS = (32, 64, 96, 128, 192)
 # cache rows per block when the caller names none; the dense serve round
 # passes its page size instead
 BLOCK_K = 64
@@ -137,10 +139,10 @@ def split_scratch(q: torch.Tensor, n_blocks: int, split_blocks: int) -> torch.Te
 
 def check_decode_heads(q: torch.Tensor, KV: int) -> None:
     H, hd = q.shape[2], q.shape[3]
-    if H % KV:
+    if KV < 1 or H % KV:
         raise ValueError(f"{H} query heads are not a multiple of {KV} kv heads")
-    if hd not in HEAD_DIMS or (H // KV) * hd > 128 * 8:
-        raise ValueError(f"head_dim {hd} with group {H // KV} not supported")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
 
 
 def flash_decode_launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,

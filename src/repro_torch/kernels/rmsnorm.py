@@ -4,8 +4,11 @@ Replaces the TPU kernel ``repro/kernels/rmsnorm.py:rmsnorm``.  Per row, in
 f32: ``x * rsqrt(mean(x²) + eps) * scale``, cast back to ``x``'s dtype.  The
 scale is applied in f32, as the TPU kernel and ``kernels/ref.py`` do; the
 JAX trunk's ``layers.rmsnorm`` casts before the scale, which differs by
-about one ulp in bf16 and agrees at f32.  Bound by bytes on the H100: see
-the source note in ``csrc/rmsnorm.cu``.
+about one ulp in bf16 and agrees at f32.  Bound by bytes on the H100; the
+kernel holds whole rows in registers for the widths the configs use (16
+lanes a row at d = 128 in bf16) and reduces each row in an order fixed by
+``d`` and the dtype, so a row's output does not depend on the rows around
+it: see the source note in ``csrc/rmsnorm.cu``.
 
 Under grad the kernel runs inside :class:`RMSNormFn`, whose backward
 recomputes the plain version and differentiates it (the JAX package has no

@@ -47,8 +47,16 @@ def _close(a, b, dtype):
 DTYPES = [torch.float32, torch.bfloat16]
 
 
+# the main path's rows (the decode round's (8, 1024), (128, 128), (64, 128);
+# the prefill's (2048, 1024), (32768, 128)), the other register widths
+# (2048, 4096), widths of the general paths (96, 100; 18432 a block a row)
+# and row counts that leave a block part empty
+RMSNORM_SHAPES = [(37, 96), (64, 1024), (33, 128), (5, 100), (8, 1024), (128, 128), (64, 128),
+                  (2048, 1024), (32768, 128), (3, 2048), (7, 4096), (3, 18432), (1, 128)]
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("shape", [(37, 96), (64, 1024), (33, 128), (5, 100)])
+@pytest.mark.parametrize("shape", RMSNORM_SHAPES)
 def test_rmsnorm_kernel(cuda, dtype, shape):
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
 
@@ -58,6 +66,22 @@ def test_rmsnorm_kernel(cuda, dtype, shape):
     n = rmsnorm.launches
     _close(rmsnorm(x, s), rmsnorm_plain(x, s), dtype)
     assert rmsnorm.launches == n + 1
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [128, 1024, 96, 4096])
+def test_rmsnorm_kernel_batch_invariant(cuda, dtype, d):
+    """A row's output is bitwise the same alone, among 2047 others and at
+    another place in the batch (the engine's determinism contract)."""
+    from repro_torch.kernels.rmsnorm import rmsnorm
+
+    g = torch.Generator(device=cuda).manual_seed(d)
+    x = torch.randn(2048, d, generator=g, device=cuda).to(dtype)
+    s = torch.randn(d, generator=g, device=cuda).to(dtype)
+    full = rmsnorm(x, s)
+    assert torch.equal(full[:8], rmsnorm(x[:8].contiguous(), s))
+    assert torch.equal(full[5:6], rmsnorm(x[5:6].contiguous(), s))
+    assert torch.equal(full[1000:1013], rmsnorm(x[1000:1013].contiguous(), s))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -73,7 +97,8 @@ def test_swiglu_kernel(cuda, dtype, shape):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("case", [(2, 48, 4, 2, 32), (1, 100, 16, 8, 128), (3, 17, 4, 4, 64),
-                                  (2, 256, 16, 16, 64)])
+                                  (2, 256, 16, 16, 64), (2, 130, 32, 32, 96),
+                                  (2, 130, 24, 2, 192), (1, 70, 48, 1, 128)])
 def test_flash_attention_kernel(cuda, dtype, case):
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 
@@ -87,7 +112,7 @@ def test_flash_attention_kernel(cuda, dtype, case):
 
 # the bf16 kernel's tile edges: 64-row q tiles and 64-key K/V tiles
 FLASH_EDGE_SEQS = [1, 63, 65, 200, 1000]
-FLASH_EDGE_HEADS = [(hd, g) for hd in (32, 64, 128) for g in (1, 2, 4)]
+FLASH_EDGE_HEADS = [(hd, g) for hd in (32, 64, 96, 128, 192) for g in (1, 2, 4)]
 
 
 @pytest.mark.parametrize("heads", FLASH_EDGE_HEADS)
@@ -213,13 +238,20 @@ def test_flash_decode_split_edges(cuda, dtype, block_k):
     assert torch.equal(out, flash_decode(q, k, v, lens, block_k=block_k))  # bitwise repeat
 
 
+# (H, KV, hd): G = 2, 1, 4 take the kernels' instantiations for their group
+# size, G = 3 the general one; then the repo's configs' decode heads, one
+# chip's share: glm4-9b and qwen3-moe (G 16 in sub-groups of 8),
+# granite-34b (G 48), nemotron-4-340b (hd 192, G 12 in sub-groups of 4),
+# phi-3-vision (hd 96), and G 5 at hd 192 (the general one, 960 wide)
+DECODE_HEADS = [(16, 8, 128), (8, 8, 64), (16, 4, 32), (12, 4, 64), (32, 2, 128), (48, 1, 128),
+                (24, 2, 192), (32, 32, 96), (10, 2, 192)]
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("heads", [(16, 8, 128), (8, 8, 64), (16, 4, 32), (12, 4, 64)])
+@pytest.mark.parametrize("heads", DECODE_HEADS)
 def test_split_decode_kernels_bitwise_equal_at_split_edges(cuda, dtype, heads):
     """#1 against its plain version at split edges; #5 over the gathered
-    view with block_k == page_size bitwise equal to it; both repeatable.
-    G = 2, 1, 4 take the kernels' instantiations for their group size, G = 3
-    the general one."""
+    view with block_k == page_size bitwise equal to it; both repeatable."""
     from repro_torch.kernels.flash_decode import flash_decode
     from repro_torch.kernels.paged_decode import paged_decode, paged_decode_plain
 
@@ -242,19 +274,22 @@ def test_split_decode_kernels_bitwise_equal_at_split_edges(cuda, dtype, heads):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_split_decode_kernels_batch_invariant(cuda, dtype):
+@pytest.mark.parametrize("heads", [(16, 8, 128), (32, 2, 128), (48, 1, 128), (24, 2, 192),
+                                   (32, 32, 96)])
+def test_split_decode_kernels_batch_invariant(cuda, dtype, heads):
     """Each lane decoded alone (B = 1) gives bitwise what it gives among the
     other lanes, through #1 and through #5."""
     from repro_torch.kernels.flash_decode import flash_decode
     from repro_torch.kernels.paged_decode import paged_decode
 
+    H, KV, hd = heads
     ps, P = 16, 64
     lens = torch.tensor([0, 1, 15, 16, 17, 300, 777, 1024], dtype=torch.int32, device=cuda)
     B, n_pages = len(lens), 1 + len(lens) * P
-    q, kd, vd = _dense_case(cuda, dtype, B, P * ps, seed=11)
+    q, kd, vd = _dense_case(cuda, dtype, B, P * ps, H=H, KV=KV, hd=hd, seed=11)
     gen = torch.Generator(device=cuda).manual_seed(12)
-    kp = torch.randn(n_pages, ps, 8, 128, generator=gen, device=cuda).to(dtype)
-    vp = torch.randn(n_pages, ps, 8, 128, generator=gen, device=cuda).to(dtype)
+    kp = torch.randn(n_pages, ps, KV, hd, generator=gen, device=cuda).to(dtype)
+    vp = torch.randn(n_pages, ps, KV, hd, generator=gen, device=cuda).to(dtype)
     tables = (torch.randperm(n_pages - 1, generator=gen, device=cuda) + 1).reshape(B, P)
     tables = tables.to(torch.int32)
     dense = flash_decode(q, kd, vd, lens, block_k=ps)
@@ -297,6 +332,32 @@ def test_engine_goes_through_every_kernel(cuda, decode):
     assert out["n_completed"] == 4
     assert all(w.launches > n for w, n in zip(wrappers, before))
     assert unused.launches == idle
+
+
+@pytest.mark.parametrize("engine", ["paged", "dense", "chunked"])
+def test_engine_stream_alone_equals_stream_among_others(cuda, engine):
+    """Whole-run batch invariance on the card: each of two requests served
+    alone on a fresh engine emits the token stream it emitted among 16."""
+    import dataclasses
+
+    from repro_torch.serve import run
+    from repro_torch.serve.engine import EngineConfig, ServeEngine
+    from repro_torch.serve.request import WorkloadSpec, build_workload
+
+    cfg, params = run.build("qwen3-0.6b", device=cuda, use_reduced=True, dtype="bfloat16",
+                            seed=0)
+    spec = WorkloadSpec(n_requests=16, vocab_size=cfg.vocab_size, prompt_len=(4, 40),
+                        new_tokens=(2, 20), seed=0, shared_prefix=16 if engine == "chunked"
+                        else 0, n_prefix_groups=2 if engine == "chunked" else 0)
+    ecfg = EngineConfig(max_slots=8, page_size=8, pages_per_slot=16,
+                        use_paged_kernel=engine == "paged")
+    if engine == "chunked":
+        ecfg = dataclasses.replace(ecfg, prefill_chunk_pages=2, prefix_sharing=True)
+    workload = build_workload(spec)
+    among = run.serve(ServeEngine(cfg, params, ecfg, device=cuda), workload).streams()
+    for req in (workload[0], max(workload, key=lambda r: r.max_new_tokens)):
+        alone = run.serve(ServeEngine(cfg, params, ecfg, device=cuda), [req]).streams()
+        assert alone[req.rid] == among[req.rid], req.rid
 
 
 # ---------------------------------------------------------------------------

@@ -16,6 +16,7 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
+from repro.configs.base import get_config as jax_get_config  # noqa: E402
 from repro.kernels import ref  # noqa: E402
 from repro.kernels.flash_attention import flash_attention as jax_flash  # noqa: E402
 from repro.kernels.paged_decode import paged_flash_decode as jax_paged  # noqa: E402
@@ -24,8 +25,9 @@ from repro.kernels.swiglu import swiglu as jax_swiglu  # noqa: E402
 
 from repro_torch.bridge import tensor_from_numpy, tensor_to_numpy  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention, flash_attention_plain, rounding_ratio,
+    check_attention_heads, flash_attention, flash_attention_plain, rounding_ratio,
 )
+from repro_torch.kernels.flash_decode import check_decode_heads  # noqa: E402
 from repro_torch.kernels.paged_decode import paged_decode, paged_decode_plain  # noqa: E402
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain  # noqa: E402
 from repro_torch.kernels.swiglu import swiglu, swiglu_plain  # noqa: E402
@@ -46,7 +48,10 @@ def _np(x) -> np.ndarray:
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("shape", [(37, 96), (3, 5, 128), (7, 1024)])
+@pytest.mark.parametrize("shape", [(37, 96), (3, 5, 128), (7, 1024),
+                                   # the decode round's rows: sublayer and final
+                                   # norms, q_norm, k_norm; and a 4096-wide row
+                                   (8, 1024), (128, 128), (64, 128), (3, 4096)])
 def test_rmsnorm_matches_pallas_and_ref(shape, dtype):
     rng = np.random.default_rng(sum(shape))
     xj, xt = _pair(rng.standard_normal(shape), dtype)
@@ -77,6 +82,12 @@ FLASH_CASES = [
     # (B, S, H, KV, hd, block) — JAX needs S % block == 0
     (2, 48, 4, 2, 32, 16),
     (1, 40, 4, 1, 64, 8),
+    # the configs' head widths 96 (phi-3-vision) and 192 (nemotron-4-340b),
+    # and groups of 16 (glm4-9b) and 48 (granite-34b)
+    (1, 32, 2, 2, 96, 16),
+    (1, 24, 4, 2, 192, 8),
+    (1, 16, 16, 1, 32, 8),
+    (1, 16, 48, 1, 32, 8),
 ]
 
 
@@ -102,6 +113,8 @@ ROUND_CASES = [
     # kernel's 64-row tiles (JAX needs S % block == 0)
     (1, 72, 4, 4, 64, 24),
     (1, 100, 4, 2, 128, 20),
+    (1, 80, 4, 4, 96, 20),
+    (1, 70, 4, 2, 192, 14),
 ]
 
 
@@ -216,3 +229,37 @@ def test_plain_versions_switch_nests_restores_and_keeps_the_device_check():
         with kernels.plain_versions():
             raise RuntimeError("inside")
     assert not kernels._PLAIN
+
+
+# the repo's configs whose attention heads need sub-groups or the head
+# widths 96 and 192: (H / KV, hd) = 32/2 x 128, 64/4 x 128, 48/1 x 128,
+# 96/8 x 192, 32/32 x 96
+HEAD_CONFIGS = ["glm4-9b", "qwen3-moe-235b-a22b", "granite-34b", "nemotron-4-340b",
+                "phi-3-vision-4.2b"]
+
+
+@pytest.mark.parametrize("name", HEAD_CONFIGS)
+def test_attention_wrappers_take_the_configs_head_shapes(name):
+    """The decode (#1, #5) and prefill (#2) wrappers' head checks pass each
+    config's heads."""
+    cfg = jax_get_config(name)
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    check_decode_heads(torch.empty(1, 1, H, hd), KV)
+    check_attention_heads(H, KV, hd)
+
+
+@pytest.mark.parametrize("heads", [(32, 3, 128), (6, 4, 96), (4, 0, 64)])
+def test_attention_wrappers_refuse_heads_not_a_multiple_of_kv(heads):
+    H, KV, hd = heads
+    with pytest.raises(ValueError, match="multiple"):
+        check_decode_heads(torch.empty(1, 1, H, hd), KV)
+    with pytest.raises(ValueError, match="multiple"):
+        check_attention_heads(H, KV, hd)
+
+
+@pytest.mark.parametrize("hd", [48, 80, 256])
+def test_attention_wrappers_refuse_head_dims_not_built(hd):
+    with pytest.raises(ValueError, match="head_dim"):
+        check_decode_heads(torch.empty(1, 1, 4, hd), 2)
+    with pytest.raises(ValueError, match="head_dim"):
+        check_attention_heads(4, 2, hd)

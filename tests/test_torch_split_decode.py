@@ -39,8 +39,15 @@ CASES = [
     (2, 100, 8, 2, 128, [31, 100], 8),             # G 4, hd 128: ragged Smax, split - 1
     (2, 256, 4, 2, 32, [255, 129], 4),             # many splits
     (2, 48, 4, 1, 64, [5, 20], 4),                 # G 4: splits of masked rows only
+    # the head shapes of the repo's configs: phi-3-vision's hd 96 (MHA),
+    # nemotron-4-340b's hd 192 (G 12), glm4-9b's G 16 and granite-34b's G 48
+    (2, 40, 4, 4, 96, [0, 40], 4),
+    (2, 36, 12, 1, 192, [17, 36], 4),
+    (2, 32, 16, 1, 128, [9, 32], 4),
+    (1, 24, 48, 1, 128, [19], 4),
 ]
-IDS = ["G1-hd32", "G2-hd64-edges", "G4-hd128-ragged", "many-splits", "masked-splits"]
+IDS = ["G1-hd32", "G2-hd64-edges", "G4-hd128-ragged", "many-splits", "masked-splits",
+       "G1-hd96", "G12-hd192", "G16-hd128", "G48-hd128"]
 
 
 def _pair(a32: np.ndarray, dtype: str):
