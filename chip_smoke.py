@@ -77,6 +77,28 @@ each printing JSON lines:
              through the plain versions, with the train phase's FFN
              recompute: in bf16 at full depth (dynamic, degraded) and in f32
              on a 4-layer full-width copy (all four modes).
+9. trainer — the port's fault-tolerant Trainer (``launch/train.py``) on the
+             train phase's cell (full-depth llama-350m, bf16, seed-0
+             weights, B=8, S=1024, rank 64, FFN recompute, V1 refreshed
+             every 20 steps) replays the committed golden chaos traces:
+             ``golden_trace.jsonl`` (30 steps, n_dp 4, n_stages 2) in
+             dynamic and in static mode, and ``golden_trace_elastic.jsonl``
+             (40 steps: drops, heals, rejoins, rebalanced shares) in dynamic
+             mode.  Each run's event stream must verify against the trace,
+             its failover/recovery/drop/rejoin counts equal the footer's,
+             its whole recovery accounting equal a replay of the same events
+             through the FT controller alone for llama-350m (the footer's
+             bytes follow the reduced config's parameter count, which a
+             reduced-config controller replay must reproduce), every step's
+             launches equal ``train_launches_per_step`` for its key's mode,
+             and its losses be finite; one line per run with the step ms by
+             key mode, the number of step keys, V1 refresh seconds,
+             tokens/s and peak memory.  The dynamic golden replay runs a
+             second time: whether its losses are bitwise equal is reported,
+             not gated.  Last, a 2-layer full-width f32 run with a
+             checkpoint every 2 steps is resumed by a new Trainer from its
+             newest checkpoint (in a temporary directory, deleted after) and
+             must reproduce the uninterrupted run's last loss at rtol 1e-5.
 
 Then the kernels' summary line, the card's name and power limit, and the
 final ``{"ok": true, ...}`` line.  Any failed check raises.
@@ -87,8 +109,10 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -97,10 +121,14 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch.configs.base import MeCeFOConfig, get_config  # noqa: E402
+from repro_torch.configs.base import (  # noqa: E402
+    MeCeFOConfig, ShapeConfig, TrainConfig, get_config, reduced,
+)
 from repro_torch.core.lowrank import refresh_projections  # noqa: E402
 from repro_torch.core.ndb import NDBContext, plan_to_masks  # noqa: E402
 from repro_torch.data.pipeline import SyntheticLM  # noqa: E402
+from repro_torch.ft.controller import FTController  # noqa: E402
+from repro_torch.ft.trace import load_trace, replay_engine, verify_replay  # noqa: E402
 from repro_torch.kernels import PTR, _build, check_launch, kernel_fn, plain_versions  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     ROUND_SLACK, flash_attention, flash_attention_plain, rounding_ratio,
@@ -120,12 +148,15 @@ from repro_torch.launch.profile import (  # noqa: E402
     BATCH as TRAIN_B, CONFIG as TRAIN_CONFIG, FLAGS as TRAIN_FLAGS, PLAN as TRAIN_PLAN,
     RANK as TRAIN_RANK, SEQ_LEN as TRAIN_S, train_cell,
 )
+from repro_torch.launch.state import TrainState, init_state  # noqa: E402
 from repro_torch.launch.steps import loss_and_grads, to_device  # noqa: E402
+from repro_torch.launch.train import Trainer  # noqa: E402
 from repro_torch.models.kvcache import cache_structs  # noqa: E402
 from repro_torch.models.model import (  # noqa: E402
     ExecFlags, forward_decode, forward_prefill, forward_prefill_chunk,
 )
 from repro_torch.models.params import init_params, tree_leaves, tree_map  # noqa: E402
+from repro_torch.optim.optimizers import init_opt_state  # noqa: E402
 from repro_torch.serve import run  # noqa: E402
 from repro_torch.serve.engine import EngineConfig, ServeEngine  # noqa: E402
 from repro_torch.serve.kvpool import (  # noqa: E402
@@ -181,6 +212,16 @@ LOWRANK_SHAPES = [(8192, 1024, 2736, 64), (8192, 2736, 1024, 64), (300, 100, 260
 # check is also anchored to the f32 step (TRAIN_ANCHOR_RATIO).
 TRAIN_PARITY_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (5e-2, 1e-3)}
 TRAIN_ANCHOR_RATIO = 1.5
+# the trainer phase: the port's Trainer replays the committed golden chaos
+# traces on the train cell (full-depth llama-350m, B=8, S=1024, rank 64,
+# FFN recompute), V1 refreshed every TRAINER_SVD_PERIOD steps as the CLI
+# does; the checkpoint round trip runs on a 2-layer full-width f32 copy
+TRAINER_DATA = os.path.join(ROOT, "tests", "data")
+TRAINER_RUNS = (("dynamic golden", "golden_trace.jsonl", "dynamic"),
+                ("dynamic elastic", "golden_trace_elastic.jsonl", "dynamic"),
+                ("static golden", "golden_trace.jsonl", "static"))
+TRAINER_SVD_PERIOD = 20
+TRAINER_CKPT = {"n_layers": 2, "steps": 6, "every": 2, "fail_step": 5, "rtol": 1e-5}
 
 # the serving slice's shapes (qwen3-0.6b)
 B_PRE, S_PRE, H, KV, HD, D, DFF = 4, 512, 16, 8, 128, 1024, 3072
@@ -1206,6 +1247,187 @@ def train_parity_phase(dev) -> None:
         del params, proj
 
 
+def fresh_state(base: TrainState, train: TrainConfig) -> TrainState:
+    """A copy of the seeded state with zero moments (a trainer updates its
+    state in place)."""
+    params = tree_map(lambda t: t.clone(), base.params)
+    return TrainState(step=0, params=params, opt=init_opt_state(params, train),
+                      proj=tree_map(lambda t: t.clone(), base.proj))
+
+
+def count_trainer_launches(trainer):
+    """Wrap the trainer's step lookup so that every step call records its
+    key's mode and its kernel launches; returns the list they land in, one
+    ``(mode, {kernel: launches})`` per step in run order."""
+    per_step = []
+    get = trainer._get_step
+
+    def get_counted(key):
+        step = get(key)
+
+        def run(*args):
+            before = {n: WRAPPERS[n].launches for n in TRAIN_KERNELS}
+            out = step(*args)
+            per_step.append((key[0], {n: WRAPPERS[n].launches - before[n]
+                                      for n in TRAIN_KERNELS}))
+            return out
+        return run
+
+    trainer._get_step = get_counted
+    return per_step
+
+
+def controller_replay(trace, cfg) -> dict:
+    """The recovery accounting of the trace's events replayed through the
+    FT controller alone (no model) for ``cfg``: its byte totals follow
+    ``count_params(cfg)``."""
+    h = trace.header
+    ctl = FTController(cfg=cfg, mecefo=MeCeFOConfig(mode="dynamic"), n_dp=h.n_dp,
+                       n_stages=min(h.n_stages, cfg.n_layers), global_batch=TRAIN_B)
+    engine = replay_engine(trace)
+    for step in range(trace.footer.total_steps):
+        ctl.apply_chaos(engine.step(step))
+    return ctl.accounting.as_dict()
+
+
+def trainer_run(dev, run, trace_name, mode, cfg, base) -> dict:
+    """One replay of a golden chaos trace through the port's Trainer at the
+    train cell; checks the events, the accounting, each step's launches
+    against its key's mode and the losses, and emits one row."""
+    trace = load_trace(os.path.join(TRAINER_DATA, trace_name))
+    footer = trace.footer.accounting
+    steps = trace.footer.total_steps
+    train = TrainConfig(steps=steps)
+    mecefo = MeCeFOConfig(mode=mode, rank=TRAIN_RANK, svd_period=TRAINER_SVD_PERIOD)
+    shape = ShapeConfig("trainer", TRAIN_S, TRAIN_B, "train")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()  # the seeded weights kept for the next runs
+    trainer = Trainer(cfg, shape, train, mecefo=mecefo, trace_replay=trace,
+                      state=fresh_state(base, train), device=dev)
+    per_step = count_trainer_launches(trainer)
+    t0 = time.perf_counter()
+    hist = trainer.run(log_every=0)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    del trainer._get_step  # the counting wrapper refers to the trainer
+    acc = trainer.controller.accounting.as_dict()
+    want_acc = controller_replay(trace, cfg)
+    reduced_acc = controller_replay(trace, reduced(cfg, dtype="float32"))
+    counts = {k: v for k, v in footer.items() if k.startswith("n_")}
+    events_ok = verify_replay(trace, trainer.process) == []
+    losses = [r["loss"] for r in hist]
+    modes = [m for m, _ in per_step]
+    want = {m: train_launches_per_step(cfg, m, trainer.flags, mecefo) for m in set(modes)}
+    bad_launches = [(i, m, got) for i, (m, got) in enumerate(per_step) if got != want[m]]
+    ms_by = {m: [1e3 * r["seconds"] for r, k in zip(hist, modes) if k == m] for m in want}
+    ok = (len(hist) == steps == len(per_step) and events_ok
+          and all(acc[k] == v for k, v in counts.items()) and acc == want_acc
+          and all(reduced_acc[k] == v for k, v in footer.items())
+          and not bad_launches and bool(np.isfinite(losses).all()))
+    emit({"phase": "trainer", "run": run, "trace": trace_name, "mecefo": mode,
+          "config": cfg.name, "n_layers": cfg.n_layers, "dtype": cfg.dtype, "batch": TRAIN_B,
+          "seq_len": TRAIN_S, "rank": TRAIN_RANK, "remat": trainer.flags.remat,
+          "svd_period": TRAINER_SVD_PERIOD, "steps": len(hist),
+          "n_events": len(trainer.process.events), "events_verified": events_ok,
+          "footer_counts": counts, "accounting": acc, "controller_replay_accounting": want_acc,
+          "reduced_controller_replay_equals_footer": all(
+              reduced_acc[k] == v for k, v in footer.items()),
+          "n_step_keys": len(trainer._step_cache),
+          "steps_by_key_mode": {m: len(v) for m, v in ms_by.items()},
+          "step_ms_median_by_key_mode": {m: float(np.median(v)) for m, v in ms_by.items()},
+          "step_ms_max_by_key_mode": {m: max(v) for m, v in ms_by.items()},
+          "launches_per_step_by_key_mode": {m: want[m] for m in sorted(want)},
+          "bad_launch_steps": bad_launches[:5], "losses": losses,
+          "final_loss": losses[-1], "svd_refresh_s": trainer.refresh_s,
+          "run_wall_s": wall, "tokens_per_s": TRAIN_B * TRAIN_S * len(hist) / wall,
+          "peak_mem_gib": peak / 2 ** 30,
+          "peak_above_kept_weights_gib": (peak - base_mem) / 2 ** 30,
+          "dp_size": [r["dp_size"] for r in hist], "failed": [r["failed"] for r in hist],
+          "ok": ok})
+    if not ok:
+        raise AssertionError(f"trainer {run}: events {events_ok}, accounting {acc} vs footer "
+                             f"{footer} / controller {want_acc}, launches {bad_launches[:3]}, "
+                             f"losses {losses}")
+    del trainer
+    return {"losses": losses, "launches": {n: sum(got[n] for _, got in per_step)
+                                           for n in TRAIN_KERNELS}}
+
+
+def trainer_checkpoint_row(dev) -> None:
+    """A run with checkpoints, resumed by a new trainer from its newest
+    one, reproduces the uninterrupted run's last loss (a device failure
+    injected at that step makes it a dynamic step through V1 restored from
+    the checkpoint)."""
+    c = TRAINER_CKPT
+    cfg = dataclasses.replace(get_config(TRAIN_CONFIG), n_layers=c["n_layers"], dtype="float32")
+    shape = ShapeConfig("trainer ckpt", TRAIN_S, TRAIN_B, "train")
+    mecefo = MeCeFOConfig(mode="dynamic", rank=TRAIN_RANK, svd_period=c["every"])
+    directory = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        train = TrainConfig(steps=c["steps"], checkpoint_every=c["every"],
+                            checkpoint_dir=directory)
+
+        def trainer():
+            t = Trainer(cfg, shape, train, mecefo=mecefo, n_dp=4, n_stages=2, device=dev)
+            t.process.inject(c["fail_step"], (1, 0), down_steps=c["steps"])
+            return t
+
+        h1 = trainer().run(log_every=0)
+        t2 = trainer()
+        resumed = t2.resume_from_checkpoint()
+        start = t2.state.step
+        h2 = t2.run(steps=c["steps"] - start, log_every=0)
+        ref = {r["step"]: r for r in h1}[h2[-1]["step"]]
+        rel = abs(h2[-1]["loss"] - ref["loss"]) / abs(ref["loss"])
+        ok = (resumed and type(start) is int and start == c["steps"] - 1
+              and h2[-1]["failed"] > 0 and rel <= c["rtol"])
+        emit({"phase": "trainer", "run": "checkpoint resume", "config": cfg.name,
+              "n_layers": cfg.n_layers, "dtype": cfg.dtype, "checkpoint_every": c["every"],
+              "resumed_at_step": start, "steps_after_resume": len(h2),
+              "loss_uninterrupted": ref["loss"], "loss_resumed": h2[-1]["loss"],
+              "loss_rel_err": rel, "limit_rel": c["rtol"], "ok": ok})
+        if not ok:
+            raise AssertionError(f"trainer checkpoint resume failed: resumed {resumed}, "
+                                 f"start {start!r}, rel {rel}")
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+
+
+def trainer_phase(dev) -> None:
+    """The port's Trainer replays the golden chaos traces at full depth:
+    dynamic and static on golden_trace.jsonl, dynamic on the elastic one;
+    the dynamic golden replay a second time for repeatability (reported,
+    not gated); then the checkpoint round trip."""
+    cfg = get_config(TRAIN_CONFIG)
+    base = init_state(cfg, TrainConfig(), MeCeFOConfig(mode="dynamic", rank=TRAIN_RANK),
+                      torch.Generator().manual_seed(0), device=dev)._replace(opt=None)
+    reset_launches()
+    total = {n: 0 for n in TRAIN_KERNELS}
+    runs = {}
+    for run, trace_name, mode in TRAINER_RUNS:
+        runs[run] = trainer_run(dev, run, trace_name, mode, cfg, base)
+        for n in TRAIN_KERNELS:
+            total[n] += runs[run]["launches"][n]
+    if {n: WRAPPERS[n].launches for n in TRAIN_KERNELS} != total:
+        raise AssertionError("trainer launches outside its steps")
+    missing = [n for n, c in total.items() if c == 0]
+    if missing:
+        raise AssertionError(f"the trainer runs never launched {missing}")
+    again = trainer_run(dev, "dynamic golden, again", TRAINER_RUNS[0][1], TRAINER_RUNS[0][2],
+                        cfg, base)
+    first = np.array(runs[TRAINER_RUNS[0][0]]["losses"])
+    second = np.array(again["losses"])
+    emit({"phase": "trainer", "run": "repeatability (reported, not gated)",
+          "losses_bitwise_equal": bool((first == second).all()),
+          "max_rel_diff": float(np.max(np.abs(first - second)
+                                       / np.maximum(np.abs(first), 1e-30)))})
+    del base
+    torch.cuda.empty_cache()
+    trainer_checkpoint_row(dev)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU",
@@ -1232,6 +1454,7 @@ def main() -> int:
     # #1-#4, the dense serve run's for #5, the training run's for #6
     launches["lowrank_wgrad"] = train_phase(dev)["lowrank_wgrad"]
     train_parity_phase(dev)
+    trainer_phase(dev)
 
     emit({"kernels": [
         {"name": n, "route": "cuda", "source": f"src/repro_torch/csrc/{n}.cu",

@@ -82,3 +82,14 @@ def rebalanced_owners(
     for rank, chunk in zip(active, np.array_split(orphan_idx, len(active))):
         owners[chunk] = rank
     return owners
+
+
+def rank_batch_shares(
+    global_batch: int, n_dp: int, active_ranks: Sequence[int]
+) -> Dict[int, int]:
+    """Examples per active rank after rebalancing; values sum to the global
+    batch whenever any rank is active."""
+    owners = rebalanced_owners(global_batch, n_dp, active_ranks)
+    return {
+        int(r): int(np.sum(owners == r)) for r in sorted(set(active_ranks))
+    }

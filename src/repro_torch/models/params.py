@@ -90,6 +90,24 @@ def param_shapes(cfg: ModelConfig) -> Tree:
     return tree
 
 
+def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Number of parameters of ``cfg`` (the JAX package's
+    ``count_params``); ``active_only`` counts a stacked MoE expert weight at
+    ``top_k / n_experts`` of its size."""
+    total = 0
+
+    def add(name, shape):
+        nonlocal total
+        n = math.prod(shape)
+        if (active_only and cfg.moe is not None and len(shape) == 4
+                and name in ("w_up", "w_down", "w_gate")):
+            n = n * cfg.moe.top_k // cfg.moe.n_experts
+        total += n
+
+    map_leaves(add, param_shapes(cfg))
+    return total
+
+
 def map_leaves(fn, tree: Tree, name: str = "") -> Tree:
     """Apply ``fn(name, leaf)`` to every leaf of a params-shaped tree, where
     ``name`` is the leaf's dict key (``"wq"``, ``"ln"``, ...)."""
@@ -158,5 +176,5 @@ def _sorted(tree: Tree) -> Tree:
     return tree
 
 
-__all__ = ["param_shapes", "init_params", "block_layout", "map_leaves", "tree_leaves",
-           "tree_map"]
+__all__ = ["param_shapes", "init_params", "count_params", "block_layout", "map_leaves",
+           "tree_leaves", "tree_map"]

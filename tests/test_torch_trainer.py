@@ -1,0 +1,326 @@
+"""The port's Trainer (``repro_torch.launch.train``) against the live JAX
+Trainer on the CPU, its checkpoints, and its CLI.
+
+Trainer parity runs the CLI's settings (``reduced(llama-350m,
+dtype=float32)``, ``ShapeConfig("cli", 128, 8)``, ``MeCeFOConfig("dynamic",
+rank=16, svd_period=20)``, AdamW at 3e-4) through the 40 steps of
+``golden_trace_elastic.jsonl`` on both sides, the JAX Trainer's initial
+state crossing the bridge.  Per step the step key, ``failed``,
+``stragglers``, ``dp_size``, ``pending_rejoin`` and ``degraded_frac`` must
+be equal; loss and grad norm are held at rtol LOSS_RTOL.
+
+V1 is refreshed inside each Trainer (steps 0 and 20).  The two libraries'
+SVDs may return a singular vector with the opposite sign, so V1 is compared
+as the projector V1 V1ᵀ per leaf after each refresh (atol PROJ_ATOL): the
+low-rank Wgrad V1 (V1ᵀ xᵀ dy) depends on V1 only through that projector,
+so a flipped column changes nothing downstream.
+
+Why the loss tolerance holds over 40 steps: both sides run the same f32
+arithmetic and differ only in summation order (a few ulps per step, see
+``tests/test_torch_train_step.py``).  AdamW turns such noise into a
+parameter difference of up to ~lr per element per step only where a
+gradient element is itself at the noise level; those elements carry almost
+no loss signal, and the schedule keeps lr ≤ 3e-4.  Measured on the CPU:
+at most 2.2e-7 relative in loss, 1.5e-7 in grad norm and 8.0e-6 absolute
+in a projector entry, so LOSS_RTOL is ~50× the largest difference and
+PROJ_ATOL ~12×.  Steps whose every example is zero-weighted (every rank
+dropped) have loss and grad norm exactly 0 on both sides.
+"""
+import json
+import pathlib
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+
+from repro.configs import base as jbase  # noqa: E402
+from repro.launch import train as jtrain  # noqa: E402
+
+from repro_torch.bridge import state_from_numpy, tensor_to_numpy  # noqa: E402
+from repro_torch.checkpoint.ckpt import (  # noqa: E402
+    CheckpointManager, latest_step, restore, save,
+)
+from repro_torch.configs import base as tbase  # noqa: E402
+from repro_torch.launch import train as ttrain  # noqa: E402
+from repro_torch.launch.train import Trainer  # noqa: E402
+from repro_torch.models.params import tree_leaves  # noqa: E402
+from repro_torch.utils.trees import host_copy, tree_flatten, tree_nbytes  # noqa: E402
+
+DATA = pathlib.Path(__file__).parent / "data"
+LOSS_RTOL, PROJ_ATOL = 1e-5, 1e-4
+EXACT = ("step", "failed", "stragglers", "dp_size", "pending_rejoin", "degraded_frac")
+
+TINY = dict(name="tiny-dense", n_layers=4, d_model=64, n_heads=4, n_kv_heads=2,
+            d_ff=128, vocab_size=256, dtype="float32")
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One intra-op thread for torch: the suite runs in several worker
+    processes at once, where torch's multi-threaded CPU kernels spin
+    against each other.  On the CPU, the port's 40-step run below took
+    ~4 s alone, 151 s beside five busy processes with 8 threads and 6 s
+    there with one."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _record_refreshes(monkeypatch, module, out):
+    real = module.refresh_projections
+
+    def recorded(params, cfg, rank):
+        proj = real(params, cfg, rank)
+        out.append(proj)
+        return proj
+
+    monkeypatch.setattr(module, "refresh_projections", recorded)
+
+
+def _projectors(proj, leaves):
+    out = []
+    for v in leaves(proj):
+        v = tensor_to_numpy(v) if isinstance(v, torch.Tensor) else np.asarray(v)
+        out.append(np.einsum("...ir,...jr->...ij", v, v))
+    return out
+
+
+def _record_keys(monkeypatch, trainer):
+    keys = []
+    real = trainer._step_key
+
+    def key():
+        k = real()
+        keys.append(k)
+        return k
+
+    monkeypatch.setattr(trainer, "_step_key", key)
+    return keys
+
+
+def _jax_and_port(monkeypatch, jcfg, tcfg, shape, train, mecefo, **kw):
+    jtr = jtrain.Trainer(jcfg, jbase.ShapeConfig(*shape), jbase.TrainConfig(**train),
+                         mecefo=jbase.MeCeFOConfig(**mecefo), **kw)
+    state = state_from_numpy(jax.tree.map(np.asarray, jtr.state), tcfg, device="cpu")
+    ttr = Trainer(tcfg, tbase.ShapeConfig(*shape), tbase.TrainConfig(**train),
+                  mecefo=tbase.MeCeFOConfig(**mecefo), state=state, device="cpu", **kw)
+    return jtr, ttr, _record_keys(monkeypatch, jtr), _record_keys(monkeypatch, ttr)
+
+
+def test_trainer_matches_jax_on_the_elastic_golden_trace(monkeypatch):
+    name = "golden_trace_elastic.jsonl"
+    steps = json.loads((DATA / name).read_text().splitlines()[-1])["total_steps"]
+    jcfg = jbase.reduced(jbase.get_config("llama-350m"), dtype="float32")
+    tcfg = tbase.reduced(tbase.get_config("llama-350m"), dtype="float32")
+    jref, tref = [], []
+    _record_refreshes(monkeypatch, jtrain, jref)
+    _record_refreshes(monkeypatch, ttrain, tref)
+    jtr, ttr, jkeys, tkeys = _jax_and_port(
+        monkeypatch, jcfg, tcfg, ("cli", 128, 8, "train"), dict(steps=steps),
+        dict(mode="dynamic", rank=16, svd_period=20), trace_replay=str(DATA / name))
+    jh, th = jtr.run(log_every=0), ttr.run(log_every=0)
+    assert len(jh) == len(th) == steps
+    assert tkeys == jkeys and {k[0] for k in tkeys} >= {"dynamic"}
+    for j, t in zip(jh, th):
+        assert {k: t[k] for k in EXACT} == {k: j[k] for k in EXACT}
+        np.testing.assert_allclose(t["loss"], j["loss"], rtol=LOSS_RTOL, err_msg=f"{t['step']}")
+        np.testing.assert_allclose(t["grad_norm"], j["grad_norm"], rtol=LOSS_RTOL,
+                                   err_msg=f"{t['step']}")
+    assert any(r["loss"] == 0 for r in th) and any(r["dp_size"] < 4 for r in th)
+    assert len(tref) == len(jref) == 2
+    for tp, jp in zip(tref, jref):
+        for a, b in zip(_projectors(tp, tree_leaves), _projectors(jp, jax.tree.leaves)):
+            np.testing.assert_allclose(a, b, atol=PROJ_ATOL)
+    assert ttr.verify_replay() == [] and jtr.verify_replay() == []
+    assert ttr.controller.accounting.as_dict() == jtr.controller.accounting.as_dict()
+    assert len(ttr.refresh_s) == 2
+
+
+def test_trainer_static_mode_step_cache_matches_jax(monkeypatch):
+    """Static mode builds one step per distinct plan: ("off",) and one
+    static key for a single injected failure; the losses follow the JAX
+    Trainer's."""
+    from tests.conftest import TINY_DENSE
+
+    tcfg = tbase.ModelConfig(**TINY)
+    jtr, ttr, jkeys, tkeys = _jax_and_port(
+        monkeypatch, TINY_DENSE, tcfg, ("t", 16, 4, "train"),
+        dict(steps=8, learning_rate=1e-3), dict(mode="static", rank=8),
+        n_dp=2, n_stages=2)
+    jtr.process.inject(2, (0, 1), down_steps=3)
+    ttr.process.inject(2, (0, 1), down_steps=3)
+    jh, th = jtr.run(log_every=0), ttr.run(log_every=0)
+    keys = set(ttr._step_cache)
+    assert ("off",) in keys and len(keys) == 2
+    assert any(k[0] == "static" for k in keys)
+    assert keys == set(jtr._step_cache) and tkeys == jkeys
+    for j, t in zip(jh, th):
+        assert {k: t[k] for k in EXACT} == {k: j[k] for k in EXACT}
+        np.testing.assert_allclose(t["loss"], j["loss"], rtol=LOSS_RTOL)
+
+
+# -- checkpoints ----------------------------------------------------------------
+
+
+def test_trainer_checkpoint_resume(tmp_path):
+    """A restart from the newest checkpoint reproduces the uninterrupted
+    trajectory."""
+    cfg = tbase.ModelConfig(**TINY)
+    shape = tbase.ShapeConfig("t", 16, 4, "train")
+    tc = tbase.TrainConfig(steps=6, checkpoint_every=3, checkpoint_dir=str(tmp_path),
+                           learning_rate=1e-3)
+    h1 = Trainer(cfg, shape, tc, seed=5, device="cpu").run(log_every=0)
+    t2 = Trainer(cfg, shape, tc, seed=5, device="cpu")
+    assert t2.resume_from_checkpoint()
+    start = t2.state.step
+    assert type(start) is int and start == 4
+    h2 = t2.run(steps=6 - start, log_every=0)
+    ref = {r["step"]: r for r in h1}
+    assert [r["step"] for r in h2] == [4, 5]
+    for r in h2:
+        np.testing.assert_allclose(r["loss"], ref[r["step"]]["loss"], rtol=1e-5)
+    # a trainer without checkpoints has nothing to resume
+    assert not Trainer(cfg, shape, tbase.TrainConfig(steps=1), device="cpu").resume_from_checkpoint()
+
+
+def test_checkpoint_roundtrip_keeps_leaf_types(tmp_path):
+    state = {"a": torch.arange(6.0).reshape(2, 3), "h": torch.randn(5).to(torch.bfloat16),
+             "b": {"c": 7, "f": 0.1, "flag": True},
+             "n": np.arange(4, dtype=np.int16), "t": (torch.ones(2, dtype=torch.int32),)}
+    save(state, str(tmp_path), 42)
+    got, step = restore(state, str(tmp_path))
+    assert step == 42
+    assert list(got) == list(state) and isinstance(got["t"], tuple)
+    for key in ("a", "h"):
+        assert got[key].dtype == state[key].dtype and got[key].device == state[key].device
+        assert torch.equal(got[key], state[key])
+    assert torch.equal(got["t"][0], state["t"][0]) and got["t"][0].dtype == torch.int32
+    assert got["n"].dtype == np.int16 and (got["n"] == state["n"]).all()
+    for key, want in state["b"].items():
+        assert type(got["b"][key]) is type(want) and got["b"][key] == want
+    with pytest.raises(FileNotFoundError):
+        restore(state, str(tmp_path / "empty"))
+
+
+def test_checkpoint_retention_atomicity_and_newest_step(tmp_path):
+    mgr = CheckpointManager(str(tmp_path), keep=2)
+    state = {"w": torch.ones(4)}
+    for s in (10, 20, 30):
+        mgr.save_async(state, s)
+    mgr.wait()
+    assert latest_step(str(tmp_path)) == 30
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["step_00000020", "step_00000030"]
+    # a directory without DONE is invisible
+    (tmp_path / "step_00000040").mkdir()
+    assert latest_step(str(tmp_path)) == 30
+    # an out-of-order save never prunes the newest complete step
+    old = tmp_path / "old"
+    mgr = CheckpointManager(str(old), keep=1)
+    for s in (30, 10):
+        mgr.save_async(state, s)
+    mgr.wait()
+    assert latest_step(str(old)) == 30 and mgr.saved_steps == [30]
+    assert mgr.restore_latest(state)[1] == 30
+
+
+def test_checkpoint_save_is_a_copy_and_errors_surface_on_wait(tmp_path):
+    """The trainer's step updates params and moments in place right after
+    ``save_async`` returns: the checkpoint must hold the values at the call."""
+    state = {"w": torch.ones(1 << 16), "s": 3}
+    copy = host_copy(state)
+    assert copy["w"].data_ptr() != state["w"].data_ptr() and copy["s"] == 3
+    assert tree_nbytes(state) == 4 * (1 << 16) + 8
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save_async(state, 1)
+    state["w"].add_(1.0)
+    mgr.wait()
+    got, _ = restore(state, str(tmp_path))
+    assert torch.equal(got["w"], torch.ones(1 << 16))
+    blocked = tmp_path / "file"
+    blocked.write_text("not a directory")
+    mgr = CheckpointManager(str(blocked))
+    mgr.save_async(state, 2)
+    with pytest.raises(OSError):
+        mgr.wait()
+    mgr.wait()  # the error is raised once
+
+
+def test_tree_flatten_orders_like_jax():
+    state = {"b": 1, "a": (torch.zeros(1), {"y": 2, "x": 3})}
+    leaves, unflatten = tree_flatten(state)
+    assert [x if isinstance(x, int) else "t" for x in leaves] == ["t", 3, 2, 1]
+    again = unflatten(leaves)
+    assert list(again) == ["b", "a"] and list(again["a"][1]) == ["y", "x"]
+
+
+# -- the CLI ----------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("trace,extra", [
+    ("golden_trace.jsonl", []),
+    ("golden_trace_elastic.jsonl", ["--chaos", "elastic"]),
+])
+def test_cli_replays_golden_traces(trace, extra):
+    argv = ["--reduced", "--mecefo", "dynamic", "--trace", "replay",
+            str(DATA / trace), "--device", "cpu", *extra]
+    assert ttrain.main(argv) == 0
+
+
+def test_cli_replay_fails_on_a_tampered_trace(tmp_path):
+    lines = (DATA / "golden_trace.jsonl").read_text().splitlines()
+    i = next(i for i, line in enumerate(lines) if '"kind": "fail"' in line)
+    ev = json.loads(lines[i])
+    ev["duration_steps"] += 1
+    lines[i] = json.dumps(ev)
+    path = tmp_path / "tampered.jsonl"
+    path.write_text("\n".join(lines) + "\n")
+    assert ttrain.main(["--reduced", "--mecefo", "dynamic", "--trace", "replay", str(path),
+                        "--device", "cpu"]) == 1
+
+
+def test_cli_records_a_trace_the_jax_package_replays(tmp_path):
+    from repro.ft import trace as jtrace
+
+    path = tmp_path / "rec.jsonl"
+    assert ttrain.main(["--reduced", "--steps", "6", "--seq", "16", "--mecefo", "dynamic",
+                        "--chaos", "kitchen-sink", "--n-dp", "4", "--n-stages", "2",
+                        "--trace", "record", str(path), "--device", "cpu"]) == 0
+    trace = jtrace.load_trace(path)
+    engine = jtrace.replay_engine(trace)
+    for step in range(trace.footer.total_steps):
+        engine.step(step)
+    assert trace.footer.total_steps == 6 and jtrace.verify_replay(trace, engine) == []
+
+
+def test_trainer_refuses_what_it_does_not_port():
+    cfg = tbase.ModelConfig(**TINY)
+    shape = tbase.ShapeConfig("t", 16, 4, "train")
+    with pytest.raises(NotImplementedError, match="queue A item 4"):
+        Trainer(cfg, shape, statexfer=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="queue A item 4"):
+        ttrain.main(["--reduced", "--steps", "1", "--statexfer", "--device", "cpu"])
+
+    class Parallel:
+        accum = 2
+
+    tr = Trainer(cfg, shape, tbase.TrainConfig(steps=1), parallel=Parallel(), device="cpu")
+    with pytest.raises(NotImplementedError):
+        tr.run(log_every=0)
+    for flag in ("--obs-out", "--incidents-out"):
+        with pytest.raises(SystemExit):
+            ttrain.main(["--reduced", flag, "x", "--device", "cpu"])
+
+
+def test_trainer_and_cli_default_to_cuda_and_raise_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is available, so the default device would work")
+    cfg = tbase.ModelConfig(**TINY)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(cfg, tbase.ShapeConfig("t", 16, 4, "train"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ttrain.main(["--reduced", "--mecefo", "dynamic", "--trace", "replay",
+                     str(DATA / "golden_trace.jsonl")])
