@@ -99,13 +99,39 @@ each printing JSON lines:
              checkpoint every 2 steps is resumed by a new Trainer from its
              newest checkpoint (in a temporary directory, deleted after) and
              must reproduce the uninterrupted run's last loss at rtol 1e-5.
+10. statexfer — live state transfer on the card.  (a) The port's CLI, in
+             process, replays the two goldens recorded with state transfer
+             at the reduced config with their own flags (``--reduced
+             --mecefo dynamic --chaos elastic --statexfer``):
+             ``golden_trace_statexfer.jsonl`` with ``--incidents-out`` and
+             ``--obs-out`` (exit 0: events and the whole footer, 10 peer
+             restores, 55782440 measured bytes; its incident log through
+             ``python -m repro_torch.obs incidents --verify ... --trace ...
+             --require-closed 1``; its exposition parsed; its report's
+             snapshot-overhead section), and ``golden_trace_policy.jsonl``
+             (exit 0: every pinned decision re-derives).  (b) The Trainer
+             replays the statexfer golden at the trainer phase's cell
+             without and then with state transfer (cadence 1): events and
+             counts, launches per step, measured bytes = peer restores x the
+             measured state size, and every restored tree's digest (on the
+             card) equal to the trainer's state at the receipt's snapshot
+             step; one row each with step ms by key kind, tokens/s, peak
+             device memory, peak host RSS and, with state transfer, the
+             snapshot-blocked share of step time against the 5 % budget and
+             the cycles, bytes, copy and transfer seconds.  (c) A Trainer with
+             ``ft_policy="adaptive"``, the elastic preset and state transfer
+             records 40 steps at full width on XFER_ADAPTIVE_LAYERS layers,
+             and a new Trainer replays it: ``verify_replay()`` finds nothing
+             (events, accounting and every decision).
 
 Then the kernels' summary line, the card's name and power limit, and the
 final ``{"ok": true, ...}`` line.  Any failed check raises.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import re
@@ -113,6 +139,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -121,6 +148,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch import obs  # noqa: E402
 from repro_torch.configs.base import (  # noqa: E402
     MeCeFOConfig, ShapeConfig, TrainConfig, get_config, reduced,
 )
@@ -128,6 +156,8 @@ from repro_torch.core.lowrank import refresh_projections  # noqa: E402
 from repro_torch.core.ndb import NDBContext, plan_to_masks  # noqa: E402
 from repro_torch.data.pipeline import SyntheticLM  # noqa: E402
 from repro_torch.ft.controller import FTController  # noqa: E402
+from repro_torch.ft.failures import SCENARIOS  # noqa: E402
+from repro_torch.ft.injectors import chaos_preset  # noqa: E402
 from repro_torch.ft.trace import load_trace, replay_engine, verify_replay  # noqa: E402
 from repro_torch.kernels import PTR, _build, check_launch, kernel_fn, plain_versions  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
@@ -150,7 +180,7 @@ from repro_torch.launch.profile import (  # noqa: E402
 )
 from repro_torch.launch.state import TrainState, init_state  # noqa: E402
 from repro_torch.launch.steps import loss_and_grads, to_device  # noqa: E402
-from repro_torch.launch.train import Trainer  # noqa: E402
+from repro_torch.launch.train import Trainer, main as train_main  # noqa: E402
 from repro_torch.models.kvcache import cache_structs  # noqa: E402
 from repro_torch.models.model import (  # noqa: E402
     ExecFlags, forward_decode, forward_prefill, forward_prefill_chunk,
@@ -164,6 +194,8 @@ from repro_torch.serve.kvpool import (  # noqa: E402
 )
 from repro_torch.serve.request import WorkloadSpec, build_workload  # noqa: E402
 from repro_torch.serve.sampling import greedy_token  # noqa: E402
+from repro_torch.statexfer import snapshot as tsnap  # noqa: E402
+from repro_torch.utils.trees import host_copy, state_nbytes, tree_flatten  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
@@ -222,6 +254,18 @@ TRAINER_RUNS = (("dynamic golden", "golden_trace.jsonl", "dynamic"),
                 ("static golden", "golden_trace.jsonl", "static"))
 TRAINER_SVD_PERIOD = 20
 TRAINER_CKPT = {"n_layers": 2, "steps": 6, "every": 2, "fail_step": 5, "rtol": 1e-5}
+# the statexfer phase: the two goldens recorded with live state transfer,
+# replayed through the CLI at the reduced config (every gate of the JAX
+# package's acceptance run), the statexfer golden at the train cell without
+# and with state transfer (snapshot cadence 1), and an adaptive-policy
+# record/replay round trip at full width on XFER_ADAPTIVE_LAYERS layers
+XFER_TRACE, XFER_POLICY_TRACE = "golden_trace_statexfer.jsonl", "golden_trace_policy.jsonl"
+XFER_INCIDENTS = "golden_incidents_statexfer.jsonl"
+XFER_CLI = ["--reduced", "--mecefo", "dynamic", "--chaos", "elastic", "--statexfer",
+            "--device", "cuda"]
+XFER_BUDGET = 0.05  # obs/report.py SNAPSHOT_BUDGET_FRAC: blocked share of step time
+XFER_ADAPTIVE_LAYERS, XFER_ADAPTIVE_STEPS = 4, 40
+DIGEST_CHUNK = 1 << 24  # elements a digest moves at a time
 
 # the serving slice's shapes (qwen3-0.6b)
 B_PRE, S_PRE, H, KV, HD, D, DFF = 4, 512, 16, 8, 128, 1024, 3072
@@ -1277,6 +1321,13 @@ def count_trainer_launches(trainer):
     return per_step
 
 
+def step_launch_check(cfg, flags, mecefo, per_step) -> tuple:
+    """Each counted step's launches against ``train_launches_per_step`` of
+    its key's mode: ``(want by mode, the steps that differ)``."""
+    want = {m: train_launches_per_step(cfg, m, flags, mecefo) for m, _ in per_step}
+    return want, [(i, m, got) for i, (m, got) in enumerate(per_step) if got != want[m]]
+
+
 def controller_replay(trace, cfg) -> dict:
     """The recovery accounting of the trace's events replayed through the
     FT controller alone (no model) for ``cfg``: its byte totals follow
@@ -1319,8 +1370,7 @@ def trainer_run(dev, run, trace_name, mode, cfg, base) -> dict:
     events_ok = verify_replay(trace, trainer.process) == []
     losses = [r["loss"] for r in hist]
     modes = [m for m, _ in per_step]
-    want = {m: train_launches_per_step(cfg, m, trainer.flags, mecefo) for m in set(modes)}
-    bad_launches = [(i, m, got) for i, (m, got) in enumerate(per_step) if got != want[m]]
+    want, bad_launches = step_launch_check(cfg, trainer.flags, mecefo, per_step)
     ms_by = {m: [1e3 * r["seconds"] for r, k in zip(hist, modes) if k == m] for m in want}
     ok = (len(hist) == steps == len(per_step) and events_ok
           and all(acc[k] == v for k, v in counts.items()) and acc == want_acc
@@ -1428,6 +1478,319 @@ def trainer_phase(dev) -> None:
     trainer_checkpoint_row(dev)
 
 
+def tree_digest(tree, dev) -> list:
+    """Bitwise digest of a state tree, computed on the card: per tensor leaf
+    the wrapped int64 sum of its raw words times position weights (a host
+    leaf crosses to the card a chunk at a time); other leaves as they are."""
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    out = []
+    for x in tree_flatten(tree)[0]:
+        if not isinstance(x, torch.Tensor):
+            out.append(x)
+            continue
+        words = x.detach().reshape(-1).view(ints[x.element_size()])
+        total = torch.zeros((), dtype=torch.int64, device=dev)
+        for i in range(0, words.numel(), DIGEST_CHUNK):
+            w = words[i:i + DIGEST_CHUNK].to(dev).to(torch.int64)
+            pos = torch.arange(i, i + w.numel(), device=dev, dtype=torch.int64) % 65521 + 1
+            total += (w * pos).sum()
+        out.append(int(total))
+    return out
+
+
+class HostRSS:
+    """The process's resident set over a window, sampled every 10 ms from
+    ``/proc/self/statm`` (the card machine's ``/proc`` has no VmHWM to
+    reset); ``peak_gib`` and ``start_gib`` after the window."""
+
+    def __init__(self):
+        self.page = os.sysconf("SC_PAGE_SIZE")
+        self.start_gib = self.peak_gib = self.read()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+
+    def read(self) -> float:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * self.page / 2 ** 30
+
+    def _sample(self) -> None:
+        while not self._stop.wait(0.01):
+            self.peak_gib = max(self.peak_gib, self.read())
+
+    def stop(self) -> "HostRSS":
+        self._stop.set()
+        self._thread.join()
+        self.peak_gib = max(self.peak_gib, self.read())
+        return self
+
+
+def statexfer_cli_row(trace_name: str, tmp: str) -> None:
+    """(a) The port's CLI replays a golden recorded with live state transfer
+    on the card, at the reduced config, with the goldens' own flags: exit 0
+    means the events, the whole footer and (policy trace) every decision
+    re-derived.  The statexfer replay also writes its incident log, which
+    ``python -m repro_torch.obs incidents`` must verify against the golden
+    log, reconcile with the footer and find closed, and its telemetry,
+    whose exposition must parse and whose report must show the snapshot
+    overhead."""
+    trace = os.path.join(TRAINER_DATA, trace_name)
+    inc, dump = os.path.join(tmp, "incidents.jsonl"), os.path.join(tmp, "obs.jsonl")
+    xfer = trace_name == XFER_TRACE
+    argv = XFER_CLI + ["--trace", "replay", trace]
+    if xfer:
+        argv += ["--incidents-out", inc, "--obs-out", dump]
+    obs.reset()  # the dump reads the process's registry: this run's metrics only
+    report = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(report):
+        rc = train_main(argv)
+    wall = time.perf_counter() - t0
+    row = {"phase": "statexfer", "run": "cli reduced", "trace": trace_name, "argv": argv[:-1],
+           "exit_code": rc, "wall_s": wall}
+    ok = rc == 0
+    if xfer:
+        verify = subprocess.run(
+            [sys.executable, "-m", "repro_torch.obs", "incidents", inc,
+             "--verify", os.path.join(TRAINER_DATA, XFER_INCIDENTS), "--trace", trace,
+             "--require-closed", "1"],
+            capture_output=True, text=True, timeout=120,
+            env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")})
+        prom = obs.parse_prometheus_text(open(dump + ".prom").read())
+        recovery = {r["name"].removeprefix("ft.recovery."): r["value"]
+                    for r in obs.load_dump(dump) if r.get("name", "").startswith("ft.recovery.")}
+        text = report.getvalue()
+        row.update(incidents_verify_exit_code=verify.returncode,
+                   incidents_verify=[ln for ln in verify.stdout.splitlines() if " OK" in ln],
+                   prom_families=len(prom), recovery=recovery,
+                   report_snapshot_section=[ln.strip() for ln in text.splitlines()
+                                            if ln.strip().startswith(("cycles=", "blocked/"))])
+        ok = (ok and verify.returncode == 0 and "verify OK" in verify.stdout
+              and "reconcile OK" in verify.stdout
+              and "snapshot overhead (statexfer.snapshot.*):" in text
+              and recovery.get("measured_transfer_bytes") == 55782440
+              and recovery.get("n_peer_restores") == 10)
+    emit({**row, "ok": ok})
+    if not ok:
+        raise AssertionError(f"statexfer CLI replay of {trace_name} failed: {row}")
+
+
+def statexfer_full_run(dev, cfg, base, statexfer: bool) -> dict:
+    """(b) The statexfer golden through the Trainer at the train cell,
+    without or with state transfer at snapshot cadence 1.  Gates: events
+    verify; every count equals the footer's (without state transfer, those
+    that do not come from it); each step's launches equal
+    ``train_launches_per_step`` of its key and no launch happens outside the
+    steps; finite losses.  With state transfer also the measured bytes
+    (restores x the measured state size) and, for every peer restore, the
+    restored tree's digest equal to the trainer's state at the receipt's
+    snapshot step (digests on the card, at the detach calls and at the
+    cadence captures of the steps the trace names; their time is taken out
+    of the step times reported)."""
+    trace = load_trace(os.path.join(TRAINER_DATA, XFER_TRACE))
+    footer, steps = trace.footer.accounting, trace.footer.total_steps
+    train = TrainConfig(steps=steps)
+    mecefo = MeCeFOConfig(mode="dynamic", rank=TRAIN_RANK, svd_period=TRAINER_SVD_PERIOD)
+    shape = ShapeConfig("statexfer", TRAIN_S, TRAIN_B, "train")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    rss = HostRSS()
+    reset_launches()
+    trainer = Trainer(cfg, shape, train, mecefo=mecefo, trace_replay=trace,
+                      state=fresh_state(base, train), device=dev, statexfer=statexfer,
+                      snapshot_every=1)
+    per_step = count_trainer_launches(trainer)
+    named = {e.step for e in trace.events}
+    pins, cycles, restored, digest_s = {}, {}, {}, {}
+
+    def timed(step, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        digest_s[step] = digest_s.get(step, 0.0) + time.perf_counter() - t0
+        return out
+
+    if statexfer:
+        xfer = trainer.xfer
+        on_reshard, on_step, retry = xfer.on_reshard, xfer.on_step, xfer.retry_pending
+
+        def reshard_counted(plan, state, step, **kw):
+            if plan.dropped:
+                d = timed(step, tree_digest, state, dev)
+                pins.update({(step, r): d for r in plan.dropped})
+            out = on_reshard(plan, state, step, **kw)
+            for r, tree in out.restored.items():
+                restored[(r, step)] = timed(step, tree_digest, tree, dev)
+            return out
+
+        def step_counted(state, step, plan):
+            if step in named:
+                cycles[step] = timed(step, tree_digest, state, dev)
+            return on_step(state, step, plan)
+
+        def retry_counted(step, **kw):
+            done = retry(step, **kw)
+            for r in done:
+                restored[(r.rank, step)] = timed(step, tree_digest, xfer.last_restored[r.rank], dev)
+            return done
+
+        xfer.on_reshard, xfer.on_step, xfer.retry_pending = (
+            reshard_counted, step_counted, retry_counted)
+    t0 = time.perf_counter()
+    hist = trainer.run(log_every=0)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    rss.stop()
+    del trainer._get_step  # the wrappers refer to the trainer
+    acc = trainer.controller.accounting.as_dict()
+    xfer_counts = ("n_peer_restores", "n_ckpt_restores")
+    counts = {k: v for k, v in footer.items() if k.startswith("n_")
+              and (statexfer or k not in xfer_counts)}
+    events_ok = verify_replay(trace, trainer.process) == []
+    losses = [r["loss"] for r in hist]
+    modes = [m for m, _ in per_step]
+    want, bad_launches = step_launch_check(cfg, trainer.flags, mecefo, per_step)
+    outside = {n: WRAPPERS[n].launches - sum(got[n] for _, got in per_step) for n in TRAIN_KERNELS}
+    seconds = [r["seconds"] - digest_s.get(r["step"], 0.0) for r in hist]
+    ms_by = {m: [1e3 * t for t, k in zip(seconds, modes) if k == m] for m in want}
+    step_sum = sum(seconds)
+    row = {"phase": "statexfer", "run": "train cell " + ("with" if statexfer else "without")
+           + " state transfer", "trace": XFER_TRACE, "config": cfg.name,
+           "n_layers": cfg.n_layers, "dtype": cfg.dtype, "batch": TRAIN_B, "seq_len": TRAIN_S,
+           "rank": TRAIN_RANK, "statexfer": statexfer, "snapshot_every": 1, "steps": len(hist),
+           "events_verified": events_ok, "footer_counts": counts, "accounting": acc,
+           "step_ms_median_by_key_mode": {m: float(np.median(v)) for m, v in ms_by.items()},
+           "step_ms_max_by_key_mode": {m: max(v) for m, v in ms_by.items()},
+           "step_s_sum": step_sum, "digest_s": sum(digest_s.values()),
+           "svd_refresh_s": trainer.refresh_s, "run_wall_s": wall,
+           "tokens_per_s": TRAIN_B * TRAIN_S * len(hist) / (wall - sum(digest_s.values())),
+           "peak_mem_gib": peak / 2 ** 30, "peak_above_kept_weights_gib": (peak - base_mem) / 2 ** 30,
+           "host_rss_start_gib": rss.start_gib, "host_rss_peak_gib": rss.peak_gib,
+           "launches_per_step_by_key_mode": want, "bad_launch_steps": bad_launches[:5],
+           "launches_outside_steps": outside, "final_loss": losses[-1]}
+    ok = (len(hist) == steps == len(per_step) and events_ok
+          and all(acc[k] == v for k, v in counts.items()) and not bad_launches
+          and not any(outside.values()) and bool(np.isfinite(losses).all()))
+    if statexfer:
+        tele = trainer.xfer.telemetry()
+        nbytes = state_nbytes(trainer.state)
+        receipts = [r for r in trainer.xfer.receipts if r.ok]
+        ckpt_bytes = sum(r.bytes_moved for r in receipts if r.source == "ckpt")
+        digests_ok = []
+        for r in receipts:
+            if r.source != "peer":
+                continue
+            src = pins.get((r.snapshot_step, r.rank), cycles.get(r.snapshot_step))
+            digests_ok.append(src is not None and restored.get((r.rank, r.step)) == src)
+        breach = [i.open_step for i in trainer.controller.incidents.mgr.incidents
+                  if i.kind == "snapshot_budget_breach"]
+        # one host copy of the final state each way, reported: into the
+        # snapshot's page-locked buffer and into pageable memory
+        copy_s = {}
+        for name, fn in (("page_locked", tsnap._host_tree), ("pageable", host_copy)):
+            t1 = time.perf_counter()
+            fn(trainer.state)
+            copy_s[name] = time.perf_counter() - t1
+        row.update(state_nbytes=nbytes, telemetry=tele,
+                   blocked_share=tele["snapshot_blocked_s"] / step_sum, budget=XFER_BUDGET,
+                   budget_breach_incident_steps=breach,
+                   receipts=[(r.rank, r.step, r.source, r.bytes_moved, r.snapshot_step)
+                             for r in receipts],
+                   restore_digests_equal=digests_ok, n_digest_steps=len(cycles) + len(pins),
+                   state_host_copy_s=copy_s)
+        ok = (ok and acc["measured_transfer_bytes"]
+              == acc["n_peer_restores"] * nbytes + ckpt_bytes
+              and len(digests_ok) == acc["n_peer_restores"] > 0 and all(digests_ok))
+        del trainer.xfer.on_reshard, trainer.xfer.on_step, trainer.xfer.retry_pending
+    emit({**row, "ok": ok})
+    if not ok:
+        raise AssertionError(f"statexfer train cell run (statexfer={statexfer}) failed: {row}")
+    del trainer
+    return {"launches": {n: sum(got[n] for _, got in per_step) for n in TRAIN_KERNELS}}
+
+
+def statexfer_adaptive_row(dev, tmp: str) -> dict:
+    """(c) An adaptive-policy decision round trip at full width: a Trainer
+    with ``ft_policy="adaptive"``, the elastic chaos preset and state
+    transfer records a trace (the policy golden's settings: n_dp 4, 2
+    stages, seed 0), and a new Trainer replays it: ``verify_replay()`` must
+    find nothing (events, accounting at the measured full-width bytes and
+    every decision)."""
+    cfg = dataclasses.replace(get_config(TRAIN_CONFIG), n_layers=XFER_ADAPTIVE_LAYERS)
+    train = TrainConfig(steps=XFER_ADAPTIVE_STEPS)
+    mecefo = MeCeFOConfig(mode="dynamic", rank=TRAIN_RANK, svd_period=TRAINER_SVD_PERIOD)
+    shape = ShapeConfig("statexfer adaptive", TRAIN_S, TRAIN_B, "train")
+    path = os.path.join(tmp, "adaptive.jsonl")
+    reset_launches()
+    rec = Trainer(cfg, shape, train, mecefo=mecefo, n_dp=4, n_stages=2, step_time_s=3600.0,
+                  injectors=chaos_preset("elastic", SCENARIOS["none"]), trace_record=path,
+                  statexfer=True, ft_policy="adaptive", device=dev)
+    per_step = count_trainer_launches(rec)
+    rec.run(log_every=0)
+    del rec._get_step
+    rep = Trainer(cfg, shape, train, mecefo=mecefo, trace_replay=path, statexfer=True,
+                  device=dev)
+    replayed = count_trainer_launches(rep)
+    rep.run(log_every=0)
+    del rep._get_step
+    per_step += replayed
+    problems = rep.verify_replay()
+    outside = {n: WRAPPERS[n].launches - sum(got[n] for _, got in per_step) for n in TRAIN_KERNELS}
+    want, bad_launches = step_launch_check(cfg, rep.flags, mecefo, per_step)
+    trace = load_trace(path)
+    acc = rep.controller.accounting.as_dict()
+    nbytes = state_nbytes(rep.state)
+    chosen = [d["chosen"] for d in trace.decisions]
+    ok = (problems == [] and rep.policy_spec == "adaptive" and len(chosen) > 0
+          and not bad_launches and not any(outside.values())
+          and acc == rec.controller.accounting.as_dict() and acc["n_peer_restores"] > 0
+          and acc["measured_transfer_bytes"] == acc["n_peer_restores"] * nbytes)
+    emit({"phase": "statexfer", "run": "adaptive round trip", "config": cfg.name,
+          "n_layers": cfg.n_layers, "dtype": cfg.dtype, "batch": TRAIN_B, "seq_len": TRAIN_S,
+          "rank": TRAIN_RANK, "steps": XFER_ADAPTIVE_STEPS, "n_events": len(trace.events),
+          "n_decisions": len(chosen), "chosen": chosen, "state_nbytes": nbytes,
+          "accounting": acc, "verify_replay_problems": problems[:5],
+          "launches_per_step_by_key_mode": want, "bad_launch_steps": bad_launches[:5],
+          "launches_outside_steps": outside, "ok": ok})
+    if not ok:
+        raise AssertionError(f"adaptive round trip failed: {problems[:5]}, {acc}")
+    del rec, rep
+    return {"launches": {n: sum(got[n] for _, got in per_step) for n in TRAIN_KERNELS}}
+
+
+def statexfer_phase(dev) -> None:
+    """Live state transfer on the card: (a) the goldens through the CLI at
+    the reduced config, (b) the statexfer golden at the train cell without
+    and with state transfer, (c) an adaptive decision round trip at full
+    width.  The kernel launch counts are read around the whole phase."""
+    t0 = time.perf_counter()
+    reset_launches()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_statexfer_")
+    try:
+        for trace_name in (XFER_TRACE, XFER_POLICY_TRACE):
+            statexfer_cli_row(trace_name, tmp)
+        cli = {n: WRAPPERS[n].launches for n in TRAIN_KERNELS}
+        cfg = get_config(TRAIN_CONFIG)
+        base = init_state(cfg, TrainConfig(), MeCeFOConfig(mode="dynamic", rank=TRAIN_RANK),
+                          torch.Generator().manual_seed(0), device=dev)._replace(opt=None)
+        total = {n: 0 for n in TRAIN_KERNELS}
+        for statexfer in (False, True):
+            got = statexfer_full_run(dev, cfg, base, statexfer)["launches"]
+            total = {n: total[n] + got[n] for n in TRAIN_KERNELS}
+        del base
+        torch.cuda.empty_cache()
+        got = statexfer_adaptive_row(dev, tmp)["launches"]
+        total = {n: total[n] + got[n] for n in TRAIN_KERNELS}
+        missing = [n for n in TRAIN_KERNELS if total[n] == 0 or cli[n] == 0]
+        if missing:
+            raise AssertionError(f"the statexfer phase never launched {missing}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "statexfer", "run": "phase", "seconds": time.perf_counter() - t0,
+          "cli_launches": cli, "trainer_launches": total})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU",
@@ -1455,6 +1818,7 @@ def main() -> int:
     launches["lowrank_wgrad"] = train_phase(dev)["lowrank_wgrad"]
     train_parity_phase(dev)
     trainer_phase(dev)
+    statexfer_phase(dev)
 
     emit({"kernels": [
         {"name": n, "route": "cuda", "source": f"src/repro_torch/csrc/{n}.cu",

@@ -3,24 +3,28 @@ of ``repro.launch.train``).
 
 Wires the substrates together: data pipeline -> training step (with NDB
 masks) -> failure process -> failover controller (plan updates, step cache,
-recovery accounting) -> SVD projection refresh every tau -> async
-checkpoints.  One device; the step runs eagerly, so the step cache holds
-cheap closures where the JAX package holds compiled executables, but it
-keeps the same keys.
+recovery accounting) -> SVD projection refresh every tau -> live state
+transfer (snapshots, replicas, executed reshards) -> async checkpoints.
+One device; the step runs eagerly, so the step cache holds cheap closures
+where the JAX package holds compiled executables, but it keeps the same
+keys.
 
 CLI (reduced configs by default, on the card unless ``--device cpu``):
   PYTHONPATH=src python -m repro_torch.launch.train --steps 200 \\
       --mecefo dynamic --scenario high
   PYTHONPATH=src python -m repro_torch.launch.train --mecefo dynamic \\
-      --trace replay tests/data/golden_trace.jsonl --device cpu
-
-Not ported yet: live state transfer (``--statexfer``) and the telemetry and
-incident exports (``--obs-out``, ``--incidents-out``).
+      --chaos elastic --statexfer --trace replay \\
+      tests/data/golden_trace_statexfer.jsonl --device cpu \\
+      --incidents-out incidents.jsonl --obs-out obs.jsonl
+  PYTHONPATH=src python -m repro_torch.obs incidents incidents.jsonl \\
+      --verify tests/data/golden_incidents_statexfer.jsonl \\
+      --trace tests/data/golden_trace_statexfer.jsonl --require-closed 1
 """
 from __future__ import annotations
 
 import argparse
 import logging
+import sys
 import time
 from typing import Any, Dict, List, Optional
 
@@ -58,11 +62,10 @@ from repro_torch.ft.trace import (
 from repro_torch.launch.state import TrainState, init_state
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models.model import ExecFlags
+from repro_torch.statexfer import StateTransferRegistry
+from repro_torch.utils.trees import state_nbytes
 
 _log = logging.getLogger("repro_torch.train")
-
-STATEXFER_MISSING = ("live state transfer (statexfer) is not ported yet: "
-                     "ROADMAP.md queue A item 4")
 
 
 class Trainer:
@@ -72,7 +75,11 @@ class Trainer:
     seeded init; the trainer owns it from then on (its steps update params
     and moments in place).  ``parallel`` is consulted only for gradient
     accumulation, which is not ported (``accum > 1`` raises); params are
-    replicated, so recovery fetches from a peer.
+    replicated, so recovery fetches from a peer.  With ``statexfer`` the
+    trainer snapshots its state every ``snapshot_every`` steps to host
+    replicas and executes each resize on them; restored trees are host
+    copies kept in ``xfer.last_restored`` (in one process every rank's
+    state is the same, so they never feed the training state).
     """
 
     def __init__(
@@ -97,8 +104,6 @@ class Trainer:
         state: Optional[TrainState] = None,
         device="cuda",
     ):
-        if statexfer:
-            raise NotImplementedError(STATEXFER_MISSING)
         self.device = resolve_device(device)
         self.cfg, self.shape, self.train_cfg = cfg, shape, train
         self.parallel = parallel
@@ -167,14 +172,29 @@ class Trainer:
         self._obs_step_wall = obs.histogram("train.step.wall_s")
         self._obs_steps = obs.counter("train.steps_total")
         self._logged_reshard = None
-        # ranks whose state transfer is still running; always empty until
-        # state transfer is ported, but the masks and keys already read it
-        self._pending_rejoin: set = set()
+
+        # -- live state transfer: replicated snapshots + real reshards ------
+        self.xfer = None
+        self._pending_rejoin: set = set()  # ranks whose transfer is still running
+        self._executed_reshard = None
+        if statexfer:
+            self.xfer = StateTransferRegistry(
+                n_dp=self.controller.n_dp, cadence=snapshot_every,
+                replicated=self.controller.params_replicated,
+            )
+            # accounting basis becomes the measured state size (the JAX
+            # package's measure: the host-int step counts as its int32)
+            self.controller.state_nbytes = state_nbytes(self.state)
+            if self.controller.incidents is not None:
+                # rejoin incidents now close on the measured receipt,
+                # not on the planned-bytes attribution
+                self.controller.incidents.expect_receipts = True
 
     # ------------------------------------------------------------------
     def _mask_plan(self) -> NDBPlan:
         """The plan the batch masks are built from: the controller's plan
-        with rejoined-but-still-transferring ranks re-detached.  If every
+        with rejoined-but-still-transferring ranks re-detached, so masks
+        flip only once a rank's state transfer has completed.  If every
         active rank is mid-transfer the plan is left ungated (gating them
         all would zero-weight the whole batch)."""
         plan = self.controller.plan
@@ -212,11 +232,33 @@ class Trainer:
             + tuple(sorted(self._pending_rejoin))
         )
 
+    def _run_state_transfers(self, step_idx: int) -> None:
+        """Execute any new ReshardPlan on the real state and retry gated ranks."""
+        ckpt_dir = self.train_cfg.checkpoint_dir if self.ckpt else None
+        rp = self.controller.last_reshard
+        if rp is not None and rp is not self._executed_reshard:
+            self._executed_reshard = rp
+            out = self.xfer.on_reshard(
+                rp, self.state, step_idx,
+                ckpt_like=self.state, ckpt_dir=ckpt_dir,
+            )
+            for receipt in out.receipts:
+                self.controller.record_transfer(receipt)
+        if self.xfer.pending:
+            for receipt in self.xfer.retry_pending(
+                step_idx, ckpt_like=self.state, ckpt_dir=ckpt_dir
+            ):
+                self.controller.record_transfer(receipt)
+        self._pending_rejoin = set(self.xfer.pending)
+
     def _sync(self) -> None:
         # the step is queued asynchronously on the card: wait for it so a
-        # step's wall time includes its device time
+        # step's wall time includes its device time.  Only the training
+        # stream: a snapshot's host copy runs on a side stream beside the
+        # next step, and what the trainer waits for it is counted where it
+        # waits (SnapshotManager.blocked_s)
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            torch.cuda.current_stream(self.device).synchronize()
 
     # ------------------------------------------------------------------
     def run(self, steps: Optional[int] = None, log_every: int = 10):
@@ -233,6 +275,9 @@ class Trainer:
                     # events; replay re-derives and verifies them
                     for dec in self.controller.policy.drain():
                         self.process.recorder.record_decision(dec)
+                if self.xfer is not None:
+                    with obs.span("trainer.state_transfers"):
+                        self._run_state_transfers(step_idx)
 
                 batch = make_batch(
                     self.cfg, self.shape, step_idx, source=self.source, seed=self.seed
@@ -264,6 +309,12 @@ class Trainer:
                     self._sync()
                     self.refresh_s.append(time.time() - t_svd)
 
+                if self.xfer is not None:
+                    # hot-spare snapshot of the post-step state: the copy
+                    # into the staging tree is queued here, the host copy
+                    # runs on the worker (one cycle in flight)
+                    self.xfer.on_step(self.state, step_idx, self.controller.plan)
+
                 if self.ckpt and step_idx and step_idx % self.train_cfg.checkpoint_every == 0:
                     self.ckpt.save_async(self.state, step_idx)
 
@@ -285,7 +336,10 @@ class Trainer:
                     dp_size=self.controller.plan.dp_size(),
                     failed=len(self.controller.plan.failed),
                     pending=len(self._pending_rejoin),
-                    snap_blocked_s=None,
+                    snap_blocked_s=(
+                        self.xfer.telemetry()["snapshot_blocked_s"]
+                        if self.xfer is not None else None
+                    ),
                 )
             rec = {
                 "step": step_idx,
@@ -303,12 +357,19 @@ class Trainer:
             rp = self.controller.last_reshard
             if log_every and rp is not None and rp is not self._logged_reshard:
                 self._logged_reshard = rp  # each resize produces a fresh plan
+                measured = ""
+                if self.xfer is not None:
+                    acc = self.controller.accounting
+                    measured = (
+                        f" measured={acc.measured_transfer_bytes/1e6:.1f}MB"
+                        f" pending={sorted(self._pending_rejoin)}"
+                    )
                 _log.info(
                     "step %5d elastic resize: dp %d->%d dropped=%s "
-                    "rejoined=%s transfer=%.1fMB (%s)",
+                    "rejoined=%s transfer=%.1fMB (%s)%s",
                     step_idx, len(rp.old_active), rp.dp_size,
                     list(rp.dropped), list(rp.rejoined),
-                    rp.transfer_bytes / 1e6, rp.source,
+                    rp.transfer_bytes / 1e6, rp.source, measured,
                 )
             if log_every and i % log_every == 0:
                 _log.info(
@@ -320,6 +381,8 @@ class Trainer:
                 )
         if self.ckpt:
             self.ckpt.wait()
+        if self.xfer is not None:
+            self.xfer.wait()
         if self.process.recorder is not None:
             self.process.recorder.close(
                 total_steps=len(self.history),
@@ -375,7 +438,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--n-stages", type=int, default=8)
     ap.add_argument(
         "--statexfer", action="store_true",
-        help="live state transfer; not ported yet (raises)",
+        help="enable the live state-transfer subsystem: in-memory replicated "
+             "snapshots, real ReshardPlan execution on rejoin, measured "
+             "transfer accounting",
     )
     ap.add_argument(
         "--snapshot-every", type=int, default=1, metavar="N",
@@ -394,6 +459,18 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--checkpoint-every", type=int, default=0)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument(
+        "--obs-out", metavar="PATH", default=None,
+        help="write run telemetry (metrics + span timeline) as JSONL to "
+             "PATH, the Prometheus exposition to PATH.prom, and render the "
+             "run report",
+    )
+    ap.add_argument(
+        "--incidents-out", metavar="PATH", default=None,
+        help="write the incident log (flight-recorder windows + attributed "
+             "recovery costs) as JSONL to PATH; render with "
+             "'python -m repro_torch.obs incidents PATH'",
+    )
     ap.add_argument("--device", default="cuda",
                     help="torch device to train on (default: the card)")
     args = ap.parse_args(argv)
@@ -446,7 +523,22 @@ def main(argv: Optional[List[str]] = None) -> int:
         ft_policy=args.ft_policy,
         device=args.device,
     )
+    run_meta = {
+        "run": "train", "arch": args.arch,
+        "mecefo": args.mecefo, "scenario": args.scenario,
+        "chaos": args.chaos, "statexfer": args.statexfer,
+        "ft_policy": trainer.policy_spec or None,
+    }
+    disarm = None
+    if args.obs_out or args.incidents_out:
+        # flush-on-death: a crashed/killed run still emits partial dumps
+        disarm = obs.install_crash_flush(
+            obs_path=args.obs_out, incidents_path=args.incidents_out,
+            incidents=trainer.controller.incidents, meta=run_meta,
+        )
     hist = trainer.run()
+    if disarm is not None:
+        disarm()
     acc = trainer.controller.accounting
     _log.info(
         "final loss %.4f  failovers=%d recoveries=%d rank_drops=%d "
@@ -456,6 +548,27 @@ def main(argv: Optional[List[str]] = None) -> int:
         trainer.controller.plan.dp_size(), trainer.controller.n_dp,
         acc.peer_fetch_bytes / 1e6,
     )
+    if trainer.xfer is not None:
+        tele = trainer.xfer.telemetry()
+        _log.info(
+            "statexfer: %.0f snapshot cycles (%.1fMB replicated, %.1fms "
+            "blocked) restores peer=%.0f ckpt=%.0f measured=%.1fMB in %.1fms",
+            tele["snapshot_cycles"], tele["snapshot_bytes"] / 1e6,
+            tele["snapshot_blocked_s"] * 1e3, tele["n_peer_restores"],
+            tele["n_ckpt_restores"], tele["measured_transfer_bytes"] / 1e6,
+            tele["transfer_s"] * 1e3,
+        )
+    if args.obs_out:
+        dump_path = obs.dump(args.obs_out, meta={**run_meta, "steps": len(hist)})
+        _log.info("obs telemetry written to %s (+ .prom)", dump_path)
+        sys.stdout.write(obs.render_report_file(dump_path))
+    if args.incidents_out and trainer.controller.incidents is not None:
+        inc_path = obs.write_incident_log(
+            args.incidents_out, trainer.controller.incidents.mgr,
+            meta={**run_meta, "steps": len(hist)},
+        )
+        _log.info("incident log written to %s (%d incidents)", inc_path,
+                  len(trainer.controller.incidents.mgr.incidents))
     if trace_mode == "record":
         _log.info("chaos trace recorded to %s (%d events)",
                   trace_path, len(trainer.process.events))

@@ -1,4 +1,4 @@
-"""repro_torch.obs — process-local telemetry: metrics, spans, incidents.
+"""repro_torch.obs — process-local telemetry: metrics, spans, exporters.
 
 The façade the port's trainer and FT controller import::
 
@@ -7,13 +7,14 @@ The façade the port's trainer and FT controller import::
     _steps = obs.counter("train.steps_total")
     with obs.span("trainer.step"):
         ...
+    obs.dump("run_obs.jsonl", meta={"run": "train"})
 
 Everything here is a **pure side channel**: no instrument or span ever
 feeds a trace recorder or a footer, so golden traces replay bit-exactly
 with telemetry enabled.
 
-The port's copy of ``repro.obs``'s façade, without the exporters and the
-report renderer (``export``, ``report``), which are not ported yet.
+The port's copy of ``repro.obs``'s façade: the same names, with its imports
+renamed to ``repro_torch``.
 """
 from __future__ import annotations
 
@@ -37,6 +38,15 @@ from repro_torch.obs.costmodel import (  # noqa: F401
     DETECTORS,
     CostModel,
     make_detectors,
+)
+from repro_torch.obs.export import (  # noqa: F401
+    dump,
+    install_crash_flush,
+    load_dump,
+    metric_records,
+    parse_prometheus_text,
+    prometheus_text,
+    span_records,
 )
 from repro_torch.obs.flight import (  # noqa: F401
     UNPINNED_FRAME_FIELDS,
@@ -67,6 +77,7 @@ from repro_torch.obs.registry import (  # noqa: F401
     get_registry,
     percentile,
 )
+from repro_torch.obs.report import render_report, render_report_file  # noqa: F401
 from repro_torch.obs.spans import Tracer, configure, get_tracer, span  # noqa: F401
 
 

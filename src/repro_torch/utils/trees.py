@@ -1,5 +1,5 @@
-"""State-tree helpers shared by checkpointing (the counterpart of
-``repro.utils.trees``).
+"""State-tree helpers shared by checkpointing and state transfer (the
+counterpart of ``repro.utils.trees``).
 
 A state tree is nested dicts (children in sorted key order, as JAX orders
 them), tuples, lists and NamedTuples (``TrainState``, ``AdamWState``) over
@@ -64,6 +64,25 @@ def tree_nbytes(tree: Tree) -> int:
     return sum(nbytes(x) for x in tree_flatten(tree)[0])
 
 
+# the JAX package's ``TrainState.step`` is an int32 device scalar; the
+# port's is a host int (8 bytes under ``tree_nbytes``, as numpy measures it)
+STEP_NBYTES = 4
+
+
+def state_nbytes(tree: Tree) -> int:
+    """Payload bytes of a state tree as the JAX package measures the same
+    state: :func:`tree_nbytes`, except that a NamedTuple's host-int
+    ``step`` field (the port's ``TrainState.step``) counts as the int32
+    scalar it stands for.  The measure of state transfer: the controller's
+    ``state_nbytes``, every snapshot's ``nbytes`` and every receipt's
+    ``bytes_moved``.  Any other tree, a plain int leaf included, measures
+    as :func:`tree_nbytes` does."""
+    fields = getattr(tree, "_fields", ())
+    if isinstance(tree, tuple) and "step" in fields and is_py_scalar(tree.step):
+        return STEP_NBYTES + sum(tree_nbytes(getattr(tree, f)) for f in fields if f != "step")
+    return tree_nbytes(tree)
+
+
 def is_py_scalar(x: Any) -> bool:
     """A plain Python scalar leaf (no ``dtype``): preserved as-is by copies
     so save/restore round trips keep the exact leaf types."""
@@ -85,4 +104,4 @@ def host_copy(tree: Tree) -> Tree:
     return unflatten([leaf(x) for x in leaves])
 
 
-__all__ = ["host_copy", "is_py_scalar", "tree_flatten", "tree_nbytes"]
+__all__ = ["host_copy", "is_py_scalar", "state_nbytes", "tree_flatten", "tree_nbytes"]

@@ -496,3 +496,45 @@ def test_train_step_kernels_match_plain_on_the_card(cuda):
         torch.testing.assert_close(lk, lp, rtol=1e-5, atol=1e-5)
         for a, b in zip(tree_leaves(gk), tree_leaves(gp)):
             assert float((a - b).norm()) <= 1e-4 * float(b.norm()) + 1e-7
+
+
+def test_snapshot_staging_holds_the_state_at_its_step(monkeypatch):
+    """Live state transfer on the card (``statexfer/snapshot.py``): the
+    state is updated in place on the training stream right after
+    ``maybe_snapshot`` returns, while the snapshot worker is held back;
+    the host snapshot must still equal the state at the call, bit for bit,
+    and lie in page-locked host memory.  Needs the card, not the kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    import threading
+
+    from repro_torch.statexfer import SnapshotManager, snapshot as tsnap
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    state = {"w": torch.randn(1 << 22, device=dev, generator=g),
+             "h": torch.randn(4096, 256, device=dev, generator=g).to(torch.bfloat16), "step": 3}
+    want = {k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in state.items()}
+    go, entered = threading.Event(), threading.Event()
+    real = tsnap._to_host
+
+    def held(staged, events):
+        entered.set()
+        assert go.wait(60)
+        return real(staged, events)
+
+    monkeypatch.setattr(tsnap, "_to_host", held)
+    mgr = SnapshotManager(cadence=1)
+    assert mgr.maybe_snapshot(state, 3, [0])
+    assert entered.wait(60)
+    for _ in range(8):  # the next steps, queued on the training stream
+        state["w"].mul_(1.5).add_(1.0)
+        state["h"].add_(1.0)
+    go.set()
+    mgr.wait()
+    snap = mgr.latest(0).tree
+    assert snap["step"] == 3 and snap["w"].is_pinned() and snap["h"].dtype == torch.bfloat16
+    for k in ("w", "h"):
+        assert torch.equal(snap[k], want[k]), k
+    assert not torch.equal(state["w"].cpu(), want["w"])
+    assert mgr.blocked_s > 0

@@ -1,5 +1,6 @@
 """The port's Trainer (``repro_torch.launch.train``) against the live JAX
-Trainer on the CPU, its checkpoints, and its CLI.
+Trainer on the CPU, its checkpoints, and its CLI (the four golden train
+traces, two of them with live state transfer, and the incident log).
 
 Trainer parity runs the CLI's settings (``reduced(llama-350m,
 dtype=float32)``, ``ShapeConfig("cli", 128, 8)``, ``MeCeFOConfig("dynamic",
@@ -260,14 +261,47 @@ def test_tree_flatten_orders_like_jax():
 # -- the CLI ----------------------------------------------------------------------
 
 
+STATEXFER = ["--chaos", "elastic", "--statexfer"]
+
+
 @pytest.mark.parametrize("trace,extra", [
     ("golden_trace.jsonl", []),
     ("golden_trace_elastic.jsonl", ["--chaos", "elastic"]),
+    # recorded with live state transfer: the footer pins the measured bytes
+    # (10 peer restores of the 5578244-byte reduced state), and the policy
+    # trace every adaptive decision, whose scores follow the measured size
+    ("golden_trace_statexfer.jsonl", STATEXFER),
+    ("golden_trace_policy.jsonl", STATEXFER),
 ])
 def test_cli_replays_golden_traces(trace, extra):
     argv = ["--reduced", "--mecefo", "dynamic", "--trace", "replay",
             str(DATA / trace), "--device", "cpu", *extra]
     assert ttrain.main(argv) == 0
+
+
+def test_cli_statexfer_replay_writes_the_golden_incident_log(tmp_path, capsys):
+    """The JAX package's acceptance run for state transfer, through the
+    port: the statexfer golden replayed with ``--incidents-out`` and
+    ``--obs-out``, then the incident log verified against the committed
+    golden log, reconciled with the trace footer and required to close."""
+    from repro_torch import obs
+    from repro_torch.obs.report import main as obs_main
+
+    obs.reset()  # the dump reads the process's registry: only this run's metrics
+    trace = str(DATA / "golden_trace_statexfer.jsonl")
+    inc, dump = tmp_path / "incidents.jsonl", tmp_path / "obs.jsonl"
+    assert ttrain.main(["--reduced", "--mecefo", "dynamic", "--trace", "replay", trace,
+                        "--device", "cpu", *STATEXFER, "--incidents-out", str(inc),
+                        "--obs-out", str(dump)]) == 0
+    report = capsys.readouterr().out
+    assert "snapshot overhead (statexfer.snapshot.*):" in report
+    assert "measured_transfer_bytes  55,782,440" in report
+    obs.parse_prometheus_text(dump.with_suffix(".jsonl.prom").read_text())
+    assert obs_main(["incidents", str(inc), "--verify",
+                     str(DATA / "golden_incidents_statexfer.jsonl"), "--trace", trace,
+                     "--require-closed", "1"]) == 0
+    out = capsys.readouterr().out
+    assert "reconcile OK" in out and "verify OK" in out
 
 
 def test_cli_replay_fails_on_a_tampered_trace(tmp_path):
@@ -297,12 +331,9 @@ def test_cli_records_a_trace_the_jax_package_replays(tmp_path):
 
 
 def test_trainer_refuses_what_it_does_not_port():
+    """Gradient accumulation is not ported: ``accum > 1`` raises."""
     cfg = tbase.ModelConfig(**TINY)
     shape = tbase.ShapeConfig("t", 16, 4, "train")
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
-        Trainer(cfg, shape, statexfer=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
-        ttrain.main(["--reduced", "--steps", "1", "--statexfer", "--device", "cpu"])
 
     class Parallel:
         accum = 2
@@ -310,9 +341,6 @@ def test_trainer_refuses_what_it_does_not_port():
     tr = Trainer(cfg, shape, tbase.TrainConfig(steps=1), parallel=Parallel(), device="cpu")
     with pytest.raises(NotImplementedError):
         tr.run(log_every=0)
-    for flag in ("--obs-out", "--incidents-out"):
-        with pytest.raises(SystemExit):
-            ttrain.main(["--reduced", flag, "x", "--device", "cpu"])
 
 
 def test_trainer_and_cli_default_to_cuda_and_raise_without_it():
