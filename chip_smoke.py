@@ -123,6 +123,45 @@ each printing JSON lines:
              records 40 steps at full width on XFER_ADAPTIVE_LAYERS layers,
              and a new Trainer replays it: ``verify_replay()`` finds nothing
              (events, accounting and every decision).
+11. replicas — the rest of serving: ``ReplicaSet`` with failover,
+             preemption, priority admission, spikes, trace record/replay and
+             int8 pages.  (a) The port's CLI functions run the three JAX
+             serve goldens' headers at their reduced config on the card:
+             every event with its token masked, the whole footer and every
+             pinned decision equal to the committed file (the port's weights
+             are its own), the overload run's incident log verified and
+             reconciled; each run recorded on the card is then replayed on
+             the card through ``python -m repro_torch.serve.run --replay``
+             in process: exit 0, bit-exact with tokens.  (b) The full-width
+             cell (CELL_*: qwen3-0.6b, 28 layers, bf16, seed-0 weights, 3
+             replicas on the card, priority admission with preemption, 2
+             prefills a step, prefix sharing, CELL_PAGES pages, snapshots
+             at cadence 2, 32 bursty long-tail requests with two 128-token
+             prefixes and three priority classes, a scripted chaos of two
+             kills and a spike): every request served under chaos whose
+             prompt both runs built alike (the same prefill recipe) emits
+             the stream it emits without chaos on the full page reserve, on
+             the paged round and on the dense round, and the requests built
+             differently (a fork in one run, a whole-prompt prefill in the
+             other: ROADMAP queue C) are counted and listed; the run
+             restores by snapshot and by replay, preempts and sheds; its
+             recording replays on the card.  (c) restore_bitwise: at the cell's shapes
+             one request admitted alone, batched with another prompt, onto
+             a forked prefix and in chunks is rebuilt by the replay path and
+             by the snapshot path (an older snapshot plus its teacher-forced
+             tail) in a fresh engine: the K/V rows below its length bitwise
+             equal the original's (the JAX package's batch-1 re-prefill is
+             reported beside, not gated, and so is whether two prompts
+             sharing the 128-token prefix give its K/V rows alike).  (d)
+             The cell with int8 pages and
+             no sharing: record/replay and the chaos-vs-reference stream
+             gate, peak memory, ``kv_bytes_paged`` against bf16 and the
+             share of tokens equal to the bf16 run (reported).  The kernel
+             launch counts are read around each cell run; the int8 walk's
+             (kernels phase: against its plain version at the decode
+             round's and the configs' head shapes, bitwise repeatable,
+             batch invariant, length-0 lanes 0, cold, warm and bound) come
+             from the int8 chaos run.
 
 Then the kernels' summary line, the card's name and power limit, and the
 final ``{"ok": true, ...}`` line.  Any failed check raises.
@@ -131,6 +170,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import os
@@ -158,6 +198,7 @@ from repro_torch.data.pipeline import SyntheticLM  # noqa: E402
 from repro_torch.ft.controller import FTController  # noqa: E402
 from repro_torch.ft.failures import SCENARIOS  # noqa: E402
 from repro_torch.ft.injectors import chaos_preset  # noqa: E402
+from repro_torch.ft.policy import verify_decisions  # noqa: E402
 from repro_torch.ft.trace import load_trace, replay_engine, verify_replay  # noqa: E402
 from repro_torch.kernels import PTR, _build, check_launch, kernel_fn, plain_versions  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
@@ -169,9 +210,11 @@ from repro_torch.kernels.flash_decode import (  # noqa: E402
 from repro_torch.kernels.lowrank_wgrad import (  # noqa: E402
     lowrank_wgrad_project, lowrank_wgrad_project_plain,
 )
+from repro_torch.kernels.kvquant import quantize_pages  # noqa: E402
 from repro_torch.kernels.paged_decode import (  # noqa: E402
     paged_decode, paged_decode_launch, paged_decode_plain,
 )
+from repro_torch.kernels.paged_decode_q8 import paged_decode_q8, paged_decode_q8_plain  # noqa: E402
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain  # noqa: E402
 from repro_torch.kernels.swiglu import swiglu, swiglu_plain  # noqa: E402
 from repro_torch.launch.profile import (  # noqa: E402
@@ -190,9 +233,12 @@ from repro_torch.optim.optimizers import init_opt_state  # noqa: E402
 from repro_torch.serve import run  # noqa: E402
 from repro_torch.serve.engine import EngineConfig, ServeEngine  # noqa: E402
 from repro_torch.serve.kvpool import (  # noqa: E402
-    gather_pages, init_pool, pages_needed, scatter_pages, scatter_prefill, scatter_token,
+    gather_pages, init_pool, page_nbytes, pages_needed, scatter_pages, scatter_prefill,
+    scatter_token,
 )
-from repro_torch.serve.request import WorkloadSpec, build_workload  # noqa: E402
+from repro_torch.serve.replicas import KVSnapshot  # noqa: E402
+from repro_torch.serve.request import Request, RequestState, WorkloadSpec, build_workload  # noqa: E402
+from repro_torch.serve.trace import ServeTraceHeader, load_serve_trace  # noqa: E402
 from repro_torch.serve.sampling import greedy_token  # noqa: E402
 from repro_torch.statexfer import snapshot as tsnap  # noqa: E402
 from repro_torch.utils.trees import host_copy, state_nbytes, tree_flatten  # noqa: E402
@@ -209,6 +255,7 @@ WRAPPERS = {
     "rmsnorm": rmsnorm, "swiglu": swiglu,
     "flash_attention": flash_attention, "paged_decode": paged_decode,
     "lowrank_wgrad": lowrank_wgrad_project, "flash_decode": flash_decode,
+    "paged_decode_q8": paged_decode_q8,
 }
 REPLACES = {
     "rmsnorm": "src/repro/kernels/rmsnorm.py:22",
@@ -217,6 +264,8 @@ REPLACES = {
     "paged_decode": "src/repro/kernels/paged_decode.py:51",
     "lowrank_wgrad": "src/repro/kernels/lowrank_wgrad.py:44",
     "flash_decode": "src/repro/kernels/flash_decode.py:70",
+    # not Pallas: the XLA page walk, the reference's only int8 decode path
+    "paged_decode_q8": "src/repro/kernels/xla_paged.py:47",
 }
 SERVE_KERNELS = ("rmsnorm", "swiglu", "flash_attention", "paged_decode", "flash_decode")
 TRAIN_KERNELS = ("rmsnorm", "swiglu", "flash_attention", "lowrank_wgrad")
@@ -304,6 +353,30 @@ SHARE_SPEC = dataclasses.replace(SPEC, shared_prefix=128, n_prefix_groups=2)
 # kernel moves them by their whole scale.  (max |Δ| / max |logit|, mean
 # |Δ| / mean |logit|)
 BF16_PATH_TOL = (2 ** -3, 2 ** -5)
+# phase 11: the JAX serve goldens at their reduced config, and the
+# full-width serving cell (3 replicas of qwen3-0.6b on one card).  The
+# chaos script (kills of replica 0 at step 3 for 40 steps and of replica 1
+# at step 10 for 30, a 3x spike at step 6 for 6) was chosen so that the run
+# restores by snapshot and by replay, preempts and sheds: the schedule does
+# not depend on token values, so a run at any width shows it.  With
+# CELL_PAGES pages a replica (the full reserve is 513) holds 7 of the
+# longest requests (44 pages each), so admissions contend for pages.
+REPL_GOLDENS = ("golden_trace_serve.jsonl", "golden_trace_overload.jsonl",
+                "golden_trace_serve_policy.jsonl")
+REPL_INCIDENTS = "golden_incidents_overload.jsonl"
+CELL_PAGES = 320
+CELL_ENGINE = dict(max_slots=8, page_size=16, pages_per_slot=64, n_pages=CELL_PAGES,
+                   admission="priority", preemption=True, max_prefills_per_step=2,
+                   use_paged_kernel=True, prefix_sharing=True)
+CELL_SPEC = WorkloadSpec(n_requests=32, vocab_size=151936, seed=0, mean_interarrival_steps=1.5,
+                         prompt_len=(64, 512), new_tokens=(16, 64), shared_prefix=128,
+                         arrival="bursty", burst_factor=5.0, burst_period=40, burst_duty=0.25,
+                         length_dist="longtail", n_prefix_groups=2,
+                         priority_classes=((2, 0.25, 0), (1, 0.35, 24), (0, 0.4, 0)))
+CELL_CHAOS = {"kind": "scripted", "kills": [[3, 0, 40], [10, 1, 30]], "spikes": [[6, 6, 3.0]]}
+CELL_SNAPSHOT_CADENCE = 2
+# restore_bitwise: decode rounds before the older snapshot, and in all
+RESTORE_SNAP_ROUND, RESTORE_ROUNDS = 3, 6
 
 
 def emit(obj) -> None:
@@ -470,14 +543,16 @@ def bound(bytes_moved: int, ops: float, dtype) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def compare(name, dtype, shape, out, ref, timer, call_k, call_p, moved, ops, call_lib=None):
+def compare(name, dtype, shape, out, ref, timer, call_k, call_p, moved, ops, call_lib=None,
+            ops_dtype=None):
     """The kernel's output against its plain version's at TOL, with its cold
     time beside the plain version's, the bound and the library call's (no
-    times when ``timer`` is None)."""
+    times when ``timer`` is None).  ``ops_dtype``: the type whose peak rate
+    bounds the operations, when it is not the output's."""
     atol, rtol = TOL[dtype]
     err = (out.float() - ref.float()).abs()
     ok = bool((err <= atol + rtol * ref.float().abs()).all()) and bool(torch.isfinite(out.float()).all())
-    b_ms, b_by = bound(moved, ops, dtype)
+    b_ms, b_by = bound(moved, ops, ops_dtype or dtype)
     timed = timer is not None
     row = {
         "phase": "kernels", "kernel": name, "dtype": str(dtype).replace("torch.", ""),
@@ -924,10 +999,58 @@ def kernel_phase(dev, timer) -> dict:
                               lambda sl: paged_decode(qd[sl], kp, vp, tables[sl], lens[sl]))
         rows[("flash_decode", dtype)] = flash_decode_rows(dtype, timer, randn, qd, lens, out,
                                                           kp, vp, tables)
+        rows[("paged_decode_q8", dtype)] = q8_rows(dtype, timer, warm, floor, randn, gen)
     rows.update(lowrank_rows(dev, timer, randn))
     train_shape_rows(timer, randn)
     torch.cuda.synchronize()
     return rows
+
+
+def q8_rows(dtype, timer, warm, floor, randn, gen) -> dict:
+    """The int8 page walk against its plain version at the decode round's
+    shapes (B_DEC lanes of DEC_LENS over a shuffled int8 pool, pages
+    quantized by ``kvquant.quantize_pages``) and at the configs' decode
+    heads (DEC_HEADS): cold time, plain time and bound; bitwise repeatable
+    and batch invariant; length-0 lanes exactly 0; in bf16 also warm beside
+    the launch floor.  The walk widens int8 to f32 and does its arithmetic
+    in f32 FMAs, so its operations are bounded at the f32 peak."""
+    dev = gen.device
+    dname = str(dtype).replace("torch.", "")
+    lens = torch.tensor(DEC_LENS, dtype=torch.int32, device=dev)
+    n_pages = 1 + B_DEC * P_DEC
+    covered_pages = sum(pages_needed(n, PS) for n in DEC_LENS)
+    main = None
+    for h, kv, hd in [(H, KV, HD)] + DEC_HEADS:
+        qd = randn(B_DEC, 1, h, hd, dtype=dtype)
+        kq, ks = quantize_pages(randn(n_pages, PS, kv, hd, dtype=torch.float32))
+        vq, vs = quantize_pages(randn(n_pages, PS, kv, hd, dtype=torch.float32))
+        tables = (torch.randperm(n_pages - 1, generator=gen, device=dev) + 1).reshape(
+            B_DEC, P_DEC).to(torch.int32)
+        shape = [B_DEC, h, kv, hd, PS, P_DEC]
+
+        def call(sl=slice(None)):
+            return paged_decode_q8(qd[sl], kq, vq, tables[sl], lens[sl], k_scale=ks, v_scale=vs)
+
+        out = call()
+        row = compare("paged_decode_q8", dtype, shape, out,
+                      paged_decode_q8_plain(qd, kq, vq, ks, vs, tables, lens), timer, call,
+                      lambda: paged_decode_q8_plain(qd, kq, vq, ks, vs, tables, lens),
+                      2 * nbytes(qd) + 2 * covered_pages * PS * kv * hd + 8 * covered_pages
+                      + nbytes(tables, lens), 4.0 * h * hd * sum(DEC_LENS),
+                      ops_dtype=torch.float32)
+        zero_lanes = [i for i, n in enumerate(DEC_LENS) if n == 0]
+        zeros = bool(torch.equal(out[zero_lanes], torch.zeros_like(out[zero_lanes])))
+        emit({"phase": "kernels", "kernel": "paged_decode_q8", "dtype": dname, "heads": [h, kv, hd],
+              "null_lanes_exact_zero": zeros})
+        if not zeros:
+            raise AssertionError(f"int8 walk {dtype} heads {(h, kv, hd)}: length-0 lanes not 0")
+        repeat_and_batch_rows("paged_decode_q8", dtype, out, call, heads=[h, kv, hd])
+        if main is None:
+            main = row
+            if dtype == torch.bfloat16 and timer is not None:
+                warm_row("paged_decode_q8", shape, row, floor, warm, call)
+        del qd, kq, vq, ks, vs
+    return main
 
 
 def serve_run(dev, cfg, params, ecfg, workload):
@@ -1791,6 +1914,313 @@ def statexfer_phase(dev) -> None:
           "cli_launches": cli, "trainer_launches": total})
 
 
+def masked(events) -> list:
+    """Serve events as JSON with their token values masked."""
+    return [dict(ev.to_json(), token=None) for ev in events]
+
+
+def golden_rows(dev, tmp: str) -> None:
+    """(a) The JAX serve goldens' headers through the port on the card,
+    tokens masked against the committed file; each recording replayed
+    through the CLI in process."""
+    for name in REPL_GOLDENS:
+        path = os.path.join(TRAINER_DATA, name)
+        trace = load_serve_trace(path)
+        rec = os.path.join(tmp, name)
+        obs.reset()
+        res, rset = run.run_from_header(trace.header, record_path=rec, device=dev)
+        row = {"phase": "replicas", "run": "golden " + name, "steps": res.n_steps,
+               "events_equal_tokens_masked": masked(rset.events) == masked(trace.events),
+               "footer_equal": {k: res.accounting.get(k) for k in trace.footer.accounting}
+               == trace.footer.accounting,
+               "steps_equal": res.n_steps == trace.footer.total_steps}
+        if trace.decisions:
+            row["decisions_equal"] = not verify_decisions(trace.decisions, rset.policy.decisions)
+            row["n_decisions"] = len(trace.decisions)
+        if name == "golden_trace_overload.jsonl":
+            records = rset.incidents.mgr.records()
+            row["incidents_verify"] = obs.verify_incident_log(
+                os.path.join(TRAINER_DATA, REPL_INCIDENTS), records)
+            row["incidents_reconcile"] = obs.reconcile(records, obs.footer_accounting(path))
+            row["incidents_ok"] = not (row["incidents_verify"] or row["incidents_reconcile"])
+        obs.reset()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = run.main(["--device", "cuda", "--replay", rec])
+        row["card_replay_exit"] = rc
+        ok = (row["events_equal_tokens_masked"] and row["footer_equal"] and row["steps_equal"]
+              and row.get("decisions_equal", True) and row.get("incidents_ok", True) and rc == 0)
+        row["ok"] = ok
+        emit(row)
+        if not ok:
+            raise AssertionError(f"replicas golden {name}: {row}")
+
+
+def cell_header(**engine) -> ServeTraceHeader:
+    """The full-width cell's header; ``engine`` overrides CELL_ENGINE and
+    ``chaos=None`` runs it without chaos."""
+    chaos = engine.pop("chaos", CELL_CHAOS)
+    return ServeTraceHeader(
+        config="qwen3-0.6b", reduced=False, dtype="bfloat16", seed=0, n_replicas=3,
+        ranks_per_pod=1, snapshots=True, snapshot_cadence=CELL_SNAPSHOT_CADENCE, layout_seed=0,
+        engine=dataclasses.asdict(EngineConfig(**dict(CELL_ENGINE, **engine))),
+        workload=CELL_SPEC.to_json(), chaos=chaos or {"kind": "none"},
+    )
+
+
+def cell_run(dev, params, run_name: str, header: ServeTraceHeader, record=None) -> tuple:
+    """One run of the full-width cell (the main path: counts reset before,
+    read after); emits its row and returns (result, its events as JSON,
+    launches).  The engines and their pools are gone when it returns;
+    ``mem_at_start_gib`` is what the process held on the card before the
+    run (the params among it)."""
+    gc.collect()  # earlier phases' objects in reference cycles
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated() / 2 ** 30
+    obs.reset()
+    reset_launches()
+    res, rset = run.run_from_header(header, record_path=record, device=dev, params=params)
+    torch.cuda.synchronize()
+    launches = {n: w.launches for n, w in WRAPPERS.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    events = [ev.to_json() for ev in rset.events]
+    del rset
+    acct = res.accounting
+    s = res.summary()
+    rounds = max(acct["decode_rounds"], 1)
+    emit({"phase": "replicas", "run": run_name, "config": "qwen3-0.6b", "n_layers": 28,
+          "dtype": "bfloat16", "replicas": header.n_replicas, "engine": header.engine,
+          "chaos": header.chaos, **s, "decode_round_ms": 1e3 * res.decode_wall_s / rounds,
+          "snapshot_ms_per_step": 1e3 * res.snapshot_wall_s / max(res.n_steps, 1),
+          "snapshot_ms_per_snapshot": 1e3 * res.snapshot_wall_s / max(acct["n_snapshots"], 1),
+          "mem_at_start_gib": start, "peak_mem_gib": peak, **acct, "launches": launches})
+    for n in ("rmsnorm", "swiglu", "flash_attention"):
+        if launches[n] == 0:
+            raise AssertionError(f"{run_name}: the run never launched {n}")
+    want = ("paged_decode_q8" if header.engine["kv_dtype"] == "int8" else "paged_decode") \
+        if header.engine["use_paged_kernel"] else "flash_decode"
+    for n in ("paged_decode", "flash_decode", "paged_decode_q8"):
+        if (launches[n] > 0) != (n == want):
+            raise AssertionError(f"{run_name}: launches {launches}, want decode by {want} only")
+    return res, events, launches
+
+
+def recipe_tag(recipe) -> str:
+    """A prefill recipe without its prompts: how the K/V were built."""
+    if recipe is None:
+        return "none"
+    if recipe[0] == "fork":
+        return f"fork {recipe[3]} of ({recipe_tag(recipe[2])})"
+    return " ".join(str(x) for x in recipe)
+
+
+def stream_gate(run_name, res, ref, fails: list) -> dict:
+    """Every request served (not shed) whose prompt both runs built alike
+    (the same prefill recipe: a prefill of the same batch shape and row,
+    the same chunks, or a fork of a donor built alike) emits exactly its
+    reference stream.  A request built one way in one run and another way
+    in the other (a fork of another request's pages against a whole-prompt
+    prefill: different kernels compute its prompt) is reported, not gated;
+    every differing request is listed with how each run built it."""
+    served = {rid: rs.emitted for rid, rs in res.states.items() if not rs.shed}
+    refs = ref.streams()
+    tags = {rid: (recipe_tag(res.states[rid].prefill_recipe),
+                  recipe_tag(ref.states[rid].prefill_recipe)) for rid in served}
+    alike = [rid for rid in served if tags[rid][0] == tags[rid][1]]
+    unlike = [rid for rid in served if tags[rid][0] != tags[rid][1]]
+    bad = [rid for rid in alike if served[rid] != refs[rid]]
+    differ = [rid for rid in served if served[rid] != refs[rid]]
+    done = all(rs.done for rs in res.states.values() if not rs.shed)
+    row = {"phase": "replicas", "run": run_name,
+           "gate": "streams of requests built alike equal the reference run's",
+           "served": len(served), "shed": len(res.states) - len(served),
+           "built_alike": len(alike), "streams_equal_built_alike": not bad,
+           "built_differently": len(unlike),
+           "built_differently_equal": sum(served[rid] == refs[rid] for rid in unlike),
+           "all_served_done": done,
+           "differing_requests": {rid: {"run": tags[rid][0], "reference": tags[rid][1],
+                                        "first_differing_token": next(
+                                            i for i, (a, b) in enumerate(
+                                                zip(served[rid] + [None], refs[rid] + [None]))
+                                            if a != b)}
+                                  for rid in differ}}
+    emit(row)
+    if bad or not done:
+        fails.append(f"{run_name}: requests {bad} built alike differ from the reference run "
+                     f"(all served done: {done})")
+    return row
+
+
+def card_replay(run_name: str, rec: str, fails: list) -> None:
+    """The recording replayed on the card through the CLI in process."""
+    obs.reset()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = run.main(["--device", "cuda", "--replay", rec])
+    emit({"phase": "replicas", "run": run_name, "card_replay_exit": rc})
+    if rc != 0:
+        fails.append(f"{run_name}: the card's replay of its recording exited {rc}")
+
+
+def slot_rows(eng: ServeEngine, rs: RequestState) -> tuple:
+    """The K/V rows below ``rs``'s length in its engine's pages, on the host."""
+    slot = eng.slots.index(rs)
+    pages, _, cur_len, _ = eng.snapshot_slot(slot)
+    return cur_len, [{k: v.reshape(v.shape[0], -1, *v.shape[3:])[:, :cur_len]
+                      for k, v in e.items()} for e in pages]
+
+
+def rows_equal(a, b) -> bool:
+    return all(torch.equal(x[k], y[k]) for x, y in zip(a, b) for k in x)
+
+
+def rows_max_abs(a, b) -> float:
+    return max(float((x[k].float() - y[k].float()).abs().max()) for x, y in zip(a, b)
+               for k in x)
+
+
+def restore_bitwise_rows(dev, cfg, params, fails: list) -> None:
+    """(c) One request admitted by each path at the cell's shapes, rebuilt
+    in fresh engines by the replay path (its prefill recipe) and by the
+    snapshot path (a snapshot RESTORE_SNAP_ROUND rounds in, then the
+    teacher-forced tail): the K/V rows below its length bitwise equal the
+    original's.  The JAX package's batch-1 re-prefill is reported beside."""
+    gen = np.random.default_rng(5)
+    prefix = tuple(int(x) for x in gen.integers(0, cfg.vocab_size, 128))
+
+    def prompt(n, head=()):
+        return head + tuple(int(x) for x in gen.integers(0, cfg.vocab_size, n - len(head)))
+
+    base = EngineConfig(**CELL_ENGINE)
+    cases = {  # path: (engine, [(request, admitted in group)], target index)
+        "alone": (base, [[Request(0, 0, prompt(300), 16)]], 0),
+        "batched": (base, [[Request(0, 0, prompt(300), 16), Request(1, 0, prompt(290), 16)]], 1),
+        "forked": (base, [[Request(0, 0, prompt(300, prefix), 16)],
+                          [Request(1, 0, prompt(260, prefix), 16)]], 1),
+        "chunked": (dataclasses.replace(base, prefill_chunk_pages=CHUNK_PAGES),
+                    [[Request(0, 0, prompt(300), 16)]], 0),
+    }
+    for path, (ecfg, groups, target) in cases.items():
+        eng = ServeEngine(cfg, params, ecfg, device=dev)
+        states = []
+        for t, group in enumerate(groups):
+            pairs = []
+            for req in group:
+                rs = RequestState(req)
+                states.append(rs)
+                slot, plan, complex_ = eng.try_bind(rs, t)
+                if complex_:
+                    eng.start_prefill(slot, rs, plan, t)
+                else:
+                    pairs.append((slot, rs))
+            if pairs:
+                eng.prefill_bound(pairs, t)
+        rs, t = states[target], len(groups)
+        while not rs.emitted:  # the chunked prompt's later chunks
+            eng.step_prefills(t)
+            t += 1
+        snap = None
+        for r in range(RESTORE_ROUNDS):
+            if r == RESTORE_SNAP_ROUND:
+                pages, n_em, cur, nb = eng.snapshot_slot(eng.slots.index(rs))
+                snap = KVSnapshot(rs.rid, 1, t, n_em, cur, pages, nb)
+            eng.decode_round(t)
+            t += 1
+        cur_len, want = slot_rows(eng, rs)
+        row = {"phase": "replicas", "run": "restore_bitwise", "path": path,
+               "recipe": list(rs.prefill_recipe[:1]) + [x for x in rs.prefill_recipe[1:]
+                                                        if isinstance(x, int)],
+               "prompt_len": len(rs.req.prompt), "cur_len": cur_len}
+        for how, snapshot, recipe in (("replay", None, rs.prefill_recipe),
+                                      ("snapshot", snap, rs.prefill_recipe),
+                                      ("jax_batch1_replay", None, None)):
+            other = ServeEngine(cfg, params, ecfg, device=dev)
+            rs2 = dataclasses.replace(rs, emitted=list(rs.emitted), prefill_recipe=recipe)
+            try:
+                got_path, replayed = other.admit_restored(rs2, snapshot, 0)
+                got = slot_rows(other, rs2)[1]
+                row[how + "_bitwise"] = rows_equal(got, want)
+                row[how + "_max_abs"] = rows_max_abs(got, want)
+                row[how + "_replayed"] = replayed
+            except AssertionError as e:  # the first-token check
+                row[how + "_bitwise"] = False
+                row[how + "_error"] = str(e)
+            del other
+        emit(row)
+        if not (row["replay_bitwise"] and row["snapshot_bitwise"]):
+            fails.append(f"restore_bitwise {path}: {row}")
+        del eng
+        torch.cuda.empty_cache()
+    # reported, not gated (ROADMAP queue C): two whole-prompt prefills of
+    # prompts that share the 128-token prefix, alone, give the prefix's K/V
+    # rows bitwise alike, so a fork's donor rows equal the forker's own
+    eng = ServeEngine(cfg, params, base, device=dev)
+    rows = [eng._prefill_rows([p])[0] for p in (prompt(300, prefix), prompt(260, prefix))]
+    a, b = ([{k: v[:, :, :len(prefix)] for k, v in e.items()} for e in d] for d in rows)
+    emit({"phase": "replicas", "run": "restore_bitwise", "path": "prefix rows of two prompts",
+          "prompt_lens": [300, 260], "prefix": len(prefix),
+          "prefix_rows_bitwise": rows_equal(a, b), "max_abs": rows_max_abs(a, b)})
+    del eng, rows, a, b
+
+
+def replicas_phase(dev) -> int:
+    """Phase 11; returns the int8 walk's launches in the int8 cell's chaos
+    run."""
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_replicas_")
+    fails: list = []  # every gate is read before the phase fails
+    try:
+        golden_rows(dev, tmp)
+        cfg, params = run.build("qwen3-0.6b", device=dev, seed=0)
+        restore_bitwise_rows(dev, cfg, params, fails)
+        ref, _, _ = cell_run(dev, params, "cell paged reference (no chaos, full reserve)",
+                             cell_header(chaos=None, n_pages=0))
+        rec = os.path.join(tmp, "cell.jsonl")
+        res, paged_events, _ = cell_run(dev, params, "cell paged chaos", cell_header(),
+                                        record=rec)
+        acct = res.accounting
+        counts = {k: acct[k] for k in ("n_restore_snapshot", "n_restore_replay",
+                                       "n_preemptions", "n_shed", "n_kills", "n_spikes")}
+        emit({"phase": "replicas", "run": "cell paged chaos", "counts": counts})
+        if not all(counts.values()):
+            fails.append(f"cell chaos: counts {counts}, want every one >= 1")
+        stream_gate("cell paged chaos", res, ref, fails)
+        card_replay("cell paged chaos", rec, fails)
+        dense, dense_events, _ = cell_run(dev, params, "cell dense chaos",
+                                          cell_header(use_paged_kernel=False))
+        stream_gate("cell dense chaos", dense, ref, fails)
+        same = dense_events == paged_events
+        emit({"phase": "replicas", "run": "cell dense chaos", "events_equal_paged": same})
+        if not same:
+            fails.append("cell dense chaos: events differ from the paged run's")
+        q8 = dict(kv_dtype="int8", prefix_sharing=False)
+        q8_ref, _, _ = cell_run(dev, params, "cell int8 reference (no chaos, full reserve)",
+                                cell_header(chaos=None, n_pages=0, **q8))
+        rec8 = os.path.join(tmp, "cell_int8.jsonl")
+        q8_res, _, q8_launches = cell_run(dev, params, "cell int8 chaos",
+                                          cell_header(**q8), record=rec8)
+        stream_gate("cell int8 chaos", q8_res, q8_ref, fails)
+        card_replay("cell int8 chaos", rec8, fails)
+        pairs = [(a, b) for rid, rs in q8_ref.states.items()
+                 for a, b in zip(rs.emitted, ref.states[rid].emitted)]
+        bf16_pages = init_pool(cfg, 1, PS, torch.bfloat16, dev)
+        q8_pages = init_pool(cfg, 1, PS, torch.bfloat16, dev, kv_dtype="int8")
+        emit({"phase": "replicas", "run": "cell int8 vs bf16 (reported)",
+              "page_nbytes": {"int8": page_nbytes(q8_pages), "bfloat16": page_nbytes(bf16_pages)},
+              "kv_bytes_paged": {"int8": q8_ref.accounting["kv_bytes_paged"],
+                                 "bfloat16": ref.accounting["kv_bytes_paged"]},
+              "token_share_equal_bf16": sum(a == b for a, b in pairs) / max(len(pairs), 1)})
+        del params
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "replicas", "run": "phase", "seconds": time.perf_counter() - t0,
+          "failed": fails})
+    if fails:
+        raise AssertionError("replicas phase: " + "; ".join(fails))
+    return q8_launches["paged_decode_q8"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU",
@@ -1819,6 +2249,7 @@ def main() -> int:
     train_parity_phase(dev)
     trainer_phase(dev)
     statexfer_phase(dev)
+    launches["paged_decode_q8"] = replicas_phase(dev)
 
     emit({"kernels": [
         {"name": n, "route": "cuda", "source": f"src/repro_torch/csrc/{n}.cu",

@@ -24,6 +24,8 @@ template <>
 __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+template <>
+__device__ __forceinline__ float to_f<int8_t>(int8_t x) { return static_cast<float>(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);

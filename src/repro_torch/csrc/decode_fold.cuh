@@ -1,11 +1,16 @@
-// Split-KV decode attention shared by the two decode kernels:
-// paged_decode.cu (kernel #1, cache rows reached through a page table) and
-// flash_decode.cu (kernel #5, rows of a dense cache).  They replace the TPU
-// kernels src/repro/kernels/paged_decode.py:paged_flash_decode and
-// src/repro/kernels/flash_decode.py:flash_decode; both instantiate the two
-// kernels below and differ only in how a row's address is computed (the
-// Rows policy: a page-table lookup, clamped as XLA gathers clamp, against a
-// dense stride).
+// Split-KV decode attention shared by the three decode kernels:
+// paged_decode.cu (kernel #1, cache rows reached through a page table),
+// flash_decode.cu (kernel #5, rows of a dense cache) and paged_decode_q8.cu
+// (the int8 page walk: int8 rows with one f32 scale per page).  #1 and #5
+// replace the TPU kernels src/repro/kernels/paged_decode.py:
+// paged_flash_decode and src/repro/kernels/flash_decode.py:flash_decode; the
+// int8 walk replaces the XLA walk src/repro/kernels/xla_paged.py:
+// paged_flash_decode_xla with k_scale/v_scale.  All instantiate the two
+// kernels below and differ only in the Rows policy: how a row's address is
+// computed (a page-table lookup, clamped as XLA gathers clamp, against a
+// dense stride) and, for the int8 walk, the page's scale (kScaled).  The
+// cache rows have their own type R (bf16 or f32 as q for #1 and #5, int8
+// for the walk), q and o the type T.
 //
 // Bound on the H100: KV bytes.  A decode step does 4·G·hd flops per cache
 // row (2·hd·2 bytes of K and V in bf16), about 1 flop a byte, far below the
@@ -30,7 +35,9 @@
 //    on G and hd alone.
 // 2. Within a split, cache rows stream through a ring of STAGES stages of
 //    TILE rows, loaded with 16-byte cp.async in their own type (bf16 stays
-//    bf16 in shared memory, widened in registers); rows at or past the
+//    bf16 and int8 stays int8 in shared memory, widened in registers; an
+//    int8 row is multiplied by its page's scale as it is widened, the
+//    reference's dequantize on fetch); rows at or past the
 //    split's end or the lane's length are zero-filled, not read.  With
 //    TILE = 16 and STAGES = 4 a split of 4 pages of 16 rows is in flight
 //    at once; longer splits refill a stage as soon as it is folded.  One
@@ -102,11 +109,13 @@ struct Shape {
 };
 
 // ring | per-warp acc [NWARPS][G][HD] f32 | m, l [NWARPS][G] f32 | page ids
-template <typename T, int HD>
-inline size_t smem_bytes(int G, int split_blocks) {
-  return sizeof(T) * static_cast<size_t>(STAGES) * Shape<T, HD>::STAGE +
+// | (scaled rows) K then V page scales [split_blocks] f32
+template <typename R, int HD>
+inline size_t smem_bytes(int G, int split_blocks, bool scaled = false) {
+  return sizeof(R) * static_cast<size_t>(STAGES) * Shape<R, HD>::STAGE +
          sizeof(float) * (static_cast<size_t>(NWARPS) * G * HD + 2 * NWARPS * G) +
-         sizeof(int) * static_cast<size_t>(split_blocks);
+         sizeof(int) * static_cast<size_t>(split_blocks) +
+         (scaled ? 2 * sizeof(float) * static_cast<size_t>(split_blocks) : 0);
 }
 
 // the unsigned type of B bytes
@@ -115,6 +124,7 @@ template <> struct Chunk<16> { using type = uint4; };
 template <> struct Chunk<8> { using type = uint2; };
 template <> struct Chunk<4> { using type = uint32_t; };
 template <> struct Chunk<2> { using type = uint16_t; };
+template <> struct Chunk<1> { using type = uint8_t; };
 
 // E consecutive elements of T widened to f32.  p is E * sizeof(T) bytes
 // past a 16-byte boundary times the lane, so it is aligned to the largest
@@ -123,7 +133,11 @@ template <> struct Chunk<2> { using type = uint16_t; };
 template <typename T, int E>
 __device__ __forceinline__ void load_e(const T* p, float (&out)[E]) {
   constexpr int BYTES = E * static_cast<int>(sizeof(T));
-  constexpr int CH = BYTES % 16 == 0 ? 16 : BYTES % 8 == 0 ? 8 : BYTES % 4 == 0 ? 4 : 2;
+  constexpr int CH = BYTES % 16 == 0 ? 16
+                     : BYTES % 8 == 0  ? 8
+                     : BYTES % 4 == 0  ? 4
+                     : BYTES % 2 == 0  ? 2
+                                       : 1;
   constexpr int PER = CH / static_cast<int>(sizeof(T));
   using C = typename Chunk<CH>::type;
 #pragma unroll
@@ -137,6 +151,7 @@ __device__ __forceinline__ void load_e(const T* p, float (&out)[E]) {
 
 // Rows of a dense (B, Smax, KV, hd) cache.
 struct DenseRows {
+  static constexpr bool kScaled = false;
   int smax;
   size_t row_stride;  // KV * hd elements
   __device__ __forceinline__ int fetch(int, int, int) const { return 0; }
@@ -151,6 +166,7 @@ struct DenseRows {
 // split's page ids into shared memory (one thread each), clamped into the
 // pool as XLA gathers clamp.
 struct PagedRows {
+  static constexpr bool kScaled = false;
   const int* tables;
   int n_pages;
   int ps;
@@ -168,6 +184,25 @@ struct PagedRows {
   __device__ __forceinline__ size_t offset(int, int r, int first_blk, const int* pages) const {
     const int blk = r / ps;
     return (static_cast<size_t>(pages[blk - first_blk]) * ps + (r - blk * ps)) * row_stride;
+  }
+};
+
+// PagedRows over an int8 pool with one f32 scale per page of this layer
+// (k_scale, v_scale: (n_pages,)).  stash also brings each page's two
+// scales into shared memory, after the page ids.
+struct PagedRowsQ8 : PagedRows {
+  static constexpr bool kScaled = true;
+  const float* k_scale;
+  const float* v_scale;
+  __device__ __forceinline__ void stash(int page, int* pages, int split_blocks) const {
+    const int t = static_cast<int>(threadIdx.x);
+    if (t < split_blocks) {
+      const int p = page < 0 ? 0 : (page >= n_pages ? n_pages - 1 : page);
+      pages[t] = p;
+      float* sc = reinterpret_cast<float*>(pages + split_blocks);
+      sc[t] = k_scale[p];
+      sc[split_blocks + t] = v_scale[p];
+    }
   }
 };
 
@@ -221,13 +256,16 @@ __device__ __forceinline__ void warp_sums(float (&v)[V]) {
 // One warp folds rows warp, warp + NWARPS, ... of a staged tile into its
 // (m, l, acc) for the group's G heads.  Scores are in base-2 units (scale2
 // = log2(e) / sqrt(hd)), p = 2^(s - m) on the special-function unit.  Rows
-// at or past row_end get no weight.
-template <typename T, int HD, int GT, int GA = HeadsHeld<T, HD, GT>::value>
+// at or past row_end get no weight.  SCALED: row r's elements are multiplied
+// by its page's scales, sc[blk] (K) and sc[split_blocks + blk] (V) with blk
+// = r / bk - first_blk.
+template <typename R, int HD, int GT, bool SCALED, int GA = HeadsHeld<R, HD, GT>::value>
 __device__ __forceinline__ void fold_tile(
-    const T* __restrict__ ks, const T* __restrict__ vs, int r_base, int row_end, int G,
-    float scale2, const float (&qr)[GA][Shape<T, HD>::E], float (&m)[GA], float (&l)[GA],
-    float (&acc)[GA][Shape<T, HD>::E]) {
-  using S = Shape<T, HD>;
+    const R* __restrict__ ks, const R* __restrict__ vs, int r_base, int row_end, int G,
+    float scale2, const float (&qr)[GA][Shape<R, HD>::E], float (&m)[GA], float (&l)[GA],
+    float (&acc)[GA][Shape<R, HD>::E], const float* __restrict__ sc, int bk, int first_blk,
+    int split_blocks) {
+  using S = Shape<R, HD>;
   constexpr int E = S::E;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -237,8 +275,17 @@ __device__ __forceinline__ void fold_tile(
   for (int rr = 0; rr < RW; ++rr) {
     const int j = warp + rr * NWARPS;
     valid[rr] = r_base + j < row_end;
-    load_e<T, E>(ks + j * HD + lane * E, kk[rr]);
-    load_e<T, E>(vs + j * HD + lane * E, vv[rr]);
+    load_e<R, E>(ks + j * HD + lane * E, kk[rr]);
+    load_e<R, E>(vs + j * HD + lane * E, vv[rr]);
+    if constexpr (SCALED) {
+      const int blk = min((r_base + j) / bk - first_blk, split_blocks - 1);
+      const float ksc = sc[blk], vsc = sc[split_blocks + blk];
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        kk[rr][e] = __fmul_rn(kk[rr][e], ksc);
+        vv[rr][e] = __fmul_rn(vv[rr][e], vsc);
+      }
+    }
   }
   float s[GA * RW];  // this lane's part of each (head, row) dot, then the dots
 #pragma unroll
@@ -289,14 +336,14 @@ __device__ __forceinline__ void fold_tile(
 // query heads y * GS .. y * GS + GS - 1 (all of one kv head's group) of lane
 // blockIdx.z and writes their split partials into part: acc [B][H][NS][HD],
 // then (m, l) [B][H][NS][2], f32.  GS is GT when GT > 0.
-template <typename T, int HD, int GT, typename Rows>
+template <typename T, typename R, int HD, int GT, typename Rows>
 __global__ void __launch_bounds__(NT)
-split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+split_kernel(const T* __restrict__ q, const R* __restrict__ k, const R* __restrict__ v,
              const int* __restrict__ lens, Rows rows, float* __restrict__ part, int H, int KV,
              int gs, int bk, int rows_max, int split_blocks, float scale2) {
-  using S = Shape<T, HD>;
+  using S = Shape<R, HD>;
   constexpr int E = S::E;
-  constexpr int GA = HeadsHeld<T, HD, GT>::value;
+  constexpr int GA = HeadsHeld<R, HD, GT>::value;
   // the combine pass may be scheduled now; it waits for this grid before
   // it reads the partials
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
@@ -309,7 +356,7 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   const int lane = tid & 31;
   const int warp = tid >> 5;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* ring = reinterpret_cast<T*>(smem_raw);
+  R* ring = reinterpret_cast<R*>(smem_raw);
   float* w_acc = reinterpret_cast<float*>(ring + STAGES * S::STAGE);
   float* w_m = w_acc + NWARPS * G * HD;
   float* w_l = w_m + NWARPS * G;
@@ -329,7 +376,7 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 
   const size_t head_off = static_cast<size_t>(kvh) * HD;
   auto issue = [&](int t) {
-    T* dst = ring + (t % STAGES) * S::STAGE;
+    R* dst = ring + (t % STAGES) * S::STAGE;
     const int r_base = row0 + t * TILE;
     for (int i = tid; i < TILE * S::VPR; i += NT) {
       const int rr = i / S::VPR;
@@ -361,10 +408,12 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   for (int t = 0; t < n_tiles; ++t) {
     cp_async_wait<STAGES - 1>();  // tile t has landed (this thread's copies)
     __syncthreads();              // every thread's copies of tile t
-    const T* ks = ring + (t % STAGES) * S::STAGE;
+    const R* ks = ring + (t % STAGES) * S::STAGE;
     const int r_base = row0 + t * TILE;
     if (r_base + warp < row_end)
-      fold_tile<T, HD, GT>(ks, ks + TILE * HD, r_base, row_end, G, scale2, qr, m, l, acc);
+      fold_tile<R, HD, GT, Rows::kScaled>(ks, ks + TILE * HD, r_base, row_end, G, scale2, qr, m,
+                                          l, acc, reinterpret_cast<const float*>(pages + split_blocks),
+                                          bk, first_blk, split_blocks);
     if (t + STAGES < n_tiles) {
       __syncthreads();  // every warp is done with this stage
       issue(t + STAGES);
@@ -450,10 +499,10 @@ inline int sub_group(int G, int HD) {
 
 // the split kernel for GT heads a block; GT = 0, or a GT too wide for HD
 // (never chosen by sub_group), is the general one
-template <typename T, int HD, int GT, typename Rows>
+template <typename T, typename R, int HD, int GT, typename Rows>
 inline auto split_fn() {
-  if constexpr (GT * HD <= MAX_GHD) return split_kernel<T, HD, GT, Rows>;
-  else return split_kernel<T, HD, 0, Rows>;
+  if constexpr (GT * HD <= MAX_GHD) return split_kernel<T, R, HD, GT, Rows>;
+  else return split_kernel<T, R, HD, 0, Rows>;
 }
 
 // Both passes on `stream`: pass 1 over NS = ceil(n_blocks / split_blocks)
@@ -461,8 +510,8 @@ inline auto split_fn() {
 // programmatic dependence on it.  rows_max: the most rows a lane has (P *
 // ps, or Smax); lengths are clamped to [0, rows_max].  Returns a
 // cudaError_t.
-template <typename T, int HD, typename Rows>
-int launch(const T* q, const T* k, const T* v, const int* lens, const Rows& rows, float* part,
+template <typename T, int HD, typename Rows, typename R>
+int launch(const T* q, const R* k, const R* v, const int* lens, const Rows& rows, float* part,
            T* o, int B, int H, int KV, int bk, int n_blocks, int rows_max, int split_blocks,
            float scale, cudaStream_t stream) {
   if (KV < 1 || H % KV || bk < 1 || split_blocks < 1 || split_blocks > MAX_SPLIT_BLOCKS ||
@@ -472,12 +521,12 @@ int launch(const T* q, const T* k, const T* v, const int* lens, const Rows& rows
   const int GS = sub_group(G, HD);
   const int NS = (n_blocks + split_blocks - 1) / split_blocks;
   if (NS > 0) {
-    const size_t smem = smem_bytes<T, HD>(GS, split_blocks);
-    auto kern = GS == 1 ? split_fn<T, HD, 1, Rows>()
-                : GS == 2 ? split_fn<T, HD, 2, Rows>()
-                : GS == 4 ? split_fn<T, HD, 4, Rows>()
-                : GS == 8 ? split_fn<T, HD, 8, Rows>()
-                : split_fn<T, HD, 0, Rows>();
+    const size_t smem = smem_bytes<R, HD>(GS, split_blocks, Rows::kScaled);
+    auto kern = GS == 1 ? split_fn<T, R, HD, 1, Rows>()
+                : GS == 2 ? split_fn<T, R, HD, 2, Rows>()
+                : GS == 4 ? split_fn<T, R, HD, 4, Rows>()
+                : GS == 8 ? split_fn<T, R, HD, 8, Rows>()
+                : split_fn<T, R, HD, 0, Rows>();
     if (smem > 48 * 1024) {
       cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));

@@ -32,9 +32,10 @@ NVCC_FLAGS = [
     "-Xptxas", "-v",
 ]
 
-# the six kernels' sources, and an empty kernel that times the launch floor
+# the six kernels' sources, the int8 page walk's, and an empty kernel that
+# times the launch floor
 SOURCES = ("rmsnorm", "swiglu", "flash_attention", "paged_decode", "lowrank_wgrad",
-           "flash_decode", "empty")
+           "flash_decode", "paged_decode_q8", "empty")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

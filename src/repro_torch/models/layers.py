@@ -26,7 +26,9 @@ from repro_torch.core.recompute import ffn_recompute
 from repro_torch.core.skipconn import cast_grad, grad_gate
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_decode import flash_decode
+from repro_torch.kernels.kvquant import insert_row_q8
 from repro_torch.kernels.paged_decode import paged_decode
+from repro_torch.kernels.paged_decode_q8 import paged_decode_q8
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.swiglu import swiglu
 
@@ -102,7 +104,10 @@ def attention_block(
       page pools ``(n_pages, page_size, KV, hd)``; each slot's new K/V row
       is written into its page **in place** (JAX's pool is functional and
       donated instead), and the paged kernel walks the page tables over
-      ``cur_len + 1`` positions.
+      ``cur_len + 1`` positions.  An int8 pool (``k_scale`` in ``cache``)
+      dequantizes the B touched pages, inserts the new rows and
+      requantizes them (``insert_row_q8``), and the int8 page walk reads
+      it.
     * ``cache`` and ``history``: chunk prefill.  The chunk's K/V rows are
       written into the dense ``(B, Smax, KV, hd)`` cache at ``cur_len`` (an
       int offset), then the chunk attends to the prefix plus itself.
@@ -152,9 +157,15 @@ def _attention(p, x, cfg, positions, cache, cur_len, history, page_tables, page_
             raise ValueError("paged decode requires cur_len and page_size")
         pids = torch.gather(page_tables, 1, (cur_len // page_size)[:, None].long())[:, 0]
         offs = cur_len % page_size
-        cache["k"][pids.long(), offs.long()] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][pids.long(), offs.long()] = v[:, 0].to(cache["v"].dtype)
-        o = paged_decode(q, cache["k"], cache["v"], page_tables, cur_len + 1)
+        if "k_scale" in cache:
+            insert_row_q8(cache["k"], cache["k_scale"], pids, offs, k[:, 0])
+            insert_row_q8(cache["v"], cache["v_scale"], pids, offs, v[:, 0])
+            o = paged_decode_q8(q, cache["k"], cache["v"], page_tables, cur_len + 1,
+                                k_scale=cache["k_scale"], v_scale=cache["v_scale"])
+        else:
+            cache["k"][pids.long(), offs.long()] = k[:, 0].to(cache["k"].dtype)
+            cache["v"][pids.long(), offs.long()] = v[:, 0].to(cache["v"].dtype)
+            o = paged_decode(q, cache["k"], cache["v"], page_tables, cur_len + 1)
     elif cache is not None:
         if cur_len is None:
             raise ValueError("decode/prefill cache requires cur_len")

@@ -34,8 +34,27 @@ Prefill paths:
     write into a shared page) and prefill only their tail through the chunk
     machinery.
 
-Not ported yet: preemption, priority and lockstep admission, int8 pages,
-KV snapshots and the failover restore paths.
+Int8 pages (``kv_dtype="int8"``, paged round only): prefill quantizes each
+page as it lands, each decode step requantizes the pages it writes, and the
+int8 page walk (``kernels/paged_decode_q8.py``) reads them.
+
+Failover and preemption surface (for :mod:`repro_torch.serve.replicas`):
+``live_states``, ``snapshot_slot`` and ``kill``; ``plan_preemption`` and
+``preempt``; ``try_admit_restored`` / ``admit_restored`` with two restore
+paths, as in the JAX package:
+  * ``snapshot`` — a peer's host copy of the slot's pages is written into
+    fresh pages, then the tokens emitted after it are teacher-forced
+    through the decode round at the full ``(max_slots,)`` shape;
+  * ``replay`` — the prompt is prefilled again, then every emitted token
+    but the last is teacher-forced.
+Both must rebuild the cache bits the unkilled run had.  The JAX package
+re-prefills every prompt alone, which is its bits because its lanes are
+isolated.  On the card a GEMM's bits may depend on its row count, and a
+chunked or forked prompt's K/V come from other code than a whole-prompt
+prefill, so the port records at admission how each prompt was built
+(``RequestState.prefill_recipe``: a batched prefill of n rows at row i,
+chunks, or a fork of a donor prompt's recipe plus chunks) and the replay
+path builds the prompt the same way again (:meth:`_rebuild`).
 """
 from __future__ import annotations
 
@@ -46,7 +65,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import obs, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.kvcache import cache_structs
 from repro_torch.models.model import forward_decode, forward_prefill, forward_prefill_chunk
@@ -56,30 +75,30 @@ from repro_torch.serve.kvpool import (
     check_attention_only,
     copy_page,
     gather_pages,
+    gather_slot_pages,
     init_pool,
     page_nbytes,
     pages_needed,
+    reset_pages,
+    restore_slot_pages,
     scatter_pages,
     scatter_prefill,
+    scatter_prefill_q8,
     scatter_token,
 )
 from repro_torch.serve.request import RequestState
 from repro_torch.serve.sampling import greedy_token
+from repro_torch.utils.trees import tree_nbytes
 
 Tree = Any
 
-# the engine's counters (the JAX package declares them in repro.obs.catalog
-# as ENGINE_STAT_KEYS; preemption's is not ported); ``drain_stats`` adds the
-# page allocator's n_pages_allocated, n_pages_forked and n_cow_pages
-ENGINE_STAT_KEYS: Tuple[str, ...] = (
-    "decode_rounds",
-    "kv_bytes_dense",
-    "kv_bytes_paged",
-    "shared_prefix_tokens",
-    "n_prefix_hits",
-    "n_pages_shared",
-    "n_admission_plans",
-)
+# the engine's counters, declared once in repro_torch.obs.catalog;
+# ``drain_stats`` adds the page allocator's n_pages_allocated,
+# n_pages_forked and n_cow_pages
+ENGINE_STAT_KEYS: Tuple[str, ...] = obs.ENGINE_STAT_KEYS
+# the replay path's recipe for a prompt whose admission was not recorded:
+# the JAX package's batch-1 re-prefill
+ALONE = ("batch", 1, 0)
 
 
 @dataclass(frozen=True)
@@ -90,14 +109,46 @@ class EngineConfig:
     page_size: int = 16         # tokens per KV page
     pages_per_slot: int = 8     # page-table width -> max_len per request
     n_pages: int = 0            # physical pages incl. null; 0 -> full reserve
-    max_prefills_per_step: int = 1  # admission budget per step
+    admission: str = "continuous"   # "continuous" | "lockstep" | "priority"
+    max_prefills_per_step: int = 1  # continuous admission budget per step
     use_paged_kernel: bool = False  # page-table-walking decode (kernel #1)
+    # kept so that every JAX trace header's engine dict round-trips; the
+    # interpret-mode Pallas kernel has no counterpart on the card, so only
+    # None and False are accepted
+    kernel_interpret: Optional[bool] = None
+    kv_dtype: str = ""              # "" = model dtype; "int8" = quantized pages
     prefill_chunk_pages: int = 0    # chunk prompts longer than this (0 = off)
     prefix_sharing: bool = False    # COW page sharing for common prefixes
+    preemption: bool = False        # evict-and-replay under page pressure
 
     def __post_init__(self):
+        if self.admission not in ("continuous", "lockstep", "priority"):
+            raise ValueError(f"unknown admission policy {self.admission!r}")
         if self.prefill_chunk_pages < 0:
             raise ValueError("prefill_chunk_pages must be >= 0")
+        if self.preemption and self.admission != "priority":
+            raise ValueError(
+                "preemption picks victims by priority class — it requires "
+                "admission='priority'"
+            )
+        if self.kernel_interpret:
+            raise ValueError(
+                "kernel_interpret=True asks for the interpret-mode Pallas kernel, "
+                "which has no counterpart on the card; the port takes None or False"
+            )
+        if self.kv_dtype not in ("", "int8"):
+            raise ValueError(f"unsupported kv_dtype {self.kv_dtype!r}")
+        if self.kv_dtype == "int8":
+            if not self.use_paged_kernel:
+                raise ValueError(
+                    "kv_dtype='int8' quantizes the paged pool — it requires "
+                    "use_paged_kernel=True"
+                )
+            if self.prefix_sharing or self.prefill_chunk_pages:
+                raise ValueError(
+                    "kv_dtype='int8' does not support prefix_sharing or "
+                    "chunked prefill (both need the dense gather view)"
+                )
 
     @property
     def max_len(self) -> int:
@@ -130,6 +181,15 @@ class _PendingPrefill:
     step: int       # last engine step a chunk ran (one chunk per step)
 
 
+def resolve_kernel_impl(ecfg: EngineConfig, device="cuda") -> str:
+    """The decode route this config takes on ``device``, logged into trace
+    headers (informational): ``""`` for the dense round, ``"cuda"`` for the
+    paged kernels on the card, ``"plain"`` for their plain versions."""
+    if not ecfg.use_paged_kernel:
+        return ""
+    return "cuda" if torch.device(device).type == "cuda" else "plain"
+
+
 def _lcp(a: Sequence[int], b: Sequence[int]) -> int:
     n = 0
     for x, y in zip(a, b):
@@ -152,7 +212,7 @@ class ServeEngine:
         self.params = params
         self.ecfg = ecfg
         self.pool = init_pool(cfg, ecfg.resolved_n_pages, ecfg.page_size,
-                              params["embed"].dtype, self.device)
+                              params["embed"].dtype, self.device, kv_dtype=ecfg.kv_dtype)
         self.alloc = PageAllocator(ecfg.resolved_n_pages, ecfg.page_size, rng=alloc_rng)
         self.slots: List[Optional[RequestState]] = [None] * ecfg.max_slots
         self._tables = np.full((ecfg.max_slots, ecfg.pages_per_slot), NULL_PAGE, np.int32)
@@ -162,16 +222,24 @@ class ServeEngine:
         # registry holds a refcount on the pages (a pseudo table), so a
         # prefix outlives its first request until page pressure releases it
         self._registry: Dict[Tuple[int, ...], Tuple[str, List[int]]] = {}
+        # each registered prompt's prefill recipe (a fork records its donor's)
+        self._reg_recipe: Dict[Tuple[int, ...], tuple] = {}
         self._reg_counter = 0
         self._page_nbytes = page_nbytes(self.pool)
         # admission-plan cache: (rid, state fingerprint, plan-or-None), so a
         # can_admit probe and the bind that follows it plan once
         self._planned: Optional[Tuple[int, Tuple[int, int, int], Optional[AdmitPlan]]] = None
         self.stats: Dict[str, int] = {k: 0 for k in ENGINE_STAT_KEYS}
+        # drained stats accumulate onto these obs counters (export only)
+        self._obs_stats = {k: obs.counter(f"serve.engine.{k}") for k in ENGINE_STAT_KEYS}
+        self._obs_alloc = {k: obs.counter(f"serve.alloc.{k}") for k in obs.ALLOC_STAT_KEYS}
         # wall time of the data paths, each ending in the host copy of the
         # sampled tokens (which waits for the device; a chunk that is not its
         # prompt's last samples nothing and ends when its work is queued);
         # the calls counted beside them: batched prefills and prompt chunks
+        # (restores' re-prefills included).  A decode round's clock starts
+        # after the device has finished earlier work, so with several
+        # engines on one card each times its own round.
         self.decode_wall_s = 0.0
         self.prefill_wall_s = 0.0
         self.prefill_calls = 0
@@ -190,6 +258,10 @@ class ServeEngine:
 
     def plan_admission(self, rs: RequestState) -> AdmitPlan:
         """Fork-aware page plan for a fresh request (deterministic)."""
+        with obs.span("engine.admission"):
+            return self._plan_admission(rs)
+
+    def _plan_admission(self, rs: RequestState) -> AdmitPlan:
         self.stats["n_admission_plans"] += 1
         ps = self.ecfg.page_size
         total = pages_needed(rs.req.total_len, ps)
@@ -249,7 +321,12 @@ class ServeEngine:
         if plan is not None and plan.fork_pages:
             self.alloc.fork(slot, plan.fork_pages)
         # reserve the whole span up front (prompt plus every new token)
-        self.alloc.ensure(slot, rs.req.total_len)
+        new = self.alloc.ensure(slot, rs.req.total_len)
+        if self.ecfg.kv_dtype == "int8" and new:
+            # an int8 page's scale is the absmax of all its rows, so rows a
+            # page's earlier holder left would change how this request's
+            # rows quantize: start every page as the pool starts
+            reset_pages(self.pool, new)
         self.slots[slot] = rs
         self._tables[slot] = self.alloc.table_row(slot, self.ecfg.pages_per_slot)
         return slot
@@ -288,7 +365,10 @@ class ServeEngine:
         """Begin a chunked or shared-suffix prefill on a bound slot.  The
         first chunk runs now, later ones one per engine step.  Returns the
         first token when the prompt finished within this call, else None."""
+        rs.prefill_recipe = ("chunk",)
         if plan.n_shared:
+            rs.prefill_recipe = ("fork", plan.donor, self._reg_recipe[plan.donor],
+                                 plan.n_shared)
             self.stats["shared_prefix_tokens"] += plan.n_shared
             self.stats["n_prefix_hits"] += 1
             # full pages never re-materialized (the forked partial page is
@@ -306,33 +386,27 @@ class ServeEngine:
         """One batched prefill for bound slots whose prompts pad to the same
         page multiple.  Returns the first tokens; a request done at its
         first token is evicted here."""
+        with obs.span("engine.prefill"):
+            return self._prefill_bound(pairs, step)
+
+    def _prefill_bound(self, pairs: List[Tuple[int, RequestState]], step: int) -> List[int]:
         t0 = time.perf_counter()
         ps = self.ecfg.page_size
         n = len(pairs)
         n_pg = pages_needed(len(pairs[0][1].req.prompt), ps)
-        S_pad = n_pg * ps
-        toks_in = np.zeros((n, S_pad), np.int32)
-        last = np.zeros((n,), np.int64)
         page_ids = np.zeros((n, n_pg), np.int32)
         for i, (slot, rs) in enumerate(pairs):
-            S = len(rs.req.prompt)
-            if pages_needed(S, ps) != n_pg:
+            if pages_needed(len(rs.req.prompt), ps) != n_pg:
                 raise ValueError("mixed prefill buckets")
-            toks_in[i, :S] = rs.req.prompt
-            last[i] = S - 1
             page_ids[i] = self.alloc.tables[slot][:n_pg]
-        dt = self.params["embed"].dtype
-        dense, logits = forward_prefill(
-            self.params, {"tokens": self._dev(toks_in)}, self.cfg,
-            cache_structs(self.cfg, n, S_pad, dt), logit_pos=self._dev(last),
-        )
-        scatter_prefill(self.pool, dense, self._dev(page_ids), page_size=ps)
-        toks = greedy_token(logits, self.cfg).cpu().numpy()
+        dense, toks = self._prefill_rows([rs.req.prompt for _, rs in pairs])
+        self._scatter_prefill(dense, self._dev(page_ids))
+        toks = toks.cpu().numpy()
         self.prefill_wall_s += time.perf_counter() - t0
-        self.prefill_calls += 1
         out = []
         for i, (slot, rs) in enumerate(pairs):
             self._lens[slot] = len(rs.req.prompt)
+            rs.prefill_recipe = ("batch", n, i)
             tok = int(toks[i])
             rs.record_token(tok, step)
             self._register_prefix(slot)
@@ -341,7 +415,122 @@ class ServeEngine:
             out.append(tok)
         return out
 
+    def _prefill_rows(self, prompts: Sequence[Sequence[int]]) -> Tuple[Tree, torch.Tensor]:
+        """One ``forward_prefill`` over same-bucket prompts padded to their
+        page multiple: (dense caches ``(n_periods, n, S_pad, KV, hd)``, (n,)
+        greedy first tokens)."""
+        ps = self.ecfg.page_size
+        n = len(prompts)
+        S_pad = pages_needed(len(prompts[0]), ps) * ps
+        toks_in = np.zeros((n, S_pad), np.int32)
+        last = np.zeros((n,), np.int64)
+        for i, p in enumerate(prompts):
+            toks_in[i, :len(p)] = p
+            last[i] = len(p) - 1
+        dt = self.params["embed"].dtype
+        dense, logits = forward_prefill(
+            self.params, {"tokens": self._dev(toks_in)}, self.cfg,
+            cache_structs(self.cfg, n, S_pad, dt), logit_pos=self._dev(last),
+        )
+        self.prefill_calls += 1
+        return dense, greedy_token(logits, self.cfg)
+
+    def _scatter_prefill(self, dense: Tree, page_ids: torch.Tensor) -> None:
+        """Write prefill caches into their pages, quantizing each page as it
+        lands when the pool is int8."""
+        if self.ecfg.kv_dtype == "int8":
+            scatter_prefill_q8(self.pool, dense, page_ids, page_size=self.ecfg.page_size)
+        else:
+            scatter_prefill(self.pool, dense, page_ids, page_size=self.ecfg.page_size)
+
+    def _prefill_into(self, slot: int, rs: RequestState, recipe: tuple) -> int:
+        """The replay path's re-prefill: rebuild ``rs``'s prompt K/V by
+        ``recipe`` into the slot's pages.  Returns the first token."""
+        ps = self.ecfg.page_size
+        S = len(rs.req.prompt)
+        n_pg = pages_needed(S, ps)
+        dense, tok = self._rebuild(tuple(rs.req.prompt), recipe)
+        dense = tuple({k: d[:, :, :n_pg * ps] for k, d in e.items()} for e in dense)
+        page_ids = np.asarray(self.alloc.tables[slot][:n_pg], np.int32)[None]
+        self._scatter_prefill(dense, self._dev(page_ids))
+        self._lens[slot] = S
+        return tok
+
+    def _rebuild(self, prompt: Tuple[int, ...], recipe: tuple) -> Tuple[Tree, int]:
+        """A prompt's dense K/V ``(n_periods, 1, >= S_pad, KV, hd)`` and
+        first token, computed as its admission computed them:
+
+        * ``("batch", n, i)`` — a prefill of ``n`` rows of the prompt's
+          padded length with the prompt at row ``i`` (the other rows zeros;
+          the lanes are isolated, so only the shapes matter);
+        * ``("chunk",)`` — the chunk machinery from position 0;
+        * ``("fork", donor, donor_recipe, n_shared)`` — the donor prompt
+          rebuilt by its own recipe, its pages covering ``n_shared``
+          positions taken as the forked prefix, then the chunks from
+          ``n_shared``.
+
+        Rows past the written positions are zeros where the original view
+        held other pages' data; attention gives them no weight either way.
+        """
+        kind = recipe[0]
+        if kind == "batch":
+            n, row = recipe[1], recipe[2]
+            S_pad = pages_needed(len(prompt), self.ecfg.page_size) * self.ecfg.page_size
+            prompts = [(0,) * S_pad] * n
+            prompts[row] = prompt
+            dense, toks = self._prefill_rows(prompts)
+            return (tuple({k: d[:, row:row + 1] for k, d in e.items()} for e in dense),
+                    int(toks[row]))
+        view = self._empty_view()
+        off = 0
+        if kind == "fork":
+            _, donor, donor_recipe, off = recipe
+            ddense, _ = self._rebuild(donor, donor_recipe)
+            n_cov = pages_needed(off, self.ecfg.page_size) * self.ecfg.page_size
+            for e, de in zip(view, ddense):
+                for k in e:
+                    e[k][:, :, :n_cov] = de[k][:, :, :n_cov]
+        elif kind != "chunk":
+            raise ValueError(f"unknown prefill recipe {recipe!r}")
+        while True:
+            view, logits, off, final = self._chunk_forward(view, prompt, off)
+            if final:
+                return view, int(greedy_token(logits, self.cfg)[0])
+
+    def _empty_view(self) -> Tree:
+        """A zeroed dense view of one slot, ``(n_periods, 1, P * ps, KV,
+        hd)`` per cache leaf."""
+        dt = self.params["embed"].dtype
+        return tuple(
+            {k: torch.zeros(s.shape, dtype=s.dtype, device=self.device) for k, s in e.items()}
+            for e in cache_structs(self.cfg, 1, self.ecfg.max_len, dt)
+        )
+
     # -- chunked prefill ----------------------------------------------
+    def _chunk_span(self, S: int, off: int) -> Tuple[int, int, bool]:
+        """Pages ``[pg_lo, pg_end]`` of a prompt of ``S`` tokens that its
+        chunk from position ``off`` writes, and whether it is the last."""
+        ps = self.ecfg.page_size
+        pg_hi = pages_needed(S, ps) - 1
+        pg_lo = off // ps
+        cp = self.ecfg.prefill_chunk_pages
+        pg_end = pg_hi if cp <= 0 else min(pg_lo + cp - 1, pg_hi)
+        return pg_lo, pg_end, pg_end == pg_hi
+
+    def _chunk_forward(self, view: Tree, prompt: Sequence[int], off: int):
+        """The prompt's next page-aligned chunk from position ``off`` into a
+        dense slot view, in place: (view, logits at the chunk's last true
+        token, the next offset, whether this chunk was the last)."""
+        ps = self.ecfg.page_size
+        _, pg_end, final = self._chunk_span(len(prompt), off)
+        true_c = min(len(prompt), (pg_end + 1) * ps) - off
+        toks = np.zeros((1, (pg_end + 1) * ps - off), np.int32)
+        toks[0, :true_c] = prompt[off:off + true_c]
+        view, logits = forward_prefill_chunk(
+            self.params, view, {"tokens": self._dev(toks)}, off, self.cfg, true_c - 1)
+        self.chunk_calls += 1
+        return view, logits, (pg_end + 1) * ps, final
+
     def _advance_prefill(self, slot: int, step: int) -> Optional[int]:
         """Run the next page-aligned chunk of ``slot``'s pending prompt.
 
@@ -354,35 +543,23 @@ class ServeEngine:
         t0 = time.perf_counter()
         pend = self._pending[slot]
         ps = self.ecfg.page_size
-        S = len(pend.prompt)
-        pg_hi = pages_needed(S, ps) - 1
-        off = pend.next_off
-        pg_lo = off // ps
-        cp = self.ecfg.prefill_chunk_pages
-        pg_end = pg_hi if cp <= 0 else min(pg_lo + cp - 1, pg_hi)
-        true_c = min(S, (pg_end + 1) * ps) - off
-        final = pg_end == pg_hi
+        pg_lo, pg_end, _ = self._chunk_span(len(pend.prompt), pend.next_off)
         for idx in range(pg_lo, pg_end + 1):
             self._cow_slot_page(slot, idx)
-        C_pad = (pg_end + 1) * ps - off
-        toks = np.zeros((1, C_pad), np.int32)
-        toks[0, :true_c] = pend.prompt[off:off + true_c]
         dense = gather_pages(self.pool, self._dev(self._tables[slot][None]), page_size=ps)
-        dense, logits = forward_prefill_chunk(
-            self.params, dense, {"tokens": self._dev(toks)}, off, self.cfg, true_c - 1)
+        dense, logits, nxt, final = self._chunk_forward(dense, pend.prompt, pend.next_off)
         page_ids = np.asarray(self.alloc.tables[slot][pg_lo:pg_end + 1], np.int32)
         scatter_pages(self.pool, dense, self._dev(page_ids), pg_lo=pg_lo,
                       n_pg=pg_end - pg_lo + 1, page_size=ps)
         pend.step = step
-        self.chunk_calls += 1
         if not final:
-            pend.next_off = (pg_end + 1) * ps
+            pend.next_off = nxt
             self.prefill_wall_s += time.perf_counter() - t0
             return None
         tok = int(greedy_token(logits, self.cfg)[0])
         self.prefill_wall_s += time.perf_counter() - t0
         del self._pending[slot]
-        self._lens[slot] = S
+        self._lens[slot] = len(pend.prompt)
         self._register_prefix(slot)
         return tok
 
@@ -394,7 +571,8 @@ class ServeEngine:
             if self._pending[slot].step >= step:
                 continue  # already advanced this step (a fresh admission)
             rs = self.slots[slot]
-            tok = self._advance_prefill(slot, step)
+            with obs.span("engine.prefill"):
+                tok = self._advance_prefill(slot, step)
             if tok is None:
                 continue
             rs.record_token(tok, step)
@@ -419,6 +597,7 @@ class ServeEngine:
         self._reg_counter += 1
         self.alloc.fork(pseudo, pages)
         self._registry[prompt] = (pseudo, pages)
+        self._reg_recipe[prompt] = self.slots[slot].prefill_recipe
 
     def _release_prefixes(self, need: int, protect: Optional[Tuple[int, ...]] = None) -> None:
         """Page pressure: drop registry entries (oldest first) until ``need``
@@ -433,6 +612,7 @@ class ServeEngine:
             if key is None:
                 return
             pseudo, _pages = self._registry.pop(key)
+            del self._reg_recipe[key]
             self.alloc.free(pseudo)
 
     def _cow_slot_page(self, slot: int, idx: int) -> None:
@@ -489,10 +669,12 @@ class ServeEngine:
             tables = tables.copy()
             for i in self._pending:
                 tables[i] = NULL_PAGE
-        t0 = time.perf_counter()
-        logits = self._decode(self._dev(tables), self._dev(self._lens), self._dev(toks))
-        new_toks = greedy_token(logits, self.cfg).cpu().numpy()
-        self.decode_wall_s += time.perf_counter() - t0
+        with obs.span("engine.decode_round"):
+            self._sync()
+            t0 = time.perf_counter()
+            logits = self._decode(self._dev(tables), self._dev(self._lens), self._dev(toks))
+            new_toks = greedy_token(logits, self.cfg).cpu().numpy()
+            self.decode_wall_s += time.perf_counter() - t0
         # modeled KV traffic: the dense gather copies every table entry of
         # every slot; the paged walk reads only the pages covering each
         # active slot's length
@@ -518,18 +700,156 @@ class ServeEngine:
         self._tables[slot] = NULL_PAGE
         self._lens[slot] = 0
 
+    # -- evict-and-replay preemption ----------------------------------
+    def plan_preemption(self, rs: RequestState, step: int) -> Optional[List[int]]:
+        """Victim slots whose eviction lets ``rs`` admit, or None.
+
+        Only slots running strictly lower-priority requests are candidates,
+        and only those whose delay costs no goodput: no deadline, or already
+        past it.  Victims go lowest class first, youngest (highest rid)
+        within a class.  The dry run counts a shared page only when no
+        other holder keeps it (``PageAllocator.releasable``).
+        """
+        def evictable(s: RequestState) -> bool:
+            if s.req.priority >= rs.req.priority:
+                return False
+            return (s.req.deadline_steps <= 0
+                    or step > s.req.arrival_step + s.req.deadline_steps)
+
+        cands = sorted((i for i, s in enumerate(self.slots) if s is not None and evictable(s)),
+                       key=lambda i: (self.slots[i].req.priority, -self.slots[i].rid))
+        if not cands:
+            return None
+        need = self.plan_admission(rs).need
+        victims: List[int] = []
+        for v in cands:
+            have_slot = self.free_slot() is not None or victims
+            if have_slot and self.alloc.free_count + self.alloc.releasable(victims) >= need:
+                break
+            victims.append(v)
+        if not (self.free_slot() is not None or victims):
+            return None
+        if self.alloc.free_count + self.alloc.releasable(victims) < need:
+            return None  # even evicting every candidate cannot fit rs
+        return victims if victims else None
+
+    def preempt(self, slot: int, step: int) -> RequestState:
+        """Evict one slot under page pressure and hand its request back for
+        re-queueing: its pages are decremented (COW siblings and the prefix
+        registry keep theirs) and a pending chunked prefill is cancelled.
+        A victim with tokens re-admits through the restore paths; one
+        without is admitted fresh."""
+        rs = self.slots[slot]
+        assert rs is not None, f"preempting empty slot {slot}"
+        with obs.span("engine.preempt"):
+            self._pending.pop(slot, None)
+            self._evict(slot)
+        rs.n_preemptions += 1
+        self.stats["n_preemptions"] += 1
+        return rs
+
+    # -- restore paths ------------------------------------------------
+    def try_admit_restored(self, rs: RequestState, snapshot, step: int
+                           ) -> Optional[Tuple[str, int]]:
+        """Capacity-checked restore in one planning pass: ``(path,
+        replayed)`` as :meth:`admit_restored`, or None when ``rs`` does not
+        fit (the plan is cached for a retry after preemption)."""
+        if self._take_plan(rs) is None:
+            return None
+        return self.admit_restored(rs, snapshot, step)
+
+    def admit_restored(self, rs: RequestState, snapshot, step: int) -> Tuple[str, int]:
+        """Re-admit a migrated or preempted request; returns (path,
+        replayed).  ``snapshot`` is a KV-page snapshot or None.  Emits no
+        token: the stream resumes at the next decode round."""
+        assert rs.emitted, "restore path requires an already-started request"
+        slot = self._bind(rs)
+        ps = self.ecfg.page_size
+        if snapshot is not None:
+            n_cov = pages_needed(snapshot.cur_len, ps)
+            restore_slot_pages(self.pool, self.alloc.tables[slot][:n_cov], snapshot.pages)
+            self._lens[slot] = snapshot.cur_len
+            replay = rs.emitted[snapshot.n_emitted - 1:-1]
+            path = "snapshot"
+            rs.restored_bytes += snapshot.nbytes
+        else:
+            t0 = self._prefill_into(slot, rs, rs.prefill_recipe or ALONE)
+            if t0 != rs.emitted[0]:
+                raise AssertionError(
+                    f"re-prefill of request {rs.rid} diverged: emitted "
+                    f"{rs.emitted[0]} vs recomputed {t0}"
+                )
+            replay = rs.emitted[:-1]
+            path = "replay"
+        self._replay_tokens(slot, replay)
+        rs.admit_step = step
+        rs.n_migrations += 1
+        rs.replayed_tokens += len(replay)
+        return path, len(replay)
+
+    def _replay_tokens(self, slot: int, tokens: Sequence[int]) -> None:
+        """Teacher-force ``tokens`` through the decode round at the full
+        ``(max_slots,)`` shape, every other lane null, rebuilding the slot's
+        K/V rows as its decode rounds wrote them."""
+        B, P = self.ecfg.max_slots, self.ecfg.pages_per_slot
+        tables = np.full((B, P), NULL_PAGE, np.int32)
+        tables[slot] = self._tables[slot]
+        tables_d = self._dev(tables)
+        for t in tokens:
+            lens = np.zeros((B,), np.int32)
+            lens[slot] = self._lens[slot]
+            toks = np.zeros((B,), np.int32)
+            toks[slot] = t
+            self._decode(tables_d, self._dev(lens), self._dev(toks))
+            self._lens[slot] += 1
+
+    # -- failover surface ---------------------------------------------
+    def live_states(self) -> List[Tuple[int, RequestState]]:
+        """Slots with decoded state worth snapshotting (a slot mid-chunk-
+        prefill has emitted nothing: a kill re-queues it as fresh)."""
+        return [(i, s) for i, s in enumerate(self.slots)
+                if s is not None and i not in self._pending]
+
+    def snapshot_slot(self, slot: int):
+        """(host copy of the pages covering cur_len, n_emitted, cur_len,
+        nbytes)."""
+        rs = self.slots[slot]
+        assert rs is not None
+        cur_len = int(self._lens[slot])
+        n_cov = pages_needed(cur_len, self.ecfg.page_size)
+        pages = gather_slot_pages(self.pool, self.alloc.tables[slot][:n_cov])
+        return pages, len(rs.emitted), cur_len, tree_nbytes(pages)
+
+    def kill(self) -> List[RequestState]:
+        """The replica dies: its pages are gone; hand back the in-flight
+        request records (the router streamed their tokens, so the emitted
+        prefix survives the replica) for migration, in rid order."""
+        inflight = sorted((s for s in self.slots if s is not None), key=lambda r: r.rid)
+        self.slots = [None] * self.ecfg.max_slots
+        self._pending.clear()
+        return inflight
+
     def drain_stats(self) -> Dict[str, int]:
         """Harvest (and reset) the modeled-traffic and sharing counters."""
         out = dict(self.stats)
         out["n_pages_allocated"] = self.alloc.n_pages_allocated
         out["n_pages_forked"] = self.alloc.n_pages_forked
         out["n_cow_pages"] = self.alloc.n_cow_copies
+        for k, c in self._obs_stats.items():
+            c.inc(out[k])
+        for k, c in self._obs_alloc.items():
+            c.inc(out[k])
         for k in self.stats:
             self.stats[k] = 0
         self.alloc.n_pages_allocated = 0
         self.alloc.n_pages_forked = 0
         self.alloc.n_cow_copies = 0
         return out
+
+    def _sync(self) -> None:
+        """Wait for the device's queued work (on the card)."""
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)

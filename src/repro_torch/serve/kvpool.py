@@ -17,7 +17,13 @@
     ``(n_periods, B, pages_per_slot * page_size, KV, hd)`` (the dense decode
     round's and the chunk prefill's working copy).  Positions at or past a
     slot's length hold whatever the page holds; the decode length mask
-    gives them no weight.
+    gives them no weight.  With ``kv_dtype="int8"`` the ``k``/``v`` leaves
+    are int8 and each entry carries ``k_scale``/``v_scale`` leaves
+    ``(n_periods, n_pages)``, one f32 scale per page, which the page copies
+    and the snapshots carry along.
+  * snapshots — :func:`gather_slot_pages` copies one slot's pages to the
+    host (one device gather and one transfer per leaf), and
+    :func:`restore_slot_pages` writes them into fresh pages.
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import kvquant
 from repro_torch.models.kvcache import cache_structs
 from repro_torch.models.params import block_layout
 
@@ -185,18 +192,25 @@ def check_attention_only(cfg: ModelConfig) -> None:
 
 
 def init_pool(cfg: ModelConfig, n_pages: int, page_size: int, dtype,
-              device) -> Tree:
+              device, *, kv_dtype: str = "") -> Tree:
     """Zeroed physical pages ``(n_periods, n_pages, page_size, KV, hd)`` for
-    every cache entry of ``cfg``."""
+    every cache entry of ``cfg``.  ``kv_dtype="int8"``: the ``k``/``v``
+    leaves are int8 and each entry gains ``k_scale``/``v_scale`` leaves
+    ``(n_periods, n_pages)`` of ones (``kernels/kvquant.py``)."""
     check_attention_only(cfg)
-    return tuple(
-        {
-            k: torch.zeros((s.shape[0], n_pages, page_size) + s.shape[3:],
-                           dtype=s.dtype, device=device)
-            for k, s in entry.items()
-        }
-        for entry in cache_structs(cfg, 1, page_size, dtype)
-    )
+    if kv_dtype not in ("", "int8"):
+        raise ValueError(f"unsupported kv_dtype {kv_dtype!r}")
+    pool = []
+    for entry in cache_structs(cfg, 1, page_size, dtype):
+        e = {k: torch.zeros((s.shape[0], n_pages, page_size) + s.shape[3:],
+                            dtype=torch.int8 if kv_dtype == "int8" else s.dtype,
+                            device=device)
+             for k, s in entry.items()}
+        if kv_dtype == "int8":
+            for k in ("k", "v"):
+                e[k + "_scale"] = torch.ones(e[k].shape[:2], dtype=torch.float32, device=device)
+        pool.append(e)
+    return tuple(pool)
 
 
 def scatter_prefill(pool: Tree, dense: Tree, page_ids: torch.Tensor, *,
@@ -218,7 +232,24 @@ def page_nbytes(pool: Tree) -> int:
     """Bytes one page id holds across every cache entry and layer period
     (the unit of the modeled decode-traffic accounting)."""
     return sum(pg.element_size() * pg.shape[0] * int(np.prod(pg.shape[2:]))
-               for entry in pool for pg in entry.values())
+               for entry in pool for pg in entry.values())  # scales: (n_periods, n_pages)
+
+
+def scatter_prefill_q8(pool: Tree, dense: Tree, page_ids: torch.Tensor, *,
+                       page_size: int) -> Tree:
+    """:func:`scatter_prefill` for an int8 pool, in place: each freshly
+    written page is quantized once as it lands.  ``dense`` stays the exact
+    prefill cache, so the first token comes before any quantization."""
+    n, n_pg = page_ids.shape
+    idx = page_ids.long()
+    for entry, dn in zip(pool, dense):
+        for k in ("k", "v"):
+            pg = entry[k]
+            q, sc = kvquant.quantize_pages(
+                dn[k].reshape(pg.shape[0], n, n_pg, page_size, *pg.shape[3:]))
+            pg[:, idx] = q
+            entry[k + "_scale"][:, idx] = sc
+    return pool
 
 
 def gather_pages(pool: Tree, tables: torch.Tensor, *, page_size: int) -> Tree:
@@ -268,4 +299,36 @@ def scatter_token(pool: Tree, dense: Tree, tables: torch.Tensor, lens: torch.Ten
     for entry, dn in zip(pool, dense):
         for k, pg in entry.items():
             pg[:, pids, offs] = dn[k][:, rows, lens]
+    return pool
+
+
+def _page_index(pool: Tree, page_ids: Sequence[int]) -> torch.Tensor:
+    leaf = next(iter(pool[0].values()))
+    return torch.as_tensor(list(page_ids), dtype=torch.long, device=leaf.device)
+
+
+def reset_pages(pool: Tree, page_ids: Sequence[int]) -> Tree:
+    """Return pages to the pool's initial state, in place: zero rows, and
+    scale 1 for an int8 pool's scale leaves."""
+    idx = _page_index(pool, page_ids)
+    for entry in pool:
+        for k, pg in entry.items():
+            pg[:, idx] = 1 if k.endswith("_scale") else 0
+    return pool
+
+
+def gather_slot_pages(pool: Tree, page_ids: Sequence[int]) -> Tree:
+    """Host copy of one slot's pages, the KV snapshot's payload: every leaf
+    gathered on the device, then copied to the host in one transfer."""
+    idx = _page_index(pool, page_ids)
+    return tuple({k: pg[:, idx].cpu() for k, pg in entry.items()} for entry in pool)
+
+
+def restore_slot_pages(pool: Tree, page_ids: Sequence[int], host: Tree) -> Tree:
+    """Write a snapshot's page contents into freshly allocated pages, in
+    place (one transfer per leaf)."""
+    idx = _page_index(pool, page_ids)
+    for entry, he in zip(pool, host):
+        for k, pg in entry.items():
+            pg[:, idx] = he[k].to(pg.device)
     return pool

@@ -2,8 +2,10 @@
 
     PYTHONPATH=src python -m repro_torch.serve.profile --config qwen3-0.6b [--paged-kernel]
 
-Serves the same seeded workload as :mod:`repro_torch.serve.run` (with the
-same engine flags) once to warm up, then again under ``torch.profiler``
+Serves the serve cell's seeded workload (16 requests, prompts 64-512, 16-64
+new tokens; ``chip_smoke.py``'s serve phases) on one engine through
+:func:`repro_torch.serve.run.serve` once to warm up, then again under
+``torch.profiler``
 (CPU and CUDA activities), and prints one JSON line: the wall time of the
 profiled run, the device time summed over all kernels, the device busy and
 idle shares, the engine's own decode and prefill wall times, the kernels
@@ -24,12 +26,12 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import resolve_device
 from repro_torch.serve import run
-from repro_torch.serve.engine import ServeEngine
+from repro_torch.serve.engine import EngineConfig, ServeEngine
 from repro_torch.serve.request import WorkloadSpec, build_workload
 
 # the port's kernels by the names of their CUDA functions (csrc/*.cu); the
 # decode kernels' split passes by their row policy, their shared combine pass
-PORT_KERNELS = {"paged_decode": "PagedRows", "flash_decode": "DenseRows",
+PORT_KERNELS = {"paged_decode": "PagedRows>", "flash_decode": "DenseRows",
                 "decode_combine": "decode::combine_kernel", "flash_attention": "flash_fwd_",
                 "rmsnorm": "rmsnorm_kernel", "swiglu": "swiglu_kernel"}
 
@@ -37,11 +39,27 @@ PORT_KERNELS = {"paged_decode": "PagedRows", "flash_decode": "DenseRows",
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--config", default=run.DEFAULT_CONFIG)
-    run.add_engine_args(ap)
+    ap.add_argument("--max-slots", type=int, default=8)
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--pages-per-slot", type=int, default=64)
+    ap.add_argument("--max-prefills-per-step", type=int, default=1)
+    ap.add_argument("--paged-kernel", action="store_true",
+                    help="decode by walking the page tables (kernel #1); default: the "
+                         "dense gather view through kernel #5")
+    ap.add_argument("--chunk-pages", type=int, default=0,
+                    help="prefill prompts longer than this many pages in chunks (0 = off)")
+    ap.add_argument("--prefix-sharing", action="store_true",
+                    help="fork the pages of an already-seen prompt prefix (copy-on-write)")
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
     cfg, params = run.build(args.config, device=dev)
-    ecfg = run.engine_config(args)
+    ecfg = EngineConfig(
+        max_slots=args.max_slots, page_size=args.page_size,
+        pages_per_slot=args.pages_per_slot,
+        max_prefills_per_step=args.max_prefills_per_step,
+        use_paged_kernel=args.paged_kernel, prefill_chunk_pages=args.chunk_pages,
+        prefix_sharing=args.prefix_sharing,
+    )
     spec = WorkloadSpec(n_requests=16, vocab_size=cfg.vocab_size,
                         prompt_len=(64, 512), new_tokens=(16, 64), seed=0)
     run.serve(ServeEngine(cfg, params, ecfg, device=dev), build_workload(spec))  # warm-up

@@ -225,6 +225,10 @@ class RequestState:
     replayed_tokens: int = 0
     restored_bytes: int = 0
     shed: bool = False  # dropped by deadline-aware admission, never served
+    # how the prompt's K/V were first built (the port's engine records it at
+    # admission; the replay restore path rebuilds the same bits from it);
+    # not in the JAX package's record
+    prefill_recipe: Optional[tuple] = None
 
     @property
     def rid(self) -> int:

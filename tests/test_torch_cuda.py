@@ -17,6 +17,8 @@ terms, ~2^-17 relative).  The bf16 flash attention is also held within
 half a bf16 ulp of the f32 function plus ``ROUND_SLACK`` of the magnitude
 of its terms (``kernels/flash_attention.py:rounding_ratio``).
 """
+import json
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -301,6 +303,70 @@ def test_split_decode_kernels_batch_invariant(cuda, dtype, heads):
         assert torch.equal(paged_decode(q[one], kp, vp, tables[one], lens[one]), paged[one]), b
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("heads", [(16, 8, 128), (32, 2, 128), (48, 1, 128), (24, 2, 192),
+                                   (32, 32, 96), (4, 2, 32)])
+def test_int8_page_walk_kernel(cuda, dtype, heads):
+    """The int8 walk against its plain version (dequantized pages through
+    the plain paged decode), each lane alone bitwise equal to it among the
+    others, length-0 lanes exactly 0, and pages past every length (here
+    scaled by NaN) never read."""
+    from repro_torch.kernels.kvquant import quantize_pages
+    from repro_torch.kernels.paged_decode_q8 import paged_decode_q8, paged_decode_q8_plain
+
+    H, KV, hd = heads
+    ps, P = 16, 64
+    lens = torch.tensor([0, 1, 15, 16, 17, 300, 777, 1024], dtype=torch.int32, device=cuda)
+    B, n_pages = len(lens), 2 + len(lens) * P
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    q = torch.randn(B, 1, H, hd, generator=gen, device=cuda).to(dtype)
+    kq, ks = quantize_pages(torch.randn(n_pages, ps, KV, hd, generator=gen, device=cuda))
+    vq, vs = quantize_pages(torch.randn(n_pages, ps, KV, hd, generator=gen, device=cuda))
+    tables = (torch.randperm(n_pages - 2, generator=gen, device=cuda) + 2).reshape(B, P)
+    tables = tables.to(torch.int32)
+    tables[0] = 0
+    tables[1, 1:] = 1  # past the length: a page of NaN scale
+    ks[1], vs[1] = float("nan"), float("nan")
+    out = paged_decode_q8(q, kq, vq, tables, lens, k_scale=ks, v_scale=vs)
+    _close(out, paged_decode_q8_plain(q, kq, vq, ks, vs, tables, lens), dtype)
+    assert torch.equal(out[0], torch.zeros_like(out[0])) and bool(torch.isfinite(out).all())
+    for b in range(B):
+        one = slice(b, b + 1)
+        assert torch.equal(paged_decode_q8(q[one], kq, vq, tables[one], lens[one],
+                                           k_scale=ks, v_scale=vs), out[one]), b
+
+
+def test_replica_set_streams_survive_kills_on_the_card(cuda):
+    """A reduced bf16 model on two replicas under two kills, with 2
+    prefills a step and prefix sharing: every request whose prompt the
+    chaos run and the run without chaos built alike (the same prefill
+    recipe) emits the same stream; restores go by snapshot and by replay."""
+    from repro_torch.serve import run
+    from repro_torch.serve.trace import ServeTraceHeader
+
+    def tag(recipe):
+        return recipe if recipe[0] != "fork" else ("fork", recipe[3], tag(recipe[2]))
+
+    h = dict(config="qwen3-0.6b", seed=0, n_replicas=2, ranks_per_pod=1,
+             workload={"n_requests": 10, "vocab_size": 512, "seed": 1,
+                       "mean_interarrival_steps": 0.5, "prompt_len": [4, 40],
+                       "new_tokens": [4, 16], "shared_prefix": 8},
+             dtype="bfloat16", snapshot_cadence=3,
+             engine={"max_slots": 4, "page_size": 8, "pages_per_slot": 8,
+                     "max_prefills_per_step": 2, "prefix_sharing": True,
+                     "use_paged_kernel": True})
+    ref, _ = run.run_from_header(ServeTraceHeader(**h, chaos={"kind": "none"}), device=cuda)
+    got, _ = run.run_from_header(ServeTraceHeader(
+        **h, chaos={"kind": "scripted", "kills": [[4, 0, 3], [9, 1, 3]]}), device=cuda)
+    acct = got.accounting
+    assert acct["n_restore_snapshot"] >= 1 and acct["n_restore_replay"] >= 1
+    alike = [rid for rid, rs in got.states.items()
+             if tag(rs.prefill_recipe) == tag(ref.states[rid].prefill_recipe)]
+    assert len(alike) >= len(got.states) // 2
+    for rid in alike:
+        assert got.states[rid].emitted == ref.states[rid].emitted, rid
+
+
 def test_flash_decode_refuses_autograd(cuda):
     from repro_torch.kernels.flash_decode import flash_decode
 
@@ -313,7 +379,7 @@ def test_flash_decode_refuses_autograd(cuda):
 
 
 @pytest.mark.parametrize("decode", ["paged", "dense"])
-def test_engine_goes_through_every_kernel(cuda, decode):
+def test_engine_goes_through_every_kernel(cuda, decode, capsys):
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_decode import flash_decode
     from repro_torch.kernels.paged_decode import paged_decode
@@ -326,9 +392,12 @@ def test_engine_goes_through_every_kernel(cuda, decode):
     wrappers = (rmsnorm, swiglu, flash_attention, used)
     before = [w.launches for w in wrappers]
     idle = unused.launches
-    out = run.main(["--reduced", "--n-requests", "4", "--prompt-len", "4", "40",
-                    "--new-tokens", "2", "9", "--max-slots", "2", "--pages-per-slot", "4"]
-                   + (["--paged-kernel"] if decode == "paged" else []))
+    assert run.main(["--requests", "4", "--prompt-min", "4", "--prompt-max", "40",
+                     "--gen-min", "2", "--gen-max", "9", "--slots", "2", "--page-size", "16",
+                     "--pages-per-slot", "4"]
+                    + (["--paged-kernel"] if decode == "paged" else [])) == 0
+    out = json.loads(next(ln for ln in capsys.readouterr().out.splitlines()
+                          if ln.startswith("{")))
     assert out["n_completed"] == 4
     assert all(w.launches > n for w, n in zip(wrappers, before))
     assert unused.launches == idle

@@ -21,7 +21,7 @@ spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.") or n == "repro" or n.startswith("repro."))
-print(len([n for n in sys.modules if n.startswith("repro_torch")]))
+print(" ".join(sorted(n for n in sys.modules if n.startswith("repro_torch"))))
 assert not bad, bad
 """
 
@@ -33,7 +33,10 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
         capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 20  # every module was imported
+    imported = set(out.stdout.strip().splitlines()[-1].split())
+    assert len(imported) >= 20  # every module was imported
+    assert {"repro_torch.serve.replicas", "repro_torch.serve.trace",
+            "repro_torch.kernels.kvquant", "repro_torch.kernels.paged_decode_q8"} <= imported
 
 
 def _imported_modules(path: pathlib.Path):
@@ -83,7 +86,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         run.build("qwen3-0.6b", use_reduced=True)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        run.main(["--reduced", "--n-requests", "1"])
+        run.main(["--requests", "1"])
     train, mecefo = TrainConfig(), MeCeFOConfig(mode="dynamic")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         init_state(cfg, train, mecefo, torch.Generator())
@@ -94,15 +97,18 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
 
 
 def test_serve_run_cli_on_cpu(capsys):
+    import json
+
     from repro_torch.serve import run
 
-    out = run.main(["--reduced", "--device", "cpu", "--dtype", "float32",
-                    "--n-requests", "3", "--prompt-len", "4", "12",
-                    "--new-tokens", "2", "5", "--max-slots", "2",
-                    "--page-size", "4", "--pages-per-slot", "5"])
+    assert run.main(["--device", "cpu", "--requests", "3", "--prompt-min", "4",
+                     "--prompt-max", "12", "--gen-min", "2", "--gen-max", "5", "--slots", "2",
+                     "--page-size", "4", "--pages-per-slot", "5", "--chaos", "none"]) == 0
+    out = json.loads(next(ln for ln in capsys.readouterr().out.splitlines()
+                          if ln.startswith("{")))
     assert out["n_completed"] == 3 and out["device"] == "cpu"
-    assert out["decode_rounds"] > 0 and out["prefill_calls"] > 0
-    assert '"n_completed": 3' in capsys.readouterr().out
+    assert out["dtype"] == "float32" and out["n_layers"] == 2  # the reduced config
+    assert out["decode_rounds"] > 0 and out["n_admission_plans"] > 0
 
 
 def test_chip_smoke_refuses_without_cuda(no_cuda):
