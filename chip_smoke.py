@@ -138,12 +138,10 @@ each printing JSON lines:
              prefills a step, prefix sharing, CELL_PAGES pages, snapshots
              at cadence 2, 32 bursty long-tail requests with two 128-token
              prefixes and three priority classes, a scripted chaos of two
-             kills and a spike): every request served under chaos whose
-             prompt both runs built alike (the same prefill recipe) emits
+             kills and a spike): every request served under chaos emits
              the stream it emits without chaos on the full page reserve, on
-             the paged round and on the dense round, and the requests built
-             differently (a fork in one run, a whole-prompt prefill in the
-             other: ROADMAP queue C) are counted and listed; the run
+             the paged round and on the dense round, however each run
+             admitted it (``differing_requests`` must be empty); the run
              restores by snapshot and by replay, preempts and sheds; its
              recording replays on the card.  (c) restore_bitwise: at the cell's shapes
              one request admitted alone, batched with another prompt, onto
@@ -152,7 +150,10 @@ each printing JSON lines:
              tail) in a fresh engine: the K/V rows below its length bitwise
              equal the original's (the JAX package's batch-1 re-prefill is
              reported beside, not gated, and so is whether two prompts
-             sharing the 128-token prefix give its K/V rows alike).  (d)
+             sharing the 128-token prefix give its K/V rows alike); "fork
+             against whole", unchunked and chunked: a prompt that forks a
+             donor's 128-token prefix holds bitwise the pages and first
+             token it gets admitted with no prefix registry.  (d)
              The cell with int8 pages and
              no sharing: record/replay and the chaos-vs-reference stream
              gate, peak memory, ``kv_bytes_paged`` against bf16 and the
@@ -162,9 +163,50 @@ each printing JSON lines:
              round's and the configs' head shapes, bitwise repeatable,
              batch invariant, length-0 lanes 0, cold, warm and bound) come
              from the int8 chaos run.
+12. moe serve — ``qwen3-moe-30b-a3b`` at its published widths and full
+             depth (48 layers, 128 experts top-8, bf16, seed-0 weights,
+             56.9 GiB) serves the serve phases' 16 requests on the paged
+             round, one request alone, and on the dense round: exact launch
+             counts of #1 / #5, #2, #3 and #4, streams equal; each run's
+             row beside the 17.3 ms a round of reading every expert's
+             weights.  Before it, kernel rows at this slice's new shapes
+             (#3 at d 2048, 6144, 18432; #4 over expert buffers; #2 at H 32
+             / KV 4).  Reported: at bf16 and full depth the share of top-k
+             decisions and the logits Δ between the kernel and plain
+             paths, and the device time by part (``serve/profile.py``'s
+             labelled attention, routing and dispatch, experts, combine).
+             Gated: at f32 on a 4-layer full-width copy, logits within
+             F32_PATH_TOL of the plain path and every routing decision
+             equal.
+13. dense serve — ``glm4-9b`` (full depth), ``granite-34b`` (gelu, MQA,
+             8 layers) and ``nemotron-4-340b`` (relu2, hd 192, 2 layers) at
+             full width serve 4 requests on the paged round: launch counts,
+             and f32 logits against the plain path on min(4, depth) layers.
+14. moe train — ``qwen3-moe-30b-a3b`` at full width on 4 layers (B 4, S
+             1024, rank 64, FFN recompute, V1 refreshed once: 1536 expert
+             SVDs, timed): per NDB mode one step's bf16 gradients through
+             the kernels and the plain versions against the f32 step
+             (finite, loss at 1e-3, the kernels no farther from f32 than
+             1.5x the plain bf16 path; the kernels-vs-plain leaf error and
+             the routing decisions that differ are reported) and its
+             forward-backward peak (degraded's below off's); per mode the
+             same step in f32 (weights upcast), kernels against plain
+             versions with routing held equal (the plain run takes the
+             kernel run's expert ids; the decisions its own top-k would
+             change are reported), every leaf within
+             TRAIN_PARITY_TOL["float32"]; then
+             MOE_TRAIN_STEPS steps through ``make_train_step`` per mode
+             (launch counts, finite losses, aux, step ms, peaks).  One
+             degraded step each of ``granite-34b``, ``phi-3-vision-4.2b``
+             (576 patches) and ``musicgen-medium`` at full width on 2
+             layers.
 
-Then the kernels' summary line, the card's name and power limit, and the
-final ``{"ok": true, ...}`` line.  Any failed check raises.
+Each of phases 12-14 frees the card first and fails with a clear message
+when too little memory is free.  Then the kernels' summary line (each
+kernel's ``launches`` from the main paths of phases 3, 4, 7 and 11; the
+launches of phases 12-14 beside them in ``launches_by_later_path``), the
+card's name and power limit, and the final ``{"ok": true, ...}`` line.
+Any failed check raises.
 """
 from __future__ import annotations
 
@@ -193,8 +235,8 @@ from repro_torch.configs.base import (  # noqa: E402
     MeCeFOConfig, ShapeConfig, TrainConfig, get_config, reduced,
 )
 from repro_torch.core.lowrank import refresh_projections  # noqa: E402
-from repro_torch.core.ndb import NDBContext, plan_to_masks  # noqa: E402
-from repro_torch.data.pipeline import SyntheticLM  # noqa: E402
+from repro_torch.core.ndb import NDBContext, NDBPlan, plan_to_masks  # noqa: E402
+from repro_torch.data.pipeline import SyntheticLM, make_batch  # noqa: E402
 from repro_torch.ft.controller import FTController  # noqa: E402
 from repro_torch.ft.failures import SCENARIOS  # noqa: E402
 from repro_torch.ft.injectors import chaos_preset  # noqa: E402
@@ -222,15 +264,17 @@ from repro_torch.launch.profile import (  # noqa: E402
     RANK as TRAIN_RANK, SEQ_LEN as TRAIN_S, train_cell,
 )
 from repro_torch.launch.state import TrainState, init_state  # noqa: E402
-from repro_torch.launch.steps import loss_and_grads, to_device  # noqa: E402
+from repro_torch.launch.steps import loss_and_grads, make_train_step, to_device  # noqa: E402
 from repro_torch.launch.train import Trainer, main as train_main  # noqa: E402
 from repro_torch.models.kvcache import cache_structs  # noqa: E402
 from repro_torch.models.model import (  # noqa: E402
     ExecFlags, forward_decode, forward_prefill, forward_prefill_chunk,
 )
-from repro_torch.models.params import init_params, tree_leaves, tree_map  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models.params import count_params, init_params, tree_leaves, tree_map  # noqa: E402
 from repro_torch.optim.optimizers import init_opt_state  # noqa: E402
 from repro_torch.serve import run  # noqa: E402
+from repro_torch.serve.profile import profile_serve  # noqa: E402
 from repro_torch.serve.engine import EngineConfig, ServeEngine  # noqa: E402
 from repro_torch.serve.kvpool import (  # noqa: E402
     gather_pages, init_pool, page_nbytes, pages_needed, scatter_pages, scatter_prefill,
@@ -265,7 +309,7 @@ REPLACES = {
     "lowrank_wgrad": "src/repro/kernels/lowrank_wgrad.py:44",
     "flash_decode": "src/repro/kernels/flash_decode.py:70",
     # not Pallas: the XLA page walk, the reference's only int8 decode path
-    "paged_decode_q8": "src/repro/kernels/xla_paged.py:47",
+    "paged_decode_q8": "src/repro/kernels/xla_paged.py:51",
 }
 SERVE_KERNELS = ("rmsnorm", "swiglu", "flash_attention", "paged_decode", "flash_decode")
 TRAIN_KERNELS = ("rmsnorm", "swiglu", "flash_attention", "lowrank_wgrad")
@@ -377,6 +421,27 @@ CELL_CHAOS = {"kind": "scripted", "kills": [[3, 0, 40], [10, 1, 30]], "spikes": 
 CELL_SNAPSHOT_CADENCE = 2
 # restore_bitwise: decode rounds before the older snapshot, and in all
 RESTORE_SNAP_ROUND, RESTORE_ROUNDS = 3, 6
+# phase 12: full-depth qwen3-moe-30b-a3b serves the serve phases' 16
+# requests on the paged and the dense round; its logits against the plain
+# path at f32 on MOE_LOGIT_LAYERS layers (every routing decision equal), and
+# at bf16 at full depth (reported: a bf16 ulp in the router input can swap
+# the 8th and 9th expert); the device time by part on MOE_PROFILE_REQUESTS
+MOE_CONFIG = "qwen3-moe-30b-a3b"
+MOE_LOGIT_LAYERS, MOE_LOGIT_STEPS = 4, 8
+MOE_PROFILE_REQUESTS, MOE_PROFILE_TOKENS = 2, 4
+# the kernel rows at this slice's new shapes (new_shape_rows)
+NEW_ROWS, NEW_NORM_WIDTHS, NEW_SWIGLU_ROWS = 512, (2048, 6144, 18432), (128 * 8, 128 * 40)
+F32_PATH_TOL = 1e-4
+# phase 13: dense configs, short paged serve runs: (config, layers; 0 =
+# full depth), 4 requests, prompts 64-256, 16 new tokens
+DENSE_SERVE = (("glm4-9b", 0), ("granite-34b", 8), ("nemotron-4-340b", 2))
+DENSE_SPEC = dict(n_requests=4, prompt_len=(64, 256), new_tokens=(16, 16), seed=0)
+# phase 14: MeCeFO steps of qwen3-moe at full width on MOE_TRAIN_LAYERS
+# layers in the four NDB modes, and one degraded step each of the
+# non-gated and frontend configs at full width on 2 layers
+MOE_TRAIN_LAYERS, MOE_TRAIN_B, MOE_TRAIN_S, MOE_TRAIN_STEPS = 4, 4, 1024, 3
+MOE_TRAIN_PLAN = NDBPlan(n_dp=4, n_stages=2, failed=frozenset({(1, 0)}))
+CONFIG_STEPS = (("granite-34b", 2), ("phi-3-vision-4.2b", 2), ("musicgen-medium", 2))
 
 
 def emit(obj) -> None:
@@ -1067,16 +1132,18 @@ def serve_run(dev, cfg, params, ecfg, workload):
 
 
 def check_serve(phase, cfg, ecfg, workload, eng, res, launches, peak, must_launch, **extra):
-    """Emit the run's line and hold it to its launch counts (every layer: 4
-    norms (2 sublayers + q/k), 1 activation, 1 attention; plus the final
-    norm, per batched prefill, prompt chunk and decode round alike; the
-    chunks' attention is plain history attention), to launching every
+    """Emit the run's line and hold it to its launch counts (every layer: 2
+    sublayer norms, 2 more with qk_norm, 1 SwiGLU (dense or an MoE layer's
+    experts; none for gelu and relu2), 1 attention; plus the final norm,
+    per prefill, prompt chunk and decode round alike; the chunks after a
+    prompt's first take plain history attention), to launching every
     kernel of ``must_launch`` and to completing every request."""
     L = cfg.n_layers
     rounds = res.accounting["decode_rounds"]
     calls = eng.prefill_calls + eng.chunk_calls + rounds
     paged = ecfg.use_paged_kernel
-    want = {"rmsnorm": (4 * L + 1) * calls, "swiglu": L * calls,
+    want = {"rmsnorm": ((2 + 2 * cfg.qk_norm) * L + 1) * calls,
+            "swiglu": L * calls if cfg.ffn_act == "swiglu" else 0,
             "flash_attention": L * eng.prefill_calls,
             "paged_decode": L * rounds if paged else 0,
             "flash_decode": 0 if paged else L * rounds}
@@ -1278,22 +1345,26 @@ def parity_phase(dev, cfg, params, workload) -> None:
 def train_launches_per_step(cfg, mode: str, flags: ExecFlags, mecefo: MeCeFOConfig) -> dict:
     """Kernel launches one training step must make: every layer's forward
     launches its norms (two sublayer norms, plus q/k norms with qk_norm), its
-    activation and its attention; the FFN recompute (technique II or
-    remat "ffn") launches the FFN norm and the activation again in the
-    backward; the final norm launches once; each of the three low-rank FFN
-    matmuls launches kernel #6 once in the backward unless the step is
-    exact.  The backwards of the norm, activation and attention recompute
-    their plain versions and launch nothing."""
+    SwiGLU (dense or an MoE layer's experts; none for gelu and relu2) and
+    its attention; the FFN recompute (technique II or remat "ffn")
+    launches the FFN norm and the activation again in the backward; the
+    final norm launches once; each low-rank matmul of a dense FFN (3 with a
+    gate, else 2) launches kernel #6 once in the backward unless the step
+    is exact (the MoE experts' grouped low-rank backward is batched
+    products, as in the reference).  The backwards of the norm, activation
+    and attention recompute their plain versions and launch nothing."""
     if flags.remat not in ("none", "ffn"):
         raise ValueError(f"no launch count derived for remat {flags.remat!r}")
     L = cfg.n_layers
     recompute = flags.remat == "ffn" or (mode == "degraded" and mecefo.recompute_ffn)
     exact = NDBContext(mode=mode, mecefo=mecefo).lowrank_mode() == "exact"
+    gated = cfg.ffn_act == "swiglu"
+    dense = L - sum(cfg.layer_is_moe(i) for i in range(L))
     return {
         "rmsnorm": (2 + 2 * cfg.qk_norm + recompute) * L + 1,
-        "swiglu": (1 + recompute) * L,
+        "swiglu": (1 + recompute) * L if gated else 0,
         "flash_attention": L,
-        "lowrank_wgrad": 0 if exact else 3 * L,
+        "lowrank_wgrad": 0 if exact else (3 if gated else 2) * dense,
     }
 
 
@@ -2010,34 +2081,28 @@ def recipe_tag(recipe) -> str:
     """A prefill recipe without its prompts: how the K/V were built."""
     if recipe is None:
         return "none"
-    if recipe[0] == "fork":
-        return f"fork {recipe[3]} of ({recipe_tag(recipe[2])})"
     return " ".join(str(x) for x in recipe)
 
 
 def stream_gate(run_name, res, ref, fails: list) -> dict:
-    """Every request served (not shed) whose prompt both runs built alike
-    (the same prefill recipe: a prefill of the same batch shape and row,
-    the same chunks, or a fork of a donor built alike) emits exactly its
-    reference stream.  A request built one way in one run and another way
-    in the other (a fork of another request's pages against a whole-prompt
-    prefill: different kernels compute its prompt) is reported, not gated;
-    every differing request is listed with how each run built it."""
+    """Every request served (not shed) emits exactly its reference stream,
+    however each run admitted it: a forked prompt is computed by its
+    unforked recipe, so its K/V do not depend on the prefix registry it
+    met.  The requests whose recipes differ between the runs (batched
+    against alone) are counted; every differing request is listed with how
+    each run built it, and the gate wants none."""
     served = {rid: rs.emitted for rid, rs in res.states.items() if not rs.shed}
     refs = ref.streams()
     tags = {rid: (recipe_tag(res.states[rid].prefill_recipe),
                   recipe_tag(ref.states[rid].prefill_recipe)) for rid in served}
-    alike = [rid for rid in served if tags[rid][0] == tags[rid][1]]
     unlike = [rid for rid in served if tags[rid][0] != tags[rid][1]]
-    bad = [rid for rid in alike if served[rid] != refs[rid]]
     differ = [rid for rid in served if served[rid] != refs[rid]]
     done = all(rs.done for rs in res.states.values() if not rs.shed)
     row = {"phase": "replicas", "run": run_name,
-           "gate": "streams of requests built alike equal the reference run's",
+           "gate": "every served request's stream equals the reference run's",
            "served": len(served), "shed": len(res.states) - len(served),
-           "built_alike": len(alike), "streams_equal_built_alike": not bad,
-           "built_differently": len(unlike),
-           "built_differently_equal": sum(served[rid] == refs[rid] for rid in unlike),
+           "streams_equal": not differ, "recipes_differ": len(unlike),
+           "recipes_differ_equal": sum(served[rid] == refs[rid] for rid in unlike),
            "all_served_done": done,
            "differing_requests": {rid: {"run": tags[rid][0], "reference": tags[rid][1],
                                         "first_differing_token": next(
@@ -2046,8 +2111,8 @@ def stream_gate(run_name, res, ref, fails: list) -> dict:
                                             if a != b)}
                                   for rid in differ}}
     emit(row)
-    if bad or not done:
-        fails.append(f"{run_name}: requests {bad} built alike differ from the reference run "
+    if differ or not done:
+        fails.append(f"{run_name}: requests {differ} differ from the reference run "
                      f"(all served done: {done})")
     return row
 
@@ -2151,9 +2216,48 @@ def restore_bitwise_rows(dev, cfg, params, fails: list) -> None:
             fails.append(f"restore_bitwise {path}: {row}")
         del eng
         torch.cuda.empty_cache()
-    # reported, not gated (ROADMAP queue C): two whole-prompt prefills of
-    # prompts that share the 128-token prefix, alone, give the prefix's K/V
-    # rows bitwise alike, so a fork's donor rows equal the forker's own
+    # fork against whole: a prompt that forks a donor's 128-token prefix
+    # holds bitwise the rows it gets admitted with no prefix registry.
+    # Unchunked: the donor a 300-token prompt; chunked (CHUNK_PAGES-page
+    # chunks, 128 tokens): the donor the bare prefix, prefilled whole, and
+    # the prompt chunked when unforked
+    for label, ecfg, donor in (
+            ("fork against whole", base, prompt(300, prefix)),
+            ("fork against whole, chunked",
+             dataclasses.replace(base, prefill_chunk_pages=CHUNK_PAGES), prefix)):
+        target = prompt(260, prefix)
+        got = {}
+        for how, e in (("forked", ecfg), ("unforked", dataclasses.replace(ecfg, prefix_sharing=False))):
+            eng = ServeEngine(cfg, params, e, device=dev)
+            states = [RequestState(Request(i, 0, p, 4))
+                      for i, p in enumerate((donor, target) if how == "forked" else (target,))]
+            queue, t = list(states), 0
+            while queue or eng._pending:
+                eng.step_prefills(t)
+                if queue:
+                    rs = queue.pop(0)
+                    slot, plan, complex_ = eng.try_bind(rs, t)
+                    if complex_:
+                        eng.start_prefill(slot, rs, plan, t)
+                    else:
+                        eng.prefill_bound([(slot, rs)], t)
+                t += 1
+            got[how] = (slot_rows(eng, states[-1])[1], states[-1].emitted[0],
+                        eng.drain_stats()["n_prefix_hits"], states[-1].prefill_recipe)
+            del eng
+        (a, ta, hits, recipe), (b, tb, _, recipe_b) = got["forked"], got["unforked"]
+        row = {"phase": "replicas", "run": "restore_bitwise", "path": label,
+               "prompt_len": len(target), "donor_len": len(donor), "prefix_hits": hits,
+               "recipe": list(recipe), "recipe_unforked": list(recipe_b),
+               "pages_bitwise": rows_equal(a, b), "max_abs": rows_max_abs(a, b),
+               "first_token_equal": ta == tb}
+        emit(row)
+        if not (hits == 1 and row["pages_bitwise"] and row["first_token_equal"]):
+            fails.append(f"restore_bitwise {label}: {row}")
+        torch.cuda.empty_cache()
+    # reported, not gated: two whole-prompt prefills of prompts that share
+    # the 128-token prefix, alone, give the prefix's K/V rows bitwise
+    # alike, so a fork's donor rows equal the forker's own
     eng = ServeEngine(cfg, params, base, device=dev)
     rows = [eng._prefill_rows([p])[0] for p in (prompt(300, prefix), prompt(260, prefix))]
     a, b = ([{k: v[:, :, :len(prefix)] for k, v in e.items()} for e in d] for d in rows)
@@ -2220,6 +2324,456 @@ def replicas_phase(dev) -> int:
         raise AssertionError("replicas phase: " + "; ".join(fails))
     return q8_launches["paged_decode_q8"]
 
+# ---------------------------------------------------------------------------
+# phases 12-14: MoE and the other attention configs
+# ---------------------------------------------------------------------------
+
+
+def free_card(phase: str, need_gib: float) -> None:
+    """Free earlier phases' objects; fail with a clear message when the card
+    has less than ``need_gib`` free (never fall back to a smaller model)."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    emit({"phase": phase, "card_free_gib": free / 2 ** 30, "card_total_gib": total / 2 ** 30,
+          "held_gib": torch.cuda.memory_allocated() / 2 ** 30, "need_gib": need_gib})
+    if free < need_gib * 2 ** 30:
+        raise AssertionError(f"{phase}: {free / 2 ** 30:.2f} GiB free on the card, "
+                             f"the phase needs {need_gib:.2f}")
+
+
+def params_gib(cfg) -> float:
+    return count_params(cfg) * torch.finfo(getattr(torch, cfg.dtype)).bits / 8 / 2 ** 30
+
+
+@contextlib.contextmanager
+def routing_log():
+    """Record every MoE layer's expert ids (T, k), in their top-k order,
+    while the block runs."""
+    log = []
+    orig = moe_mod.route
+
+    def rec(xt, router, top_k):
+        out = orig(xt, router, top_k)
+        log.append(out[2].detach().clone())
+        return out
+
+    moe_mod.route = rec
+    try:
+        yield log
+    finally:
+        moe_mod.route = orig
+
+
+def routing_differs(a: list, b: list) -> tuple:
+    """(top-k decisions that differ, decisions) between two routing logs."""
+    if len(a) != len(b) or any(x.shape != y.shape for x, y in zip(a, b)):
+        raise AssertionError("the two paths routed different token counts")
+    n = sum(x.shape[0] for x in a)
+    return sum(int((x.sort(dim=-1).values != y.sort(dim=-1).values).any(dim=-1).sum())
+               for x, y in zip(a, b)), n
+
+
+@contextlib.contextmanager
+def forced_routing(ids_log: list):
+    """Every MoE layer takes the expert ids of ``ids_log`` (another run's
+    ``routing_log``, call for call) in place of its own top-k, its gates a
+    softmax over its own logits at those ids.  Yields ``[decisions its own
+    top-k would have made differently, decisions]``."""
+    orig = moe_mod.route
+    it = iter(ids_log)
+    count = [0, 0]
+
+    def forced(xt, router, top_k):
+        logits, _, own = orig(xt, router, top_k)
+        ids = next(it)
+        if ids.shape != own.shape:
+            raise AssertionError("the two runs routed different token counts")
+        count[0] += int((own.sort(dim=-1).values != ids.sort(dim=-1).values).any(dim=-1).sum())
+        count[1] += own.shape[0]
+        return logits, torch.softmax(logits.gather(1, ids), dim=-1), ids
+
+    moe_mod.route = forced
+    try:
+        yield count
+    finally:
+        moe_mod.route = orig
+
+
+def f32_logit_row(phase: str, name: str, dev, prompts, layers: int) -> dict:
+    """Kernel path against plain path at f32 on a ``layers``-layer
+    full-width copy (seed 1): max |Δ| of the logits <= F32_PATH_TOL and, for
+    MoE, every routing decision equal."""
+    cfg, params = run.build(name, device=dev, layers=layers, dtype="float32", seed=1)
+    with routing_log() as k_route:
+        k_logits, fed = path_logits(params, cfg, prompts, MOE_LOGIT_STEPS)
+    with plain_versions(), routing_log() as p_route:
+        p_logits, _ = path_logits(params, cfg, prompts, MOE_LOGIT_STEPS, forced=fed)
+    max_err = float((k_logits - p_logits).abs().max())
+    flips, n = routing_differs(k_route, p_route)
+    ok = max_err <= F32_PATH_TOL and flips == 0 and bool(torch.isfinite(k_logits).all())
+    row = {"phase": phase, "config": name, "dtype": "float32", "n_layers": layers,
+           "steps": 1 + len(fed), "max_abs_err": max_err,
+           "max_abs_logit": float(p_logits.abs().max()), "routing_decisions": n,
+           "routing_decisions_differ": flips, "limit": {"max_abs_err <=": F32_PATH_TOL,
+                                                       "routing_decisions_differ": 0},
+           "ok": ok}
+    emit(row)
+    del params
+    if not ok:
+        raise AssertionError(f"{phase} {name} f32 path parity failed: {row}")
+    return row
+
+
+def new_shape_rows(dev, timer) -> None:
+    """Kernel rows at the shapes phases 12-14 launch, in bf16, each against
+    its plain version with its cold time, bound and library call: #3 over
+    a 512-token prefill's rows at d 2048 (qwen3-moe), 6144 (granite's
+    warp-a-row branch) and 18432 (nemotron's wide branch); #4 over the
+    expert buffers of a decode round (128 experts x 8 places) and of a
+    512-token prefill (x 40); #2 at qwen3-moe's heads (H 32, KV 4) on a
+    512-token prompt."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(20)
+    dt, es = torch.bfloat16, 2
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(dt)
+
+    for d in NEW_NORM_WIDTHS:
+        x, s_ = randn(NEW_ROWS, d), randn(d)
+        lib = (lambda x=x, s_=s_, d=d: F.rms_norm(x, (d,), s_, 1e-5))
+        compare("rmsnorm", dt, [NEW_ROWS, d], rmsnorm(x, s_, 1e-5), rmsnorm_plain(x, s_, 1e-5),
+                timer, lambda: rmsnorm(x, s_, 1e-5), lambda: rmsnorm_plain(x, s_, 1e-5),
+                2 * x.numel() * es + d * es, 4.0 * x.numel(), lib)
+        turns("rmsnorm", [NEW_ROWS, d], timer, lambda: rmsnorm(x, s_, 1e-5), lib)
+    for rows_ in NEW_SWIGLU_ROWS:
+        g, u = randn(rows_, 768), randn(rows_, 768)
+        compare("swiglu", dt, [rows_, 768], swiglu(g, u), swiglu_plain(g, u), timer,
+                lambda: swiglu(g, u), lambda: swiglu_plain(g, u), 3 * g.numel() * es,
+                5.0 * g.numel())
+    S, H_, KV_ = NEW_ROWS, 32, 4
+    q, k, v = randn(1, S, H_, HD), randn(1, S, KV_, HD), randn(1, S, KV_, HD)
+    pairs = H_ * S * (S + 1) // 2
+    compare("flash_attention", dt, [1, S, H_, KV_, HD], flash_attention(q, k, v),
+            flash_attention_plain(q, k, v), timer, lambda: flash_attention(q, k, v),
+            lambda: flash_attention_plain(q, k, v), 2 * nbytes(q) + 2 * nbytes(k),
+            4.0 * HD * pairs, sdpa_call(q, k, v))
+    turns("flash_attention", [1, S, H_, KV_, HD], timer, lambda: flash_attention(q, k, v),
+          sdpa_call(q, k, v))
+
+
+def moe_serve_phase(dev) -> dict:
+    """Phase 12; returns the paged run's launches with the dense run's #5."""
+    t0 = time.perf_counter()
+    new_shape_rows(dev, ColdTimer(dev))
+    cfg = get_config(MOE_CONFIG)
+    free_card("moe serve", params_gib(cfg) + 6)
+    cfg, params = run.build(MOE_CONFIG, device=dev, seed=0)
+    init_s = time.perf_counter() - t0
+    workload = build_workload(dataclasses.replace(SPEC, vocab_size=cfg.vocab_size))
+    moe = cfg.moe
+    # the reference's grouped product reads every expert's weights each round
+    expert_bytes = cfg.n_layers * moe.n_experts * 3 * cfg.d_model * moe.d_ff_expert * 2
+    floor_ms = 1e3 * expert_bytes / HBM_BYTES_PER_S
+    eng, res, launches, peak = serve_run(dev, cfg, params, PAGED_ECFG, workload)
+    check_serve("moe serve", cfg, PAGED_ECFG, workload, eng, res, launches, peak,
+                ("rmsnorm", "swiglu", "flash_attention", "paged_decode"),
+                n_params=count_params(cfg), n_params_active=count_params(cfg, active_only=True),
+                params_gib=params_gib(cfg), init_s=init_s,
+                expert_weight_bytes_per_round=expert_bytes, weight_read_floor_ms=floor_ms)
+    paged_streams = res.streams()
+    del eng, res
+    alone_row("moe serve", dev, cfg, params, PAGED_ECFG, workload, paged_streams)
+    eng, res, dense_launches, peak = serve_run(dev, cfg, params, ECFG, workload)
+    same = res.streams() == paged_streams
+    check_serve("moe serve dense", cfg, ECFG, workload, eng, res, dense_launches, peak,
+                ("rmsnorm", "swiglu", "flash_attention", "flash_decode"),
+                streams_equal_paged=same, weight_read_floor_ms=floor_ms)
+    if not same:
+        raise AssertionError("moe serve dense: token streams differ from the paged round's")
+    del eng, res
+    launches["flash_decode"] = dense_launches["flash_decode"]
+    # bf16 at full depth: reported, not gated
+    prompts = [list(workload[0].prompt), list(workload[1].prompt)]
+    with routing_log() as k_route:
+        k_logits, fed = path_logits(params, cfg, prompts, MOE_LOGIT_STEPS)
+    with plain_versions(), routing_log() as p_route:
+        p_logits, _ = path_logits(params, cfg, prompts, MOE_LOGIT_STEPS, forced=fed)
+    flips, n = routing_differs(k_route, p_route)
+    emit({"phase": "moe serve parity", "dtype": "bfloat16", "n_layers": cfg.n_layers,
+          "steps": 1 + len(fed), "max_abs_err": float((k_logits - p_logits).abs().max()),
+          "mean_abs_err": float((k_logits - p_logits).abs().mean()),
+          "max_abs_logit": float(p_logits.abs().max()), "routing_decisions": n,
+          "routing_decisions_differ": flips, "routing_share_differ": flips / max(n, 1),
+          "gated": False})
+    del k_logits, p_logits, k_route, p_route
+    # where the device time goes, by part (a few requests, a few tokens
+    # each: the profiler's post-processing grows with the events)
+    short = [dataclasses.replace(r, max_new_tokens=MOE_PROFILE_TOKENS)
+             for r in workload[:MOE_PROFILE_REQUESTS]]
+    t1 = time.perf_counter()
+    prof = profile_serve(ServeEngine(cfg, params, PAGED_ECFG, device=dev), short)
+    emit({"phase": "moe serve profile", "requests": MOE_PROFILE_REQUESTS,
+          "new_tokens": MOE_PROFILE_TOKENS, "weight_read_floor_ms": floor_ms,
+          "profile_s": time.perf_counter() - t1, **prof})
+    del params
+    free_card("moe serve f32", 0)
+    f32_logit_row("moe serve parity", MOE_CONFIG, dev, prompts, MOE_LOGIT_LAYERS)
+    emit({"phase": "moe serve", "run": "phase", "seconds": time.perf_counter() - t0})
+    return launches
+
+
+def dense_serve_phase(dev) -> dict:
+    """Phase 13: short paged serve runs of the dense configs at full width,
+    each with its f32 logits row on min(4, its depth) layers.  Returns the
+    launches summed over the runs."""
+    total = {n: 0 for n in SERVE_KERNELS}
+    for name, layers in DENSE_SERVE:
+        t0 = time.perf_counter()
+        cfg = get_config(name)
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        free_card(f"dense serve {name}", params_gib(cfg) + 4)
+        cfg, params = run.build(name, device=dev, layers=layers, seed=0)
+        workload = build_workload(WorkloadSpec(vocab_size=cfg.vocab_size, **DENSE_SPEC))
+        eng, res, launches, peak = serve_run(dev, cfg, params, PAGED_ECFG, workload)
+        must = ("rmsnorm", "flash_attention", "paged_decode") + (
+            ("swiglu",) if cfg.ffn_act == "swiglu" else ())
+        check_serve(f"dense serve {name}", cfg, PAGED_ECFG, workload, eng, res, launches, peak,
+                    must, ffn_act=cfg.ffn_act, heads=[cfg.n_heads, cfg.n_kv_heads,
+                                                      cfg.resolved_head_dim],
+                    n_params=count_params(cfg))
+        for n in SERVE_KERNELS:
+            total[n] += launches[n]
+        prompts = [list(workload[0].prompt), list(workload[1].prompt)]
+        del eng, res, params
+        free_card(f"dense serve {name} f32", 0)
+        f32_logit_row(f"dense serve {name}", name, dev, prompts, min(4, cfg.n_layers))
+        emit({"phase": f"dense serve {name}", "run": "phase",
+              "seconds": time.perf_counter() - t0})
+    return total
+
+
+def leaf_names(params) -> list:
+    """Names of a params tree's leaves in ``tree_leaves`` order
+    (``layers`` leaves as ``part.name``)."""
+    out = []
+    for key in sorted(params):
+        if key == "layers":
+            for blk in params["layers"]:
+                out += [f"{part}.{name}" for part in sorted(blk) for name in sorted(blk[part])]
+        else:
+            out.append(key)
+    return out
+
+
+def seeded_with_proj(dev, cfg, rank: int, seed: int = 0) -> tuple:
+    """(params from ``seed``, their V1, the refresh's seconds)."""
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    proj = refresh_projections(params, cfg, rank)
+    torch.cuda.synchronize()
+    return params, proj, time.perf_counter() - t0
+
+
+def config_step(dev, cfg, mode: str, B: int, S: int, steps: int, rank: int, plan,
+                base=None) -> dict:
+    """``steps`` MeCeFO steps of ``cfg`` in ``mode`` through
+    ``make_train_step`` (bf16 params, f32 AdamW, FFN recompute); one row
+    with the losses, aux, step ms, peak memory, launches.  ``base``
+    (params, V1, refresh seconds) is copied; by default it is seeded and
+    refreshed here."""
+    train = TrainConfig()
+    mecefo = MeCeFOConfig(mode="dynamic", rank=rank)
+    shape = ShapeConfig("chip", S, B, "train")
+    if base is None:
+        params, proj, svd_s = seeded_with_proj(dev, cfg, rank)
+    else:
+        params, proj, svd_s = tree_map(lambda t: t.clone(), base[0]), base[1], base[2]
+    state = TrainState(step=0, params=params, opt=init_opt_state(params, train), proj=proj)
+    keep, w = plan_to_masks(plan, cfg, B)
+    step = make_train_step(cfg, train, mecefo, shape, ndb_mode=mode,
+                           static_ndb=(keep, w) if mode == "static" else None,
+                           flags=TRAIN_FLAGS, device=dev)
+    ndb = ({"keep": keep, "example_weight": w},) if mode == "dynamic" else ()
+    batches = [make_batch(cfg, shape, i) for i in range(steps)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    reset_launches()
+    losses, auxs, times = [], [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batches[i], *ndb)
+        losses.append(float(metrics["loss"]))
+        auxs.append(float(metrics["aux"]))
+        gnorm = float(metrics["grad_norm"])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    launches = {n: WRAPPERS[n].launches for n in TRAIN_KERNELS}
+    want = train_launches_per_step(cfg, mode, TRAIN_FLAGS, mecefo)
+    ok = (launches == {n: c * steps for n, c in want.items()}
+          and bool(np.isfinite([*losses, *auxs, gnorm]).all()))
+    row = {"config": cfg.name, "n_layers": cfg.n_layers, "dtype": cfg.dtype, "mode": mode,
+           "batch": B, "seq_len": S, "rank": rank, "remat": TRAIN_FLAGS.remat,
+           "n_params": count_params(cfg), "losses": losses, "aux": auxs,
+           "last_grad_norm": gnorm, "step_ms": [1e3 * t for t in times],
+           "step_ms_median": 1e3 * sorted(times)[len(times) // 2],
+           "tokens_per_s": B * S / min(times), "peak_mem_gib": peak / 2 ** 30,
+           "peak_above_state_gib": (peak - base_mem) / 2 ** 30, "svd_refresh_s": svd_s,
+           "launches": launches, "want_launches_per_step": want, "ok": ok}
+    del state, params, proj, step
+    return row
+
+
+def moe_f32_grad_rows(params, proj, batch, cfg32, keep, w, names, dev) -> None:
+    """The tight gate of phase 14: the same step in f32 (the bf16 weights
+    and V1 upcast), kernels against plain versions in the four modes, every
+    leaf within TRAIN_PARITY_TOL["float32"], as ``train_parity_phase``
+    holds llama.  Routing is held equal: the plain run takes the kernel
+    run's expert ids (forward and FFN recompute), since over 4 x 4096
+    tokens a few f32 near-ties of the 8th and 9th expert swap, and one
+    swap moves later tokens through attention.  The decisions the plain
+    run's own top-k would have made differently are reported."""
+    up = lambda t: t.float()  # noqa: E731
+    p32, v32 = tree_map(up, params), tree_map(up, proj)
+    tol, loss_tol = TRAIN_PARITY_TOL["float32"]
+    for mode in TRAIN_MODES:
+        ctx = parity_ctx(mode, keep, w, dev)
+        with routing_log() as k_route:
+            lk, _, gk = loss_and_grads(p32, v32, batch, cfg32, ctx, TRAIN_FLAGS)
+        with plain_versions(), forced_routing(k_route) as own:
+            lp, _, gp = loss_and_grads(p32, v32, batch, cfg32, ctx, TRAIN_FLAGS)
+        flips, n_dec = own
+        rel = leaf_rel_errs(gk, gp)
+        loss_err = abs(float(lk) - float(lp))
+        finite = all(bool(torch.isfinite(g).all()) for g in tree_leaves(gk))
+        ok = (finite and max(rel) <= tol and loss_err <= loss_tol * abs(float(lp)))
+        row = {"phase": "moe train parity", "config": cfg32.name, "dtype": "float32",
+               "n_layers": cfg32.n_layers, "mode": mode, "batch": MOE_TRAIN_B,
+               "seq_len": MOE_TRAIN_S, "remat": TRAIN_FLAGS.remat, "loss_kernels": float(lk),
+               "loss_plain": float(lp), "loss_abs_err": loss_err, "loss_limit_rel": loss_tol,
+               "routing": "plain run forced to the kernel run's expert ids",
+               "routing_decisions": n_dec, "routing_decisions_plain_own_differ": flips,
+               "max_leaf_rel_err": max(rel), "max_leaf": names[rel.index(max(rel))],
+               "mean_leaf_rel_err": sum(rel) / len(rel), "n_leaves": len(rel),
+               "limit_rel": tol, "grads_finite": finite, "ok": ok}
+        emit(row)
+        if not ok:
+            raise AssertionError(f"moe train f32 parity {mode} failed: {row}")
+        del gk, gp
+        torch.cuda.empty_cache()
+    del p32, v32
+
+
+def moe_train_phase(dev) -> dict:
+    """Phase 14: qwen3-moe MeCeFO steps in the four NDB modes (after a
+    bf16 gradient parity row per mode, which also reads each mode's forward
+    and backward peak: degraded's must lie below off's, and an f32 row per
+    mode with routing equal), then one degraded step each of CONFIG_STEPS.
+    Returns the launches summed over its steps."""
+    t0 = time.perf_counter()
+    total = {n: 0 for n in TRAIN_KERNELS}
+    cfg = dataclasses.replace(get_config(MOE_CONFIG), n_layers=MOE_TRAIN_LAYERS)
+    free_card("moe train", 6 * params_gib(cfg) + 8)
+    # V1 refreshed once (3 x layers x 128 expert SVDs), for every row
+    params, proj, svd_s = seeded_with_proj(dev, cfg, TRAIN_RANK)
+    emit({"phase": "moe train", "config": cfg.name, "n_layers": cfg.n_layers,
+          "svd_refresh_s": svd_s, "svds": 3 * cfg.n_layers * cfg.moe.n_experts,
+          "matrix": [cfg.d_model, cfg.moe.d_ff_expert]})
+    # gradient parity: bf16 kernels and bf16 plain against the f32 plain step
+    keep, w = plan_to_masks(MOE_TRAIN_PLAN, cfg, MOE_TRAIN_B)
+    batch = to_device(SyntheticLM(cfg.vocab_size).batch(0, MOE_TRAIN_B, MOE_TRAIN_S), dev)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    up = lambda t: t.float()  # noqa: E731
+    fb_peaks = {}
+    names = leaf_names(params)
+    for mode in TRAIN_MODES:
+        ctx = parity_ctx(mode, keep, w, dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        with routing_log() as k_route:
+            lk, mk, gk = loss_and_grads(params, proj, batch, cfg, ctx, TRAIN_FLAGS)
+        torch.cuda.synchronize()
+        fb_peaks[mode] = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+        with plain_versions(), routing_log() as p_route:
+            lp, _, gp = loss_and_grads(params, proj, batch, cfg, ctx, TRAIN_FLAGS)
+        with plain_versions():
+            l32, _, g32 = loss_and_grads(tree_map(up, params), tree_map(up, proj), batch,
+                                         cfg32, ctx, TRAIN_FLAGS)
+        # the first forward's routing (the FFN recompute routes again)
+        flips, n_dec = routing_differs(k_route[:cfg.n_layers], p_route[:cfg.n_layers])
+        rel = leaf_rel_errs(gk, gp)
+        rel_k, rel_p = leaf_rel_errs(gk, g32), leaf_rel_errs(gp, g32)
+        to_k, to_p = max(rel_k), max(rel_p)
+        tol, loss_tol = TRAIN_PARITY_TOL["bfloat16"]
+        loss_err = abs(float(lk) - float(lp))
+        finite = all(bool(torch.isfinite(g).all()) for g in tree_leaves(gk))
+        # the gate: finite, the loss at the train phase's limit, and the
+        # kernels no farther from the f32 step than TRAIN_ANCHOR_RATIO times
+        # the plain bf16 path.  The kernels-vs-plain leaf limit is reported:
+        # a bf16 ulp in a router input swaps experts, and a swapped token
+        # moves its experts' and the router's gradients by its whole share
+        ok = (finite and loss_err <= loss_tol * abs(float(lp))
+              and to_k <= TRAIN_ANCHOR_RATIO * to_p)
+        row = {"phase": "moe train parity", "config": cfg.name, "n_layers": cfg.n_layers,
+               "mode": mode, "batch": MOE_TRAIN_B, "seq_len": MOE_TRAIN_S,
+               "loss_kernels": float(lk), "loss_plain": float(lp), "loss_f32": float(l32),
+               "aux_kernels": float(mk["aux"]), "fwd_bwd_peak_above_held_gib": fb_peaks[mode],
+               "routing_decisions": n_dec, "routing_decisions_differ_kernels_vs_plain": flips,
+               "max_leaf_rel_err": max(rel), "max_leaf": names[rel.index(max(rel))],
+               "max_leaf_vs_f32": names[rel_k.index(to_k)],
+               "max_leaf_rel_err_non_moe": max(r for r, nm in zip(rel, names)
+                                               if not nm.startswith("ffn.")),
+               "max_leaf_rel_err_kernels_vs_f32": to_k, "max_leaf_rel_err_plain_vs_f32": to_p,
+               "leaf_limit_rel_reported": tol, "loss_limit_rel": loss_tol,
+               "anchor_ratio_limit": TRAIN_ANCHOR_RATIO, "grads_finite": finite, "ok": ok}
+        emit(row)
+        if not ok:
+            raise AssertionError(f"moe train parity {mode} failed: {row}")
+        del gk, gp, g32
+        torch.cuda.empty_cache()
+    moe_f32_grad_rows(params, proj, batch, cfg32, keep, w, names, dev)
+    del batch
+    emit({"phase": "moe train parity", "fwd_bwd_peak_above_held_gib": fb_peaks,
+          "degraded_below_off": fb_peaks["degraded"] < fb_peaks["off"]})
+    if not fb_peaks["degraded"] < fb_peaks["off"]:
+        raise AssertionError(f"moe train: degraded forward-backward peak {fb_peaks['degraded']}"
+                             f" GiB not below off's {fb_peaks['off']}")
+    peaks = {}
+    for mode in TRAIN_MODES:
+        free_card("moe train", 0)
+        row = config_step(dev, cfg, mode, MOE_TRAIN_B, MOE_TRAIN_S, MOE_TRAIN_STEPS,
+                          TRAIN_RANK, MOE_TRAIN_PLAN, base=(params, proj, svd_s))
+        emit({"phase": "moe train", **row})
+        if not row["ok"]:
+            raise AssertionError(f"moe train {mode}: {row}")
+        peaks[mode] = row["peak_mem_gib"]
+        for n in TRAIN_KERNELS:
+            total[n] += row["launches"][n]
+    # reported: the step's peak is AdamW's update over the expert stack,
+    # the same in every mode
+    emit({"phase": "moe train", "step_peak_mem_gib": peaks})
+    del params, proj
+    for name, layers in CONFIG_STEPS:
+        cfg = dataclasses.replace(get_config(name), n_layers=layers)
+        free_card(f"config step {name}", 6 * params_gib(cfg) + 8)
+        row = config_step(dev, cfg, "degraded", MOE_TRAIN_B, MOE_TRAIN_S, 1, TRAIN_RANK,
+                          MOE_TRAIN_PLAN)
+        emit({"phase": "config step", "frontend": cfg.frontend, "ffn_act": cfg.ffn_act, **row})
+        if not row["ok"]:
+            raise AssertionError(f"config step {name}: {row}")
+        for n in TRAIN_KERNELS:
+            total[n] += row["launches"][n]
+    emit({"phase": "moe train", "run": "phase", "seconds": time.perf_counter() - t0})
+    return total
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2250,12 +2804,17 @@ def main() -> int:
     trainer_phase(dev)
     statexfer_phase(dev)
     launches["paged_decode_q8"] = replicas_phase(dev)
+    # phases 12-14 each count their own launches, gated there; they are
+    # reported beside the main paths' counts, not added to them
+    later = {"moe serve": moe_serve_phase(dev), "dense serve": dense_serve_phase(dev),
+             "moe and config train steps": moe_train_phase(dev)}
 
     emit({"kernels": [
         {"name": n, "route": "cuda", "source": f"src/repro_torch/csrc/{n}.cu",
          "replaces": REPLACES[n], "launches": launches[n],
          **{k: rows[(n, torch.bfloat16)][k] for k in
-            ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+            ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+         "launches_by_later_path": {p: c.get(n, 0) for p, c in later.items()}}
         for n in WRAPPERS
     ]})
     smi = subprocess.run(

@@ -182,4 +182,14 @@ def get_config(name: str) -> ModelConfig:
 
 def _load_all() -> None:
     # import every config module for its registration side effect
-    from repro_torch.configs import llama_paper, qwen3_0_6b  # noqa: F401
+    from repro_torch.configs import (  # noqa: F401
+        glm4_9b,
+        granite_34b,
+        llama_paper,
+        musicgen_medium,
+        nemotron_4_340b,
+        phi_3_vision_4_2b,
+        qwen3_0_6b,
+        qwen3_moe_30b_a3b,
+        qwen3_moe_235b_a22b,
+    )

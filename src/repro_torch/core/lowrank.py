@@ -9,7 +9,10 @@ steps)::
     dW ≈ V1 @ ((x @ V1)^T dy)
 
 ``(x @ V1)^T dy`` is kernel #6 (``kernels/lowrank_wgrad.py``), launched
-inside the backward of :func:`lowrank_linear`.  ``dx`` is always exact.
+inside the backward of :func:`lowrank_linear`.  The MoE experts' grouped
+form, :func:`lowrank_linear_grouped`, takes batched matrix products, as the
+JAX package's ``einsum`` outside any Pallas kernel.  ``dx`` is always
+exact.
 As in the JAX package, ``V1`` holds the top *left* singular vectors of the
 stored (n, m) matrix.
 """
@@ -31,7 +34,11 @@ MODES = ("exact", "degraded", "degraded_sync", "mixed")
 @torch.no_grad()
 def svd_projection(w: torch.Tensor, rank: int) -> torch.Tensor:
     """Top-``rank`` input-space singular vectors of a stacked weight
-    (..., n, m) -> (..., n, r).  Computed in f32, cast back."""
+    (..., n, m) -> (..., n, r).  Computed in f32, cast back; a stack of
+    expert weights ``(n_periods, E, n, m)`` one period at a time, so only
+    one period's f32 copy exists at once."""
+    if w.dim() == 4:
+        return torch.stack([svd_projection(wi, rank) for wi in w.unbind(0)])
     rank = min(rank, w.shape[-2], w.shape[-1])
     u, _s, _vh = torch.linalg.svd(w.float(), full_matrices=False)
     return u[..., :, :rank].to(w.dtype).contiguous()
@@ -126,6 +133,50 @@ def lowrank_linear(x: torch.Tensor, w: torch.Tensor, v1: torch.Tensor, keep,
     "degraded_sync" | "mixed".
     """
     return LowRankLinear.apply(x, w, v1, keep, mode)
+
+
+class LowRankLinearGrouped(torch.autograd.Function):
+    """Grouped ``y[e] = x[e] @ w[e]`` with the MeCeFO backward per expert
+    (``_llg_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, w, v1, keep, mode):
+        if mode not in MODES:
+            raise ValueError(mode)
+        ctx.mode = mode
+        ctx.save_for_backward(x, w, v1, keep)
+        return torch.bmm(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, v1, keep = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = torch.bmm(dy, w.transpose(1, 2)) if ctx.needs_input_grad[0] else None
+        if not ctx.needs_input_grad[1]:
+            return dx, None, None, None, None
+        xt = x.transpose(1, 2)
+        if ctx.mode == "exact":
+            dw = torch.bmm(xt, dy)
+        elif ctx.mode in ("degraded", "degraded_sync"):
+            # one device: "degraded_sync" is "degraded" (see LowRankLinear)
+            a = torch.bmm(torch.bmm(x, v1).transpose(1, 2), dy)     # (E, r, m)
+            dw = torch.bmm(v1, a)
+        else:  # mixed: slots of kept examples exact, skipped ones low-rank
+            k = keep.to(dy.dtype)[..., None]
+            a = torch.bmm(torch.bmm(x, v1).transpose(1, 2), dy * (1 - k))
+            dw = torch.bmm(xt, dy * k) + torch.bmm(v1, a)
+        return dx, dw.to(w.dtype), None, None, None
+
+
+def lowrank_linear_grouped(x: torch.Tensor, w: torch.Tensor, v1: torch.Tensor,
+                           keep: torch.Tensor, mode: str = "exact") -> torch.Tensor:
+    """Grouped ``y[e] = x[e] @ w[e]`` with a MeCeFO backward per expert.
+
+    x: (E, C, n); w: (E, n, m); v1: (E, n, r); keep: (E, C) slot mask
+    (1 = the slot's example is exact), used by ``mixed`` only; mode as
+    :func:`lowrank_linear`.
+    """
+    return LowRankLinearGrouped.apply(x, w, v1, keep, mode)
 
 
 def wgrad_flops(b: int, n: int, m: int, r: Optional[int]) -> int:

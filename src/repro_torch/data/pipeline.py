@@ -49,12 +49,28 @@ def make_batch(
     source: Optional[SyntheticLM] = None,
     seed: int = 0,
 ) -> Dict[str, np.ndarray]:
-    """A training batch of ``shape`` (text models only: the audio and
-    vision frontends are not ported)."""
-    if model.frontend is not None:
-        raise NotImplementedError(f"frontend {model.frontend!r} is not ported yet")
+    """A training batch of ``shape``; the audio and vision frontends' stub
+    embeddings are drawn as the JAX package draws them."""
     src = source or SyntheticLM(model.vocab_size, DataConfig(seed=seed))
-    return src.batch(step, shape.global_batch, shape.seq_len)
+    B, S = shape.global_batch, shape.seq_len
+    if model.frontend == "audio":
+        rng = np.random.default_rng(seed ^ step)
+        base = src.batch(step, B, S)
+        return {
+            "embeddings": rng.standard_normal((B, S, model.d_model)).astype(np.float32)
+            * 0.02,
+            "labels": base["labels"],
+        }
+    if model.frontend == "vision":
+        rng = np.random.default_rng(seed ^ step)
+        base = src.batch(step, B, S - model.n_patches)
+        return {
+            "tokens": base["tokens"],
+            "patch_embeds": rng.standard_normal((B, model.n_patches, model.d_model))
+            .astype(np.float32) * 0.02,
+            "labels": base["labels"],
+        }
+    return src.batch(step, B, S)
 
 
 def rebalanced_owners(

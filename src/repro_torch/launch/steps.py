@@ -34,6 +34,17 @@ def to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
             for k, v in batch.items()}
 
 
+def trunk_shape(batch: Dict) -> tuple:
+    """(B, S) of the trunk's sequence: the tokens, the audio stub's frame
+    embeddings, or the vision stub's patches followed by the tokens."""
+    if "embeddings" in batch:
+        return tuple(batch["embeddings"].shape[:2])
+    B, S = batch["tokens"].shape
+    if "patch_embeds" in batch:
+        S += batch["patch_embeds"].shape[1]
+    return (B, S)
+
+
 def loss_and_grads(params: Tree, proj: Optional[Tree], batch: Dict, cfg: ModelConfig,
                    ctx: NDBContext, flags: ExecFlags):
     """(loss, metrics, grads) of :func:`forward_loss`; ``grads`` has the
@@ -67,7 +78,9 @@ def make_train_step(
       off/degraded/static:  step(state, batch)       -> (state, metrics)
       dynamic:              step(state, batch, ndb)  -> (state, metrics)
 
-    ``batch`` holds ``tokens``/``labels`` (B, S); ``ndb`` holds ``keep``
+    ``batch`` holds ``tokens``/``labels`` (B, S), or a frontend stub's
+    embeddings (``data.pipeline.make_batch``); ``metrics`` carry ``loss``,
+    ``ce`` and the MoE ``aux`` loss; ``ndb`` holds ``keep``
     (L, B) and ``example_weight`` (B,), numpy or tensors.  ``flags``
     defaults to ``ExecFlags()`` (FFN recompute, the Trainer's default).
     The step runs on ``device`` (CUDA unless the caller asks for the CPU).
@@ -104,8 +117,8 @@ def make_train_step(
             raise ValueError(f"a {ndb_mode!r} step takes step(state, batch)")
         batch = to_device(batch, dev)
         want = (shape.global_batch, shape.seq_len)
-        if tuple(batch["tokens"].shape) != want:
-            raise ValueError(f"tokens {tuple(batch['tokens'].shape)}, want {want} ({shape.name})")
+        if trunk_shape(batch) != want:
+            raise ValueError(f"trunk sequence {trunk_shape(batch)}, want {want} ({shape.name})")
         ctx = make_ctx(ndb)
         proj = state.proj if mecefo.mode != "off" else None
         _loss, metrics, grads = loss_and_grads(state.params, proj, batch, cfg, ctx, flags)

@@ -1,25 +1,57 @@
-"""Model inputs: the text path of ``repro.models.frontends`` (the audio
-and vision stubs are not ported)."""
+"""Modality frontend stubs (counterpart of ``repro.models.frontends``):
+precomputed embeddings stand in for the encoders.
+
+``audio`` (musicgen): batches carry precomputed frame embeddings
+``embeddings`` (B, S, d) in place of tokens.
+
+``vision`` (phi-3-vision): batches carry precomputed patch embeddings
+``patch_embeds`` (B, n_patches, d), prepended to the embedded text tokens;
+the patch positions take loss weight 0 and padded labels.
+
+The JAX package runs the trunk in the embeddings' dtype (f32 from the data
+pipeline, promoting a bf16 model's products to f32); the port casts them to
+the model dtype, which agrees at f32.
+"""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 
 
-def embed_inputs(params, batch, cfg: ModelConfig):
-    """Returns (h0 (B, S, d), token_weight (B, S) f32)."""
-    if cfg.frontend is not None:
-        raise NotImplementedError(f"frontend {cfg.frontend!r} is not ported yet")
+def _embed(params, tokens: torch.Tensor) -> torch.Tensor:
     # F.embedding, not params["embed"][tokens]: the index backward sums a
     # token's gradients across threads in no fixed order on the CPU, the
     # embedding backward in a fixed one
-    h = torch.nn.functional.embedding(batch["tokens"].long(), params["embed"])
+    return F.embedding(tokens.long(), params["embed"])
+
+
+def embed_inputs(params, batch, cfg: ModelConfig):
+    """Returns (h0 (B, S, d), token_weight (B, S) f32) for any frontend."""
+    dt = params["embed"].dtype
+    if cfg.frontend == "audio":
+        h = batch["embeddings"].to(dt)
+        return h, torch.ones(h.shape[:2], dtype=torch.float32, device=h.device)
+    if cfg.frontend == "vision":
+        patches = batch["patch_embeds"].to(dt)
+        h = torch.cat([patches, _embed(params, batch["tokens"])], dim=1)
+        w = torch.cat([
+            torch.zeros(patches.shape[:2], dtype=torch.float32, device=h.device),
+            torch.ones(batch["tokens"].shape, dtype=torch.float32, device=h.device),
+        ], dim=1)
+        return h, w
+    if cfg.frontend is not None:
+        raise ValueError(f"unknown frontend {cfg.frontend!r}")
+    h = _embed(params, batch["tokens"])
     return h, torch.ones(h.shape[:2], dtype=torch.float32, device=h.device)
 
 
 def full_labels(batch, cfg: ModelConfig):
-    """(B, S) labels aligned with the trunk sequence."""
-    if cfg.frontend is not None:
-        raise NotImplementedError(f"frontend {cfg.frontend!r} is not ported yet")
-    return batch["labels"]
+    """(B, S_total) labels aligned with the trunk sequence (patches padded)."""
+    labels = batch["labels"]
+    if cfg.frontend == "vision":
+        pads = torch.zeros((labels.shape[0], batch["patch_embeds"].shape[1]),
+                           dtype=labels.dtype, device=labels.device)
+        labels = torch.cat([pads, labels], dim=1)
+    return labels

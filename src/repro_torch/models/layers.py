@@ -1,6 +1,6 @@
 """Layers: RMSNorm, RoPE, GQA attention (training, prefill, chunk prefill,
-dense and paged decode), the SwiGLU FFN, the chunked cross-entropy and the
-serving head (counterpart of ``repro.models.layers``).
+dense and paged decode), the FFN (SwiGLU, or non-gated gelu / squared
+ReLU), the chunked cross-entropy and the serving head (counterpart of ``repro.models.layers``).
 
 Activations keep the JAX package's ``(B, S, H, hd)`` layout.  The norms,
 the FFN activation and the attention go through the kernel wrappers of
@@ -18,6 +18,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
@@ -202,20 +203,37 @@ def ffn_block(
     lowrank_mode: str = "exact",
     recompute: bool = False,
 ) -> torch.Tensor:
-    """Pre-norm SwiGLU FFN sublayer with residual.  ``proj`` holds the V1
-    of its three matmuls (technique III, ``lowrank_mode``); ``recompute``
-    keeps only the FFN input for the backward (technique II)."""
+    """Pre-norm FFN sublayer with residual: SwiGLU, or non-gated
+    (``w_up``, ``nonlin``, ``w_down``) for ``gelu`` and ``relu2``.
+    ``proj`` holds the V1 of its matmuls (technique III,
+    ``lowrank_mode``); ``recompute`` keeps only the FFN input for the
+    backward (technique II)."""
 
     def body(p, x, proj, keep):
         xn = rmsnorm(x, p["ln"], cfg.norm_eps)
-        g = _lin(xn, p["w_gate"], _p(proj, "w_gate"), keep, lowrank_mode)
         u = _lin(xn, p["w_up"], _p(proj, "w_up"), keep, lowrank_mode)
-        h = swiglu(g, u)
+        if cfg.ffn_act == "swiglu":
+            g = _lin(xn, p["w_gate"], _p(proj, "w_gate"), keep, lowrank_mode)
+            h = swiglu(g, u)
+        else:
+            h = nonlin(u, cfg.ffn_act)
         return _lin(h, p["w_down"], _p(proj, "w_down"), keep, lowrank_mode)
 
     if recompute:  # technique II: keep only the FFN input
         body = ffn_recompute(body)
     return cast_grad(x + body(p, x, proj, keep))
+
+
+def nonlin(u: torch.Tensor, act: str) -> torch.Tensor:
+    """The non-gated activations: ``relu2`` is ``relu(u)²`` in ``u``'s
+    dtype; ``gelu`` is the tanh form (``jax.nn.gelu``'s default) in f32,
+    cast back."""
+    if act == "relu2":
+        r = torch.relu(u)
+        return r * r
+    if act == "gelu":
+        return F.gelu(u.float(), approximate="tanh").to(u.dtype)
+    raise ValueError(act)
 
 
 def _p(proj, name):

@@ -26,6 +26,7 @@ from repro_torch.models.layers import (
     ffn_block,
     logits_for_position,
 )
+from repro_torch.models.moe import moe_block
 from repro_torch.models.params import block_layout
 
 Tree = Any
@@ -67,7 +68,8 @@ def run_trunk(
     page_tables: Optional[torch.Tensor] = None,
     page_size: Optional[int] = None,
 ):
-    """Runs all layers; returns (h, caches).
+    """Runs all layers; returns (h, caches, aux), ``aux`` the MoE layers'
+    load-balancing losses summed (an f32 zero without MoE layers).
 
     Training passes ``proj`` (the V1 tree), ``ctx`` (the NDB context with
     its ``(L, B)`` keep mask) and ``flags``; serving passes ``caches``,
@@ -79,8 +81,8 @@ def run_trunk(
     attending to the cache prefix plus themselves).
     """
     layout = block_layout(cfg)
-    if any(kind != "attn" or is_moe for kind, is_moe in layout):
-        raise NotImplementedError("only attention mixers with dense FFNs are ported")
+    if any(kind != "attn" for kind, _ in layout):
+        raise NotImplementedError("only attention mixers are ported (SSM mixers are not)")
     ctx = ctx or NDBContext()
     flags = flags or ExecFlags()
     period = cfg.block_period
@@ -94,6 +96,7 @@ def run_trunk(
                   [_unbind(pj.get("ffn")) or None for pj in proj["layers"]])
 
     def super_block(h, i):
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
         for pos in range(period):
             layer = i * period + pos
             bp = layer_params[pos]
@@ -108,18 +111,24 @@ def run_trunk(
             )
             pj = None if layer_proj is None or layer_proj[pos] is None else {
                 k: t[i] for k, t in layer_proj[pos].items()}
-            h = ffn_block(
-                {k: t[i] for k, t in bp["ffn"].items()}, h, cfg, proj=pj, keep=keep_l,
-                lowrank_mode=lowrank_mode, recompute=recompute,
-            )
-        return h
+            fp = {k: t[i] for k, t in bp["ffn"].items()}
+            if layout[pos][1]:
+                h, a = moe_block(fp, h, cfg, proj=pj, keep=keep_l,
+                                 lowrank_mode=lowrank_mode, recompute=recompute)
+                aux = aux + a
+            else:
+                h = ffn_block(fp, h, cfg, proj=pj, keep=keep_l,
+                              lowrank_mode=lowrank_mode, recompute=recompute)
+        return h, aux
 
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(n_periods):
         if flags.remat == "full" and records_grad(h, *params["layers"][0].values()):
-            h = checkpoint(super_block, h, i, use_reentrant=False, preserve_rng_state=False)
+            h, a = checkpoint(super_block, h, i, use_reentrant=False, preserve_rng_state=False)
         else:
-            h = super_block(h, i)
-    return h, caches
+            h, a = super_block(h, i)
+        aux = aux + a
+    return h, caches, aux
 
 
 def _unembed(params: Tree) -> torch.Tensor:
@@ -143,11 +152,11 @@ def forward_loss(
     positions = torch.arange(h.shape[1], device=h.device)
     if ctx.example_weight is not None:
         token_w = token_w * ctx.example_weight[:, None]
-    h, _ = run_trunk(params, h, cfg, positions=positions, proj=proj, ctx=ctx, flags=flags)
+    h, _, aux = run_trunk(params, h, cfg, positions=positions, proj=proj, ctx=ctx,
+                          flags=flags)
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
     ce = chunked_cross_entropy(h, _unembed(params), labels, token_w, chunk=flags.ce_chunk,
                                vocab_size=cfg.vocab_size)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)  # dense FFNs: no MoE aux loss
     loss = ce + aux
     return loss, {"loss": loss, "ce": ce, "aux": aux}
 
@@ -175,7 +184,7 @@ def forward_prefill(
         {k: torch.empty(s.shape, dtype=s.dtype, device=h.device) for k, s in entry.items()}
         for entry in cache_structs_tree
     )
-    h, caches = run_trunk(params, h, cfg, positions=positions, caches=caches, cur_len=0)
+    h, caches, _ = run_trunk(params, h, cfg, positions=positions, caches=caches, cur_len=0)
     if logit_pos is None:
         h_last = h[:, -1]
     elif torch.is_tensor(logit_pos) and logit_pos.dim():
@@ -204,8 +213,8 @@ def forward_prefill_chunk(
     tokens = batch["tokens"]
     h = params["embed"][tokens.long()]
     positions = off + torch.arange(tokens.shape[1], device=h.device)
-    h, caches = run_trunk(params, h, cfg, positions=positions, caches=caches, cur_len=off,
-                          prefill_history=True)
+    h, caches, _ = run_trunk(params, h, cfg, positions=positions, caches=caches, cur_len=off,
+                             prefill_history=True)
     h_last = rmsnorm(h[:, logit_idx].contiguous(), params["final_norm"], cfg.norm_eps)
     return caches, logits_for_position(h_last, _unembed(params), cfg.vocab_size)
 
@@ -231,6 +240,7 @@ def forward_decode(
     is written at ``cur_len`` in place and kernel #5 attends over them, in
     blocks of ``page_size`` rows when given.
     """
+    # the audio stub decodes from token ids like any LM, as in the reference
     h = params["embed"][token.long()][:, None, :]
     B = h.shape[0]
     if torch.is_tensor(cur_len) and cur_len.dim():
@@ -239,7 +249,7 @@ def forward_decode(
         positions = torch.full((1,), int(cur_len), dtype=torch.int32, device=h.device)
         if page_tables is not None:
             cur_len = positions.expand(B)
-    h, caches = run_trunk(
+    h, caches, _ = run_trunk(
         params, h, cfg, positions=positions, caches=caches, cur_len=cur_len,
         page_tables=page_tables, page_size=page_size,
     )

@@ -13,8 +13,9 @@ leaf::
                     n_periods on dim 0.
     }
 
-The serving slice covers attention mixers and dense FFNs; other block kinds
-raise.
+Attention mixers with dense FFNs (SwiGLU, or non-gated ``gelu``/``relu2``
+with ``w_up``/``w_down`` only) or MoE FFNs (``router (d, E)``, ``w_up`` and
+``w_gate (E, d, f)``, ``w_down (E, f, d)``); SSM mixers raise.
 """
 from __future__ import annotations
 
@@ -29,6 +30,9 @@ from repro_torch.configs.base import ModelConfig
 Tree = Any
 
 _NORMS = ("ln", "final_norm", "q_norm", "k_norm")
+# elements drawn per piece in init_params (a leaf this size or smaller is
+# one draw)
+_DRAW = 1 << 28
 
 
 def _mixer_shapes(cfg: ModelConfig, kind: str) -> Dict[str, Tuple[int, ...]]:
@@ -50,12 +54,18 @@ def _mixer_shapes(cfg: ModelConfig, kind: str) -> Dict[str, Tuple[int, ...]]:
 
 
 def _ffn_shapes(cfg: ModelConfig, is_moe: bool) -> Dict[str, Tuple[int, ...]]:
+    d = cfg.d_model
     if is_moe:
-        raise NotImplementedError("MoE FFNs are not ported yet")
-    if cfg.ffn_act != "swiglu":
-        raise NotImplementedError(f"ffn_act {cfg.ffn_act!r} is not ported yet")
-    d, f = cfg.d_model, cfg.d_ff
-    return {"ln": (d,), "w_up": (d, f), "w_down": (f, d), "w_gate": (d, f)}
+        e, f = cfg.moe.n_experts, cfg.moe.d_ff_expert
+        out = {"ln": (d,), "router": (d, e), "w_up": (e, d, f), "w_down": (e, f, d)}
+        if cfg.ffn_act == "swiglu":
+            out["w_gate"] = (e, d, f)
+        return out
+    f = cfg.d_ff
+    out = {"ln": (d,), "w_up": (d, f), "w_down": (f, d)}
+    if cfg.ffn_act == "swiglu":
+        out["w_gate"] = (d, f)
+    return out
 
 
 def block_layout(cfg: ModelConfig):
@@ -126,6 +136,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda",
     The draws come from ``generator`` (on its own device) in sorted key
     order; ``torch`` and ``jax.random`` give different numbers for one
     seed, so the tests carry JAX's weights across the bridge instead.
+    Each leaf is made in place on ``dev``, its f32 draws taken in pieces
+    of at most ``_DRAW`` elements, so a full-width leaf (qwen3-moe's
+    ``(48, 128, 2048, 768)`` expert stack) never exists in f32 at once.
     """
     dev = resolve_device(device)
     dt = dtype or getattr(torch, cfg.dtype)
@@ -134,9 +147,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda",
         if name in _NORMS:
             return torch.ones(shape, dtype=dt, device=dev)
         std = 0.02 if name == "embed" else 1.0 / math.sqrt(max(shape[-2], 1))
-        w = torch.randn(shape, generator=generator, device=generator.device,
-                        dtype=torch.float32)
-        return (w * std).to(device=dev, dtype=dt)
+        out = torch.empty(shape, dtype=dt, device=dev)
+        flat = out.view(-1)
+        for lo in range(0, flat.numel(), _DRAW):
+            n = min(_DRAW, flat.numel() - lo)
+            w = torch.randn((n,), generator=generator, device=generator.device,
+                            dtype=torch.float32)
+            flat[lo:lo + n] = (w * std).to(device=dev, dtype=dt)
+        return out
 
     return map_leaves(leaf, _sorted(param_shapes(cfg)))
 

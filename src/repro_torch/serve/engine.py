@@ -26,13 +26,14 @@ Prefill paths:
     the causal flash-attention kernel;
   * chunked — prompts longer than ``prefill_chunk_pages`` pages are split
     into page-aligned chunks, one per engine step, interleaved with the
-    decode rounds; each chunk gathers its slot's dense view, attends to the
-    prefix plus itself (plain history attention) and scatters its pages
-    back;
+    decode rounds.  The first chunk is a prefill of its tokens (the causal
+    flash-attention kernel); each later one attends to the prefix plus
+    itself (plain history attention) in a dense view the slot keeps until
+    its prompt is done, and its pages are scattered into the pool;
   * shared — with ``prefix_sharing``, prompts that extend an already-seen
     prompt fork the matching pages (refcounted, copy-on-write on the first
-    write into a shared page) and prefill only their tail through the chunk
-    machinery.
+    write into a shared page) and write only their tail's pages, on the
+    schedule of a tail-only chunked prefill.
 
 Int8 pages (``kv_dtype="int8"``, paged round only): prefill quantizes each
 page as it lands, each decode step requantizes the pages it writes, and the
@@ -50,11 +51,29 @@ paths, as in the JAX package:
 Both must rebuild the cache bits the unkilled run had.  The JAX package
 re-prefills every prompt alone, which is its bits because its lanes are
 isolated.  On the card a GEMM's bits may depend on its row count, and a
-chunked or forked prompt's K/V come from other code than a whole-prompt
-prefill, so the port records at admission how each prompt was built
-(``RequestState.prefill_recipe``: a batched prefill of n rows at row i,
-chunks, or a fork of a donor prompt's recipe plus chunks) and the replay
-path builds the prompt the same way again (:meth:`_rebuild`).
+chunked prompt's K/V come from other code than a whole-prompt prefill, so
+the port records at admission how each prompt was built
+(``RequestState.prefill_recipe``: a batched prefill of n rows at row i, or
+chunks) and the replay path builds the prompt the same way again
+(:meth:`_rebuild`).  An MoE config's lanes are not isolated: every token of
+a call, pad tokens included, routes and takes expert capacity.  So a
+batched MoE prefill's recipe also keeps the batch's prompts, and the
+rebuild runs that batch again.  A decode round's lanes share capacity too:
+a restore gives back the unkilled run's bits only where no slot can be
+dropped, that is where the round's capacity per expert is at least
+``max_slots`` (8 slots at top-8 of 128 experts: capacity 8).
+
+A prompt's K/V rows are a function of the prompt, the config and the
+chunk setting, never of the admission path: a forked prompt is computed by
+the recipe it would have had unforked (a whole-prompt prefill alone when
+it fits the prefill chunk, else the chunks from position 0 at the unforked
+boundaries), and only its tail's pages are written from that result.  The
+forked pages hold the donor's rows, which are the prompt's own where the
+recipes give a prefix's rows independently of what follows it (the dense
+configs' prefill, as measured).  Sharing saves pages, not compute.  An MoE
+layer's capacity depends on the call's token count, so there a prefix's
+rows depend on what follows it, and the reference computes a forked
+prompt's tail alone: the engine refuses ``prefix_sharing`` for MoE configs.
 """
 from __future__ import annotations
 
@@ -174,11 +193,18 @@ class AdmitPlan:
 
 @dataclass
 class _PendingPrefill:
-    """A slot mid-way through a chunked (or shared-suffix) prefill."""
+    """A slot mid-way through a chunked (or shared-suffix) prefill.
+
+    ``next_off`` follows the schedule (a forked prompt's starts past its
+    shared prefix); ``view`` and ``src_off`` follow the computation, the
+    prompt's unforked chunks from position 0 in a dense view of its own."""
 
     prompt: Tuple[int, ...]
-    next_off: int   # cache positions already valid (forked prefix + chunks)
+    next_off: int   # cache positions already written (forked prefix + chunks)
     step: int       # last engine step a chunk ran (one chunk per step)
+    view: Any = None  # the prompt's dense K/V ``(n_periods, 1, max_len, KV, hd)``
+    src_off: int = 0  # positions of ``view`` already computed
+    logits: Any = None  # the prompt's last-token logits, once computed
 
 
 def resolve_kernel_impl(ecfg: EngineConfig, device="cuda") -> str:
@@ -205,6 +231,16 @@ class ServeEngine:
     def __init__(self, cfg: ModelConfig, params: Tree, ecfg: EngineConfig, *,
                  device="cuda", alloc_rng: Optional[np.random.Generator] = None):
         check_attention_only(cfg)
+        if cfg.moe is not None and ecfg.prefix_sharing:
+            raise ValueError(
+                f"{cfg.name}: prefix_sharing is refused for MoE configs: an MoE layer's "
+                "capacity follows the call's token count, so the forked donor rows are not "
+                "the prompt's own, and the reference computes only the tail")
+        if cfg.frontend is not None:
+            # the reference's prefill embeds through the frontend stub, which
+            # wants precomputed embeddings a token prompt does not carry
+            raise ValueError(f"{cfg.name}: the {cfg.frontend} frontend stub takes precomputed "
+                             "embeddings; the serve engine takes token prompts")
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params on {params['embed'].device}, engine on {self.device}")
@@ -222,8 +258,6 @@ class ServeEngine:
         # registry holds a refcount on the pages (a pseudo table), so a
         # prefix outlives its first request until page pressure releases it
         self._registry: Dict[Tuple[int, ...], Tuple[str, List[int]]] = {}
-        # each registered prompt's prefill recipe (a fork records its donor's)
-        self._reg_recipe: Dict[Tuple[int, ...], tuple] = {}
         self._reg_counter = 0
         self._page_nbytes = page_nbytes(self.pool)
         # admission-plan cache: (rid, state fingerprint, plan-or-None), so a
@@ -236,8 +270,9 @@ class ServeEngine:
         # wall time of the data paths, each ending in the host copy of the
         # sampled tokens (which waits for the device; a chunk that is not its
         # prompt's last samples nothing and ends when its work is queued);
-        # the calls counted beside them: batched prefills and prompt chunks
-        # (restores' re-prefills included).  A decode round's clock starts
+        # the calls counted beside them: prefills (batched prompts, a
+        # forked prompt alone, a chunked prompt's first chunk) and later
+        # chunks (restores' re-prefills included).  A decode round's clock starts
         # after the device has finished earlier work, so with several
         # engines on one card each times its own round.
         self.decode_wall_s = 0.0
@@ -364,11 +399,12 @@ class ServeEngine:
                       step: int) -> Optional[int]:
         """Begin a chunked or shared-suffix prefill on a bound slot.  The
         first chunk runs now, later ones one per engine step.  Returns the
-        first token when the prompt finished within this call, else None."""
-        rs.prefill_recipe = ("chunk",)
+        first token when the prompt finished within this call, else None.
+        The recipe is the prompt's unforked one (see the module doc)."""
+        cp = self.ecfg.prefill_chunk_pages
+        fits = cp <= 0 or pages_needed(len(rs.req.prompt), self.ecfg.page_size) <= cp
+        rs.prefill_recipe = ALONE if fits else ("chunk",)
         if plan.n_shared:
-            rs.prefill_recipe = ("fork", plan.donor, self._reg_recipe[plan.donor],
-                                 plan.n_shared)
             self.stats["shared_prefix_tokens"] += plan.n_shared
             self.stats["n_prefix_hits"] += 1
             # full pages never re-materialized (the forked partial page is
@@ -399,14 +435,17 @@ class ServeEngine:
             if pages_needed(len(rs.req.prompt), ps) != n_pg:
                 raise ValueError("mixed prefill buckets")
             page_ids[i] = self.alloc.tables[slot][:n_pg]
-        dense, toks = self._prefill_rows([rs.req.prompt for _, rs in pairs])
+        prompts = tuple(tuple(rs.req.prompt) for _, rs in pairs)
+        dense, toks = self._prefill_rows(prompts)
         self._scatter_prefill(dense, self._dev(page_ids))
         toks = toks.cpu().numpy()
         self.prefill_wall_s += time.perf_counter() - t0
         out = []
         for i, (slot, rs) in enumerate(pairs):
             self._lens[slot] = len(rs.req.prompt)
-            rs.prefill_recipe = ("batch", n, i)
+            # an MoE batch's lanes share expert capacity: keep the batch
+            rs.prefill_recipe = ("batch", n, i) + (
+                (prompts,) if n > 1 and self.cfg.moe is not None else ())
             tok = int(toks[i])
             rs.record_token(tok, step)
             self._register_prefix(slot)
@@ -461,37 +500,27 @@ class ServeEngine:
         first token, computed as its admission computed them:
 
         * ``("batch", n, i)`` — a prefill of ``n`` rows of the prompt's
-          padded length with the prompt at row ``i`` (the other rows zeros;
-          the lanes are isolated, so only the shapes matter);
-        * ``("chunk",)`` — the chunk machinery from position 0;
-        * ``("fork", donor, donor_recipe, n_shared)`` — the donor prompt
-          rebuilt by its own recipe, its pages covering ``n_shared``
-          positions taken as the forked prefix, then the chunks from
-          ``n_shared``.
-
-        Rows past the written positions are zeros where the original view
-        held other pages' data; attention gives them no weight either way.
+          padded length with the prompt at row ``i`` (the other rows zeros:
+          a dense config's lanes are isolated, so only the shapes matter);
+        * ``("batch", n, i, prompts)`` — an MoE config's batch, run again
+          with its ``prompts`` (its lanes share expert capacity);
+        * ``("chunk",)`` — the chunks from position 0.
         """
         kind = recipe[0]
         if kind == "batch":
             n, row = recipe[1], recipe[2]
-            S_pad = pages_needed(len(prompt), self.ecfg.page_size) * self.ecfg.page_size
-            prompts = [(0,) * S_pad] * n
+            if len(recipe) > 3:
+                prompts = list(recipe[3])
+            else:
+                S_pad = pages_needed(len(prompt), self.ecfg.page_size) * self.ecfg.page_size
+                prompts = [(0,) * S_pad] * n
             prompts[row] = prompt
             dense, toks = self._prefill_rows(prompts)
             return (tuple({k: d[:, row:row + 1] for k, d in e.items()} for e in dense),
                     int(toks[row]))
-        view = self._empty_view()
-        off = 0
-        if kind == "fork":
-            _, donor, donor_recipe, off = recipe
-            ddense, _ = self._rebuild(donor, donor_recipe)
-            n_cov = pages_needed(off, self.ecfg.page_size) * self.ecfg.page_size
-            for e, de in zip(view, ddense):
-                for k in e:
-                    e[k][:, :, :n_cov] = de[k][:, :, :n_cov]
-        elif kind != "chunk":
+        if kind != "chunk":
             raise ValueError(f"unknown prefill recipe {recipe!r}")
+        view, off = self._empty_view(), 0
         while True:
             view, logits, off, final = self._chunk_forward(view, prompt, off)
             if final:
@@ -520,43 +549,69 @@ class ServeEngine:
     def _chunk_forward(self, view: Tree, prompt: Sequence[int], off: int):
         """The prompt's next page-aligned chunk from position ``off`` into a
         dense slot view, in place: (view, logits at the chunk's last true
-        token, the next offset, whether this chunk was the last)."""
+        token, the next offset, whether this chunk was the last).  The
+        chunk at position 0 is a prefill of its tokens, so its rows are
+        those a whole-prompt prefill gives the same positions."""
         ps = self.ecfg.page_size
         _, pg_end, final = self._chunk_span(len(prompt), off)
         true_c = min(len(prompt), (pg_end + 1) * ps) - off
-        toks = np.zeros((1, (pg_end + 1) * ps - off), np.int32)
+        C = (pg_end + 1) * ps - off
+        toks = np.zeros((1, C), np.int32)
         toks[0, :true_c] = prompt[off:off + true_c]
-        view, logits = forward_prefill_chunk(
-            self.params, view, {"tokens": self._dev(toks)}, off, self.cfg, true_c - 1)
-        self.chunk_calls += 1
+        if off == 0:
+            dense, logits = forward_prefill(
+                self.params, {"tokens": self._dev(toks)}, self.cfg,
+                cache_structs(self.cfg, 1, C, self.params["embed"].dtype),
+                logit_pos=true_c - 1)
+            for e, d in zip(view, dense):
+                for k in e:
+                    e[k][:, :, :C] = d[k]
+            self.prefill_calls += 1
+        else:
+            view, logits = forward_prefill_chunk(
+                self.params, view, {"tokens": self._dev(toks)}, off, self.cfg, true_c - 1)
+            self.chunk_calls += 1
         return view, logits, (pg_end + 1) * ps, final
 
     def _advance_prefill(self, slot: int, step: int) -> Optional[int]:
-        """Run the next page-aligned chunk of ``slot``'s pending prompt.
+        """Write the next page-aligned chunk of ``slot``'s pending prompt.
 
-        Gathers the slot's dense view (the forked prefix pages plus earlier
-        chunks), runs the chunk forward into it, and scatters the written
-        pages back.  Shared pages in the write range are copied first
-        (write-triggered COW: this is where a forked partial page detaches).
-        Returns the first token when this chunk was the last.
+        The schedule's chunk covers pages ``[pg_lo, pg_end]`` from
+        ``next_off``.  Their rows come from the prompt's unforked recipe:
+        one whole-prompt prefill alone when the prompt fits the prefill
+        chunk (a forked prompt: its one chunk), else the chunks from
+        position 0, run in the slot's own view until they cover
+        ``pg_end``.  Shared pages in the write range are copied first
+        (write-triggered COW: this is where a forked partial page
+        detaches).  Returns the first token when this chunk was the last.
         """
         t0 = time.perf_counter()
         pend = self._pending[slot]
         ps = self.ecfg.page_size
-        pg_lo, pg_end, _ = self._chunk_span(len(pend.prompt), pend.next_off)
+        pg_lo, pg_end, final = self._chunk_span(len(pend.prompt), pend.next_off)
         for idx in range(pg_lo, pg_end + 1):
             self._cow_slot_page(slot, idx)
-        dense = gather_pages(self.pool, self._dev(self._tables[slot][None]), page_size=ps)
-        dense, logits, nxt, final = self._chunk_forward(dense, pend.prompt, pend.next_off)
+        if self.slots[slot].prefill_recipe[0] == "batch":
+            assert final, "a prompt that fits the prefill chunk is one chunk"
+            dense, tok = self._rebuild(pend.prompt, ALONE)
+        else:
+            if pend.view is None:
+                pend.view = self._empty_view()
+            while pend.src_off < (pg_end + 1) * ps:
+                pend.view, logits, pend.src_off, src_final = self._chunk_forward(
+                    pend.view, pend.prompt, pend.src_off)
+                if src_final:  # an earlier step may run a fork's last chunk
+                    pend.logits = logits
+            dense = pend.view
+            tok = int(greedy_token(pend.logits, self.cfg)[0]) if final else None
         page_ids = np.asarray(self.alloc.tables[slot][pg_lo:pg_end + 1], np.int32)
         scatter_pages(self.pool, dense, self._dev(page_ids), pg_lo=pg_lo,
                       n_pg=pg_end - pg_lo + 1, page_size=ps)
         pend.step = step
         if not final:
-            pend.next_off = nxt
+            pend.next_off = (pg_end + 1) * ps
             self.prefill_wall_s += time.perf_counter() - t0
             return None
-        tok = int(greedy_token(logits, self.cfg)[0])
         self.prefill_wall_s += time.perf_counter() - t0
         del self._pending[slot]
         self._lens[slot] = len(pend.prompt)
@@ -597,7 +652,6 @@ class ServeEngine:
         self._reg_counter += 1
         self.alloc.fork(pseudo, pages)
         self._registry[prompt] = (pseudo, pages)
-        self._reg_recipe[prompt] = self.slots[slot].prefill_recipe
 
     def _release_prefixes(self, need: int, protect: Optional[Tuple[int, ...]] = None) -> None:
         """Page pressure: drop registry entries (oldest first) until ``need``
@@ -612,7 +666,6 @@ class ServeEngine:
             if key is None:
                 return
             pseudo, _pages = self._registry.pop(key)
-            del self._reg_recipe[key]
             self.alloc.free(pseudo)
 
     def _cow_slot_page(self, slot: int, idx: int) -> None:

@@ -256,9 +256,10 @@ def test_replay_restore_rebuilds_the_original_cache_bits():
     """The replay path rebuilds a prompt by its admission's recipe: after a
     batched, a chunked and a forked admission, each request re-prefilled on
     a fresh engine holds bitwise the original pages (the CPU analogue of
-    chip_smoke's restore_bitwise rows, in bf16, where a chunked or forked
-    prompt's bits differ from a whole-prompt prefill's: the JAX package's
-    batch-1 re-prefill is shown to miss them)."""
+    chip_smoke's restore_bitwise rows, in bf16, where a chunked prompt's
+    bits differ from a whole-prompt prefill's: the JAX package's batch-1
+    re-prefill is shown to miss them).  A forked prompt's recipe is its
+    unforked one, so the rebuild needs no donor."""
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.request import Request, RequestState
 
@@ -301,7 +302,57 @@ def test_replay_restore_rebuilds_the_original_cache_bits():
                 else:
                     assert same, rs.prefill_recipe
         if ecfg.prefix_sharing:
-            assert {"fork", "chunk"} <= kinds
+            # request 1 forked request 0's pages; its recipe is the one it
+            # would have had unforked
+            assert eng.drain_stats()["n_prefix_hits"] == 1 and kinds == {"chunk"}
         else:
             assert ("batch", 2, 1) in {rs.prefill_recipe for rs in states}
-    assert missed & {"fork", "chunk"}
+    assert "chunk" in missed
+
+
+def test_moe_replay_restore_reruns_a_batched_prompts_batch():
+    """An MoE batch's lanes share each expert's capacity, so its recipe
+    keeps the batch's prompts: after two prompts are prefilled together
+    (reduced qwen3-moe in bf16, where the 4-page bucket drops tokens past
+    capacity) and decoded, each one's replay restore on a fresh engine
+    holds bitwise its original pages.  The same batch rebuilt with zero
+    rows in place of the other prompt (a dense config's recipe) misses
+    them.  Two slots at top-2 of 8 experts: the decode round's capacity of
+    2 drops no lane, so the teacher-forced decode rows are the originals."""
+    from repro_torch.models.moe import capacity
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.request import Request, RequestState
+
+    tcfg, tp = run.build("qwen3-moe-30b-a3b", device="cpu", use_reduced=True, dtype="bfloat16")
+    ecfg = EngineConfig(max_slots=2, page_size=4, pages_per_slot=8, max_prefills_per_step=2)
+    assert capacity(tcfg, ecfg.max_slots) >= ecfg.max_slots
+    rng = np.random.default_rng(6)
+    states = [RequestState(Request(i, 0, tuple(int(x) for x in rng.integers(0, 512, 15)), 12))
+              for i in range(2)]
+    eng = ServeEngine(tcfg, tp, ecfg, device="cpu")
+    queue = list(states)
+    for t in range(5):
+        run.admit(eng, queue, t)
+        eng.decode_round(t)
+    prompts = tuple(rs.req.prompt for rs in states)
+    assert [rs.prefill_recipe for rs in states] == [("batch", 2, i, prompts) for i in range(2)]
+    missed = 0
+    for slot, rs in eng.live_states():
+        pages, _, cur_len, _ = eng.snapshot_slot(slot)
+        for recipe in (rs.prefill_recipe, rs.prefill_recipe[:3]):
+            fresh = ServeEngine(tcfg, tp, ecfg, device="cpu")
+            rs2 = dataclasses.replace(rs, emitted=list(rs.emitted), prefill_recipe=recipe)
+            try:
+                assert fresh.admit_restored(rs2, None, 0)[0] == "replay"
+            except AssertionError:  # the first-token check
+                assert len(recipe) == 3
+                missed += 1
+                continue
+            again, _, cur2, _ = fresh.snapshot_slot(fresh.slots.index(rs2))
+            same = cur2 == cur_len and all(
+                torch.equal(e[k], e2[k]) for e, e2 in zip(pages, again) for k in e)
+            if len(recipe) > 3:
+                assert same, slot
+            else:
+                missed += not same
+    assert missed > 0

@@ -324,8 +324,12 @@ def test_engine_matches_jax_replica_set(model, name):
     assert res.n_steps == jres.n_steps
     acct = {k: jres.accounting[k] for k in res.accounting}
     assert res.accounting == acct
-    if name != "dense":
+    if name in ("chunked", "composed"):
         assert eng.chunk_calls > 0
+    if name == "shared_cow":
+        # every prompt fits the prefill chunk: a forked one is prefilled
+        # whole, alone, as it would be unforked; no chunk runs
+        assert eng.chunk_calls == 0 and eng.prefill_calls == spec["n_requests"]
     if name in ("shared_cow", "composed"):
         assert res.accounting["n_prefix_hits"] > 0 and res.accounting["n_pages_forked"] > 0
     if name == "shared_cow":
@@ -361,7 +365,8 @@ def test_admit_new_chunks_a_long_prompt_to_the_full_prefill_token(model):
     assert eng.step_prefills(0) == []  # this step's chunk already ran
     assert eng.step_prefills(1) == []
     (rs, tok, done), = eng.step_prefills(2)
-    assert rs is chunked and not done and eng.chunk_calls == 3
+    # the first chunk is a prefill of its tokens, the two after it chunks
+    assert rs is chunked and not done and eng.chunk_calls == 2 and eng.prefill_calls == 2
     whole = ServeEngine(tcfg, tp, EngineConfig(**GEOM), device="cpu")
     assert whole.admit_new(RequestState(Request(1, 0, prompt, 4)), 0) == tok
     assert eng.admit_new(RequestState(Request(2, 0, prompt[:4], 2)), 3) is not None
@@ -371,3 +376,165 @@ def test_admit_new_chunks_a_long_prompt_to_the_full_prefill_token(model):
 def test_engine_config_rejects_negative_chunk():
     with pytest.raises(ValueError, match="prefill_chunk_pages"):
         EngineConfig(prefill_chunk_pages=-1)
+
+
+# ---------------------------------------------------------------------------
+# a forked prompt's K/V are the whole prompt's
+# ---------------------------------------------------------------------------
+
+
+def _prompt_pages(eng, rs):
+    """The pages covering ``rs``'s prompt, as a host copy."""
+    assert rs.emitted and eng._pending == {}
+    slot = eng.slots.index(rs)
+    pages, _, cur_len, _ = eng.snapshot_slot(slot)
+    assert cur_len == len(rs.req.prompt)
+    return pages, rs.emitted[0]
+
+
+def _admit_all(eng, states, step=0):
+    """Admit ``states`` one step each, running pending chunks, until every
+    prompt has its first token."""
+    queue = list(states)
+    while queue or eng._pending:
+        eng.step_prefills(step)
+        if queue:
+            rs = queue.pop(0)
+            assert eng.can_admit(rs)
+            eng.admit_new(rs, step)
+        step += 1
+    return step
+
+
+@pytest.mark.parametrize("chunk_pages", [0, 2], ids=["unchunked", "chunked"])
+def test_forked_prompt_pages_bitwise_equal_the_unforked_prompts(chunk_pages):
+    """In bf16, a prompt that forks a donor's prefix pages holds bitwise
+    the pages the same prompt gets admitted with no prefix registry, alone
+    or (unchunked) in a batched prefill, with the same first token.
+
+    Unchunked: a 13-token donor, then a 13-token prompt sharing 9
+    positions (two full pages and a partial page copied on write).
+    Chunked (2-page chunks): an 8-token donor prefilled whole, then a
+    16-token prompt, chunked when unforked, forking the donor's 2 pages."""
+    from repro_torch.serve import run
+
+    tcfg, tp = run.build("qwen3-0.6b", device="cpu", use_reduced=True, dtype="bfloat16")
+    rng = np.random.default_rng(5)
+    base = tuple(int(x) for x in rng.integers(0, tcfg.vocab_size, 16))
+    other = tuple(int(x) for x in rng.integers(0, tcfg.vocab_size, 13))
+    if chunk_pages:
+        donor, prompt = base[:8], base
+    else:
+        donor, prompt = base[:13], base[:9] + other[:4]
+    geom = dict(max_slots=3, page_size=4, pages_per_slot=8, prefill_chunk_pages=chunk_pages)
+
+    shared = ServeEngine(tcfg, tp, EngineConfig(**geom, prefix_sharing=True), device="cpu")
+    d, p = RequestState(Request(0, 0, donor, 4)), RequestState(Request(1, 0, prompt, 4))
+    _admit_all(shared, [d, p])
+    stats = shared.drain_stats()
+    assert stats["n_prefix_hits"] == 1
+    assert stats["shared_prefix_tokens"] == (8 if chunk_pages else 9)
+    forked = _prompt_pages(shared, p)
+
+    alone = ServeEngine(tcfg, tp, EngineConfig(**geom), device="cpu")
+    q = RequestState(Request(1, 0, prompt, 4))
+    _admit_all(alone, [q])
+    assert q.prefill_recipe == p.prefill_recipe == (("chunk",) if chunk_pages else ("batch", 1, 0))
+    whole = [_prompt_pages(alone, q)]
+    if not chunk_pages:
+        batched = ServeEngine(tcfg, tp, EngineConfig(**geom, max_prefills_per_step=2),
+                              device="cpu")
+        pair = [RequestState(Request(0, 0, other, 4)), RequestState(Request(1, 0, prompt, 4))]
+        run.admit(batched, list(pair), 0)
+        assert pair[1].prefill_recipe == ("batch", 2, 1)
+        whole.append(_prompt_pages(batched, pair[1]))
+    for pages, tok in whole:
+        assert tok == forked[1]
+        for e, e2 in zip(forked[0], pages):
+            for k in e:
+                assert torch.equal(e[k], e2[k]), k
+
+
+# ---------------------------------------------------------------------------
+# MoE and the configs the engine admits
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def moe_model():
+    jcfg = jax_reduced(jax_get_config("qwen3-moe-30b-a3b"), dtype="float32")
+    tcfg = reduced(get_config("qwen3-moe-30b-a3b"), dtype="float32")
+    jp = jax_init_params(jcfg, jax.random.PRNGKey(0), jnp.float32)
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), tcfg, device="cpu")
+    return jcfg, tcfg, jp, tp
+
+
+MOE_ENGINE_CASES = {
+    "dense": (GEOM, SPEC),
+    "paged": (dict(GEOM, use_paged_kernel=True), SPEC),
+    # two prefills a step share each expert's capacity (seed 4 admits two
+    # 4-page prompts together); prompts past 4 pages chunk (prefix sharing
+    # is refused for MoE)
+    "batched_chunked": (dict(GEOM, use_paged_kernel=True, max_prefills_per_step=2,
+                             prefill_chunk_pages=4), dict(SPEC, seed=4)),
+}
+
+
+@pytest.mark.parametrize("name", list(MOE_ENGINE_CASES))
+def test_moe_engine_matches_jax_replica_set_event_for_event(moe_model, name):
+    """Reduced qwen3-moe (8 experts, top-2; the decode round's capacity of
+    2 slots an expert drops slots when 3 lanes pick one expert) on a
+    one-replica ReplicaSet on both sides: every event, the accounting and
+    every stream equal."""
+    from repro_torch.serve.replicas import ReplicaSet as TorchReplicaSet
+
+    jcfg, tcfg, jp, tp = moe_model
+    geom, spec = MOE_ENGINE_CASES[name]
+    paged = geom.get("use_paged_kernel", False)
+    jset = ReplicaSet(jcfg, jp, RULES, FLAGS, JaxEngineConfig(
+        **geom, kernel_interpret=True if paged else None), n_replicas=1, snapshots=False)
+    jres = jset.run(jax_build_workload(JaxWorkloadSpec(**spec)))
+    tset = TorchReplicaSet(tcfg, tp, EngineConfig(**geom), n_replicas=1, device="cpu",
+                           snapshots=False)
+    tres = tset.run(build_workload(WorkloadSpec(**spec)))
+    assert [e.to_json() for e in tset.events] == [e.to_json() for e in jset.events]
+    assert tres.accounting == jres.accounting and tres.n_steps == jres.n_steps
+    assert tres.streams() == jres.streams()
+    assert all(rs.done for rs in tres.states.values())
+    recipes = [rs.prefill_recipe for rs in tres.states.values()]
+    if name == "batched_chunked":
+        assert ("chunk",) in recipes
+        assert any(r[0] == "batch" and r[1] == 2 and len(r[3]) == 2 for r in recipes)
+
+
+def test_engine_refuses_prefix_sharing_for_moe(moe_model):
+    _, tcfg, _, tp = moe_model
+    with pytest.raises(ValueError, match="prefix_sharing is refused for MoE"):
+        ServeEngine(tcfg, tp, EngineConfig(**GEOM, prefix_sharing=True), device="cpu")
+
+
+def test_engine_admits_moe_and_non_gated_configs_and_refuses_ssm_and_frontends():
+    from repro.configs.base import reduced as jreduced
+    from repro.serve.kvpool import check_attention_only as jax_check
+
+    for name in ("qwen3-moe-30b-a3b", "granite-34b", "nemotron-4-340b", "glm4-9b"):
+        tkv.check_attention_only(reduced(get_config(name)))
+    jamba = jreduced(jax_get_config("jamba-1.5-large-398b"))
+    with pytest.raises(ValueError) as jerr:
+        jax_check(jamba)
+    # the port has no SSM config: the same check on a copy of its fields
+    from repro_torch.configs.base import ModelConfig, MoEConfig, SSMConfig
+
+    fields = {k: v for k, v in vars(jamba).items() if k not in ("moe", "ssm")}
+    port_jamba = ModelConfig(**fields, moe=MoEConfig(**vars(jamba.moe)),
+                             ssm=SSMConfig(**vars(jamba.ssm)))
+    with pytest.raises(ValueError) as terr:
+        tkv.check_attention_only(port_jamba)
+    assert str(terr.value) == str(jerr.value)
+    for name in ("musicgen-medium", "phi-3-vision-4.2b"):
+        cfg = reduced(get_config(name), dtype="float32")
+        from repro_torch.models.params import init_params
+
+        params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        with pytest.raises(ValueError, match="frontend stub"):
+            ServeEngine(cfg, params, EngineConfig(**GEOM), device="cpu")
