@@ -201,12 +201,50 @@ each printing JSON lines:
              (576 patches) and ``musicgen-medium`` at full width on 2
              layers.
 
-Each of phases 12-14 frees the card first and fails with a clear message
+15. mamba2 train — ``mamba2-2.7b`` at published widths and full depth
+             (64 layers, d 2560, d_inner 5120, 80 heads of 64, d_state 128,
+             chunk 256, V 50304 padded, tied, bf16, 2.70 B parameters) at
+             launch/profile.py's SSM cell (B 1, S 1024, rank 64, FFN
+             recompute): kernel rows first (#3 at (1024, 2560) and (1024,
+             5120), #6 at in_proj's and out_proj's shapes, each against its
+             plain version and in turns against its library call; the
+             zero-width FFN's #4 and #6 calls launch nothing); one V1
+             refresh (128 SVDs, timed) shared by every row; the
+             forward-backward peak per mode (degraded's, where technique II
+             recomputes whole SSM blocks, below off's: a gate); bf16
+             gradients at full depth (dynamic, degraded) through the kernels
+             and the plain versions, gated by the anchor to the f32 step
+             (the leaf error reported); f32 gradients on SSM_PARITY_LAYERS
+             layers in the four modes at TRAIN_PARITY_TOL; SSM_TRAIN_STEPS
+             steps per mode through ``make_train_step`` (exact launch
+             counts, finite losses, step ms, peaks); the profile of an off
+             and a degraded step with the SSD scan's share.
+16. mamba2 decode — phase 15's weights: SSM_PROMPT_LENS prompts
+             prefilled alone, then SSM_DECODE_STEPS greedy ``forward_decode``
+             steps of the four over the dense conv and SSD caches: bf16
+             logits against the plain path, anchored to the f32 path (the
+             serve phases' limits reported), exact launches, decode ms and
+             peak; at f32 on 4 layers, prefill then decode against the full
+             sequence's prefill and against the plain path
+             (SSM_F32_LOGIT_REL of max |logit|).
+17. hybrid — ``reduced(jamba)`` (attention every 8 layers, MoE every
+             second, SSM elsewhere; capacity for every token) in f32: loss
+             and every gradient leaf (SSM_F32_LEAF_TOL), kernels against
+             plain, in the four modes; prefill then decode through #2 and #5; jamba's smallest
+             legal depth (one 8-layer period) at published widths in bytes.
+Then accumulation — phase 7's cell with ``accum`` 1, 2 and 4 and with
+             ``remat="dots"`` in dynamic and degraded mode (step ms, peaks,
+             launches), and at f32 on 4 layers the accumulated gradients
+             against accum 1's and ``"dots"``'s against ``"none"``'s within
+             1e-4 per leaf.  Phase 11's restore_bitwise rows include an MoE
+             prompt forked onto a donor's prefix (reduced qwen3-moe).
+
+Each of phases 12-17 frees the card first and fails with a clear message
 when too little memory is free.  Then the kernels' summary line (each
 kernel's ``launches`` from the main paths of phases 3, 4, 7 and 11; the
-launches of phases 12-14 beside them in ``launches_by_later_path``), the
-card's name and power limit, and the final ``{"ok": true, ...}`` line.
-Any failed check raises.
+launches of phases 12-17 and the accumulation phase beside them in
+``launches_by_later_path``), the card's name and power limit, and the
+final ``{"ok": true, ...}`` line.  Any failed check raises.
 """
 from __future__ import annotations
 
@@ -232,7 +270,7 @@ import torch  # noqa: E402
 
 from repro_torch import obs  # noqa: E402
 from repro_torch.configs.base import (  # noqa: E402
-    MeCeFOConfig, ShapeConfig, TrainConfig, get_config, reduced,
+    MeCeFOConfig, ParallelConfig, ShapeConfig, TrainConfig, get_config, reduced,
 )
 from repro_torch.core.lowrank import refresh_projections  # noqa: E402
 from repro_torch.core.ndb import NDBContext, NDBPlan, plan_to_masks  # noqa: E402
@@ -261,10 +299,12 @@ from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain  # noqa: E402
 from repro_torch.kernels.swiglu import swiglu, swiglu_plain  # noqa: E402
 from repro_torch.launch.profile import (  # noqa: E402
     BATCH as TRAIN_B, CONFIG as TRAIN_CONFIG, FLAGS as TRAIN_FLAGS, PLAN as TRAIN_PLAN,
-    RANK as TRAIN_RANK, SEQ_LEN as TRAIN_S, train_cell,
+    RANK as TRAIN_RANK, SEQ_LEN as TRAIN_S, SSM_BATCH, SSM_PLAN, profile_step, train_cell,
 )
 from repro_torch.launch.state import TrainState, init_state  # noqa: E402
-from repro_torch.launch.steps import loss_and_grads, make_train_step, to_device  # noqa: E402
+from repro_torch.launch.steps import (  # noqa: E402
+    accumulated_loss_and_grads, loss_and_grads, make_train_step, to_device,
+)
 from repro_torch.launch.train import Trainer, main as train_main  # noqa: E402
 from repro_torch.models.kvcache import cache_structs  # noqa: E402
 from repro_torch.models.model import (  # noqa: E402
@@ -442,6 +482,38 @@ DENSE_SPEC = dict(n_requests=4, prompt_len=(64, 256), new_tokens=(16, 16), seed=
 MOE_TRAIN_LAYERS, MOE_TRAIN_B, MOE_TRAIN_S, MOE_TRAIN_STEPS = 4, 4, 1024, 3
 MOE_TRAIN_PLAN = NDBPlan(n_dp=4, n_stages=2, failed=frozenset({(1, 0)}))
 CONFIG_STEPS = (("granite-34b", 2), ("phi-3-vision-4.2b", 2), ("musicgen-medium", 2))
+# phase 15: mamba2-2.7b at published widths and full depth, MeCeFO steps
+# in the four modes at launch/profile.py's SSM cell (B 1: B 2's healthy
+# step runs out of the card's 80 GB), f32 gradient rows on
+# SSM_PARITY_LAYERS layers; phase 16: SSM_PROMPT_LENS prompts prefilled,
+# then SSM_DECODE_STEPS greedy decode steps.  At f32 the logits of prefill
+# then decode, against the whole sequence's prefill and kernels against
+# plain, are held within SSM_F32_LOGIT_REL of max |logit|: the chunked
+# scan's decays exp(cum_q - cum_k) take differences of cumulative sums that
+# reach thousands within a 256-token chunk (one f32 ulp ~5e-4 there), so a
+# chunked prefill and the one-token recurrence, or two paths one ulp apart
+# upstream, land 4.0e-4 and 9.9e-5 apart on logits up to 5.39 (4 layers,
+# full width): 7.5e-5 and 1.8e-5 of the scale.  The reference's own check
+# (tests/test_models.py:test_prefill_decode_matches_full) allows 2e-4 on
+# the tiny config's logits
+SSM_CONFIG, SSM_TRAIN_B, SSM_TRAIN_S, SSM_TRAIN_STEPS = "mamba2-2.7b", SSM_BATCH, 1024, 3
+SSM_TRAIN_PLAN = SSM_PLAN
+SSM_PARITY_LAYERS = 4
+SSM_PROMPT_LENS, SSM_DECODE_STEPS = (64, 128, 192, 256), 16
+SSM_F32_LOGIT_REL = 2e-4
+# mamba2's f32 gradient rows, kernels against plain, per leaf: the SSD
+# scan's decays exp(cum_q - cum_k) come from cumulative sums that reach
+# thousands within a 256-token chunk, where one f32 ulp is ~5e-4, so a
+# one-ulp difference upstream (#3's summation order) moves decays, and the
+# per-head A_log / dt_bias / D gradients, which cancel, by ~1e-4: 1.49e-4
+# (A_log, mean leaf 4.8e-5) in the off mode, where only #3 differs; the
+# reduced jamba of phase 17 (S 256, chunk 32) 2.20e-4 (A_log, mean leaf
+# 1.1e-4).  A wrong kernel moves a leaf by its whole norm
+SSM_F32_LEAF_TOL = 1e-3
+# phase 17: reduced jamba (16 layers, d 128) in f32
+HYBRID_CONFIG, HYBRID_B, HYBRID_S, HYBRID_RANK = "jamba-1.5-large-398b", 4, 256, 16
+# accumulation on phase 7's cell: steps per (mode, accum, remat)
+ACCUM_STEPS = 2
 
 
 def emit(obj) -> None:
@@ -1264,6 +1336,32 @@ def hold_bf16_path(phase, k_logits, p_logits, **extra) -> None:
         raise AssertionError(f"{phase} bf16 path parity failed: max {max_err}, mean {mean_err}")
 
 
+def anchored_bf16_path(phase, k_logits, p_logits, f_logits, **extra) -> None:
+    """Kernel path against plain path in bf16 where ulp differences grow
+    through the depth (mamba2's 64 layers): BF16_PATH_TOL's numbers are
+    reported, and the gate is the anchor, the kernel path's logits no
+    farther from the f32 plain path's (same weights upcast, same tokens)
+    than TRAIN_ANCHOR_RATIO times the plain bf16 path's, in max and mean."""
+    def errs(a, b):
+        d = (a.float() - b.float()).abs()
+        return float(d.max()), float(d.mean())
+
+    kp, kf, pf = errs(k_logits, p_logits), errs(k_logits, f_logits), errs(p_logits, f_logits)
+    tol, mean_tol = BF16_PATH_TOL
+    scale, mean_ref = float(p_logits.abs().max()), float(p_logits.abs().mean())
+    ok = (bool(torch.isfinite(k_logits).all()) and kf[0] <= TRAIN_ANCHOR_RATIO * pf[0]
+          and kf[1] <= TRAIN_ANCHOR_RATIO * pf[1])
+    emit({"phase": phase, "dtype": "bfloat16", **extra, "max_abs_err": kp[0],
+          "mean_abs_err": kp[1], "max_abs_logit": scale, "mean_abs_logit": mean_ref,
+          "reported_limit": {"max_abs_err <=": tol * scale, "mean_abs_err <=": mean_tol * mean_ref},
+          "within_reported_limit": kp[0] <= tol * scale and kp[1] <= mean_tol * mean_ref,
+          "kernels_vs_f32": kf, "plain_vs_f32": pf, "anchor_ratio_limit": TRAIN_ANCHOR_RATIO,
+          "ok": ok})
+    if not ok:
+        raise AssertionError(f"{phase} bf16 path anchor failed: kernels {kf}, plain {pf} "
+                             "from the f32 path")
+
+
 def chunk_share_phase(dev, cfg, params) -> None:
     workload = build_workload(SHARE_SPEC)
     eng, res, launches, peak = serve_run(dev, cfg, params, SHARE_ECFG, workload)
@@ -1344,12 +1442,16 @@ def parity_phase(dev, cfg, params, workload) -> None:
 
 def train_launches_per_step(cfg, mode: str, flags: ExecFlags, mecefo: MeCeFOConfig) -> dict:
     """Kernel launches one training step must make: every layer's forward
-    launches its norms (two sublayer norms, plus q/k norms with qk_norm), its
-    SwiGLU (dense or an MoE layer's experts; none for gelu and relu2) and
-    its attention; the FFN recompute (technique II or remat "ffn")
-    launches the FFN norm and the activation again in the backward; the
-    final norm launches once; each low-rank matmul of a dense FFN (3 with a
-    gate, else 2) launches kernel #6 once in the backward unless the step
+    launches its norms (an attention mixer's norm, plus q/k norms with
+    qk_norm; an SSM mixer's norm and gate norm; the FFN norm), its SwiGLU
+    (dense or an MoE layer's experts; none for gelu and relu2, and none for
+    a zero-width FFN, whose empty call launches nothing) and an attention
+    layer's attention; the FFN recompute (technique II or remat "ffn")
+    launches the FFN norm and the activation again in the backward, and
+    technique II's SSM recompute (degraded mode) the SSM mixer's two norms;
+    the final norm launches once; each low-rank matmul (an SSM mixer's
+    in_proj and out_proj; a dense FFN's 3 with a gate, else 2, unless it
+    has zero width) launches kernel #6 once in the backward unless the step
     is exact (the MoE experts' grouped low-rank backward is batched
     products, as in the reference).  The backwards of the norm, activation
     and attention recompute their plain versions and launch nothing."""
@@ -1357,14 +1459,19 @@ def train_launches_per_step(cfg, mode: str, flags: ExecFlags, mecefo: MeCeFOConf
         raise ValueError(f"no launch count derived for remat {flags.remat!r}")
     L = cfg.n_layers
     recompute = flags.remat == "ffn" or (mode == "degraded" and mecefo.recompute_ffn)
+    ssm_recompute = mode == "degraded" and mecefo.recompute_ffn
     exact = NDBContext(mode=mode, mecefo=mecefo).lowrank_mode() == "exact"
     gated = cfg.ffn_act == "swiglu"
-    dense = L - sum(cfg.layer_is_moe(i) for i in range(L))
+    moe = sum(cfg.layer_is_moe(i) for i in range(L))
+    dense = (L - moe) if cfg.d_ff else 0
+    ssm = sum(cfg.layer_kind(i) == "ssm" for i in range(L))
+    attn = L - ssm
     return {
-        "rmsnorm": (2 + 2 * cfg.qk_norm + recompute) * L + 1,
-        "swiglu": (1 + recompute) * L if gated else 0,
-        "flash_attention": L,
-        "lowrank_wgrad": 0 if exact else (3 if gated else 2) * dense,
+        "rmsnorm": ((1 + 2 * cfg.qk_norm) * attn + (2 + 2 * ssm_recompute) * ssm
+                    + (1 + recompute) * L + 1),
+        "swiglu": (1 + recompute) * (dense + moe) if gated else 0,
+        "flash_attention": attn,
+        "lowrank_wgrad": 0 if exact else (3 if gated else 2) * dense + 2 * ssm,
     }
 
 
@@ -2144,6 +2251,85 @@ def rows_max_abs(a, b) -> float:
                for k in x)
 
 
+def restore_case(dev, cfg, params, path, ecfg, groups, target, fails: list) -> None:
+    """One restore_bitwise row: the ``groups`` of requests admitted a step
+    apart, the ``target``-th decoded RESTORE_ROUNDS rounds, then rebuilt in
+    fresh engines by the replay path, the snapshot path and (reported) the
+    JAX package's batch-1 re-prefill."""
+    eng = ServeEngine(cfg, params, ecfg, device=dev)
+    states = []
+    for t, group in enumerate(groups):
+        pairs = []
+        for req in group:
+            rs = RequestState(req)
+            states.append(rs)
+            slot, plan, complex_ = eng.try_bind(rs, t)
+            if complex_:
+                eng.start_prefill(slot, rs, plan, t)
+            else:
+                pairs.append((slot, rs))
+        if pairs:
+            eng.prefill_bound(pairs, t)
+    rs, t = states[target], len(groups)
+    while not rs.emitted:  # the chunked prompt's later chunks
+        eng.step_prefills(t)
+        t += 1
+    snap = None
+    for r in range(RESTORE_ROUNDS):
+        if r == RESTORE_SNAP_ROUND:
+            pages, n_em, cur, nb = eng.snapshot_slot(eng.slots.index(rs))
+            snap = KVSnapshot(rs.rid, 1, t, n_em, cur, pages, nb)
+        eng.decode_round(t)
+        t += 1
+    cur_len, want = slot_rows(eng, rs)
+    row = {"phase": "replicas", "run": "restore_bitwise", "path": path,
+           "recipe": list(rs.prefill_recipe[:1]) + [x for x in rs.prefill_recipe[1:]
+                                                    if isinstance(x, int)],
+           "prompt_len": len(rs.req.prompt), "cur_len": cur_len}
+    for how, snapshot, recipe in (("replay", None, rs.prefill_recipe),
+                                  ("snapshot", snap, rs.prefill_recipe),
+                                  ("jax_batch1_replay", None, None)):
+        other = ServeEngine(cfg, params, ecfg, device=dev)
+        rs2 = dataclasses.replace(rs, emitted=list(rs.emitted), prefill_recipe=recipe)
+        try:
+            got_path, replayed = other.admit_restored(rs2, snapshot, 0)
+            got = slot_rows(other, rs2)[1]
+            row[how + "_bitwise"] = rows_equal(got, want)
+            row[how + "_max_abs"] = rows_max_abs(got, want)
+            row[how + "_replayed"] = replayed
+        except AssertionError as e:  # the first-token check
+            row[how + "_bitwise"] = False
+            row[how + "_error"] = str(e)
+        del other
+    emit(row)
+    if not (row["replay_bitwise"] and row["snapshot_bitwise"]):
+        fails.append(f"restore_bitwise {path}: {row}")
+    del eng
+    torch.cuda.empty_cache()
+
+
+def moe_fork_restore_row(dev, fails: list) -> None:
+    """restore_bitwise for an MoE prompt that forked a donor's 128-token
+    prefix (reduced qwen3-moe, bf16, the paged round, prefix sharing): its
+    recipe is the fork itself, and the replay path rebuilds the donor and
+    runs the tail again.  Capacity for every slot (factor 8): a decode
+    round restores bitwise only where no slot can be dropped."""
+    cfg = reduced(get_config(MOE_CONFIG))
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=8.0))
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    gen = np.random.default_rng(6)
+    prefix = tuple(int(x) for x in gen.integers(0, cfg.vocab_size, 128))
+
+    def prompt(n):
+        return prefix + tuple(int(x) for x in gen.integers(0, cfg.vocab_size, n - len(prefix)))
+
+    ecfg = EngineConfig(max_slots=8, page_size=16, pages_per_slot=64, use_paged_kernel=True,
+                        prefix_sharing=True)
+    restore_case(dev, cfg, params, "forked, moe", ecfg,
+                 [[Request(0, 0, prompt(300), 16)], [Request(1, 0, prompt(260), 16)]], 1, fails)
+    del params
+
+
 def restore_bitwise_rows(dev, cfg, params, fails: list) -> None:
     """(c) One request admitted by each path at the cell's shapes, rebuilt
     in fresh engines by the replay path (its prefill recipe) and by the
@@ -2166,56 +2352,8 @@ def restore_bitwise_rows(dev, cfg, params, fails: list) -> None:
                     [[Request(0, 0, prompt(300), 16)]], 0),
     }
     for path, (ecfg, groups, target) in cases.items():
-        eng = ServeEngine(cfg, params, ecfg, device=dev)
-        states = []
-        for t, group in enumerate(groups):
-            pairs = []
-            for req in group:
-                rs = RequestState(req)
-                states.append(rs)
-                slot, plan, complex_ = eng.try_bind(rs, t)
-                if complex_:
-                    eng.start_prefill(slot, rs, plan, t)
-                else:
-                    pairs.append((slot, rs))
-            if pairs:
-                eng.prefill_bound(pairs, t)
-        rs, t = states[target], len(groups)
-        while not rs.emitted:  # the chunked prompt's later chunks
-            eng.step_prefills(t)
-            t += 1
-        snap = None
-        for r in range(RESTORE_ROUNDS):
-            if r == RESTORE_SNAP_ROUND:
-                pages, n_em, cur, nb = eng.snapshot_slot(eng.slots.index(rs))
-                snap = KVSnapshot(rs.rid, 1, t, n_em, cur, pages, nb)
-            eng.decode_round(t)
-            t += 1
-        cur_len, want = slot_rows(eng, rs)
-        row = {"phase": "replicas", "run": "restore_bitwise", "path": path,
-               "recipe": list(rs.prefill_recipe[:1]) + [x for x in rs.prefill_recipe[1:]
-                                                        if isinstance(x, int)],
-               "prompt_len": len(rs.req.prompt), "cur_len": cur_len}
-        for how, snapshot, recipe in (("replay", None, rs.prefill_recipe),
-                                      ("snapshot", snap, rs.prefill_recipe),
-                                      ("jax_batch1_replay", None, None)):
-            other = ServeEngine(cfg, params, ecfg, device=dev)
-            rs2 = dataclasses.replace(rs, emitted=list(rs.emitted), prefill_recipe=recipe)
-            try:
-                got_path, replayed = other.admit_restored(rs2, snapshot, 0)
-                got = slot_rows(other, rs2)[1]
-                row[how + "_bitwise"] = rows_equal(got, want)
-                row[how + "_max_abs"] = rows_max_abs(got, want)
-                row[how + "_replayed"] = replayed
-            except AssertionError as e:  # the first-token check
-                row[how + "_bitwise"] = False
-                row[how + "_error"] = str(e)
-            del other
-        emit(row)
-        if not (row["replay_bitwise"] and row["snapshot_bitwise"]):
-            fails.append(f"restore_bitwise {path}: {row}")
-        del eng
-        torch.cuda.empty_cache()
+        restore_case(dev, cfg, params, path, ecfg, groups, target, fails)
+    moe_fork_restore_row(dev, fails)
     # fork against whole: a prompt that forks a donor's 128-token prefix
     # holds bitwise the rows it gets admitted with no prefix registry.
     # Unchunked: the donor a 300-token prompt; chunked (CHUNK_PAGES-page
@@ -2635,38 +2773,15 @@ def moe_f32_grad_rows(params, proj, batch, cfg32, keep, w, names, dev) -> None:
     """The tight gate of phase 14: the same step in f32 (the bf16 weights
     and V1 upcast), kernels against plain versions in the four modes, every
     leaf within TRAIN_PARITY_TOL["float32"], as ``train_parity_phase``
-    holds llama.  Routing is held equal: the plain run takes the kernel
-    run's expert ids (forward and FFN recompute), since over 4 x 4096
-    tokens a few f32 near-ties of the 8th and 9th expert swap, and one
-    swap moves later tokens through attention.  The decisions the plain
-    run's own top-k would have made differently are reported."""
+    holds llama.  Routing is held equal (``grad_parity_row``): over 4 x
+    4096 tokens a few f32 near-ties of the 8th and 9th expert swap, and one
+    swap moves later tokens through attention."""
     up = lambda t: t.float()  # noqa: E731
     p32, v32 = tree_map(up, params), tree_map(up, proj)
-    tol, loss_tol = TRAIN_PARITY_TOL["float32"]
     for mode in TRAIN_MODES:
-        ctx = parity_ctx(mode, keep, w, dev)
-        with routing_log() as k_route:
-            lk, _, gk = loss_and_grads(p32, v32, batch, cfg32, ctx, TRAIN_FLAGS)
-        with plain_versions(), forced_routing(k_route) as own:
-            lp, _, gp = loss_and_grads(p32, v32, batch, cfg32, ctx, TRAIN_FLAGS)
-        flips, n_dec = own
-        rel = leaf_rel_errs(gk, gp)
-        loss_err = abs(float(lk) - float(lp))
-        finite = all(bool(torch.isfinite(g).all()) for g in tree_leaves(gk))
-        ok = (finite and max(rel) <= tol and loss_err <= loss_tol * abs(float(lp)))
-        row = {"phase": "moe train parity", "config": cfg32.name, "dtype": "float32",
-               "n_layers": cfg32.n_layers, "mode": mode, "batch": MOE_TRAIN_B,
-               "seq_len": MOE_TRAIN_S, "remat": TRAIN_FLAGS.remat, "loss_kernels": float(lk),
-               "loss_plain": float(lp), "loss_abs_err": loss_err, "loss_limit_rel": loss_tol,
-               "routing": "plain run forced to the kernel run's expert ids",
-               "routing_decisions": n_dec, "routing_decisions_plain_own_differ": flips,
-               "max_leaf_rel_err": max(rel), "max_leaf": names[rel.index(max(rel))],
-               "mean_leaf_rel_err": sum(rel) / len(rel), "n_leaves": len(rel),
-               "limit_rel": tol, "grads_finite": finite, "ok": ok}
-        emit(row)
-        if not ok:
-            raise AssertionError(f"moe train f32 parity {mode} failed: {row}")
-        del gk, gp
+        grad_parity_row("moe train parity", cfg32, p32, v32, batch,
+                        parity_ctx(mode, keep, w, dev), names, mode,
+                        *TRAIN_PARITY_TOL["float32"], batch=MOE_TRAIN_B, seq_len=MOE_TRAIN_S)
         torch.cuda.empty_cache()
     del p32, v32
 
@@ -2775,6 +2890,473 @@ def moe_train_phase(dev) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phases 15-17: the SSM mixer; gradient accumulation and the dots remat
+# ---------------------------------------------------------------------------
+
+
+def ssm_kernel_rows(dev, timer) -> dict:
+    """Kernel rows at mamba2's new shapes over one step's SSM_TRAIN_B x
+    SSM_TRAIN_S rows, in bf16: #3 at d_model 2560 and d_inner 5120 (the
+    gate norm), each against its plain version and in turns against
+    F.rms_norm; #6 at in_proj's and out_proj's (T, n, m, 64), each against
+    its plain version and in turns against multi_dot; then the zero-width
+    FFN's calls (#4 on (T, 0), #6 with m = 0 and with n = 0, both r = 0)
+    launch nothing and return empty or zero results.  Returns the zero
+    calls' launches (0 each)."""
+    import torch.nn.functional as F
+
+    cfg = get_config(SSM_CONFIG)
+    d, ssm = cfg.d_model, cfg.ssm
+    d_inner = ssm.expand * d
+    nh = d_inner // ssm.head_dim
+    d_in_proj = 2 * d_inner + 2 * ssm.d_state + nh
+    T = SSM_TRAIN_B * SSM_TRAIN_S
+    gen = torch.Generator(device=dev).manual_seed(21)
+    dt, es = torch.bfloat16, 2
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(dt)
+
+    for width in (d, d_inner):
+        x, s_ = randn(T, width), randn(width)
+        lib = (lambda x=x, s_=s_, w=width: F.rms_norm(x, (w,), s_, 1e-5))
+        compare("rmsnorm", dt, [T, width], rmsnorm(x, s_, 1e-5), rmsnorm_plain(x, s_, 1e-5),
+                timer, lambda: rmsnorm(x, s_, 1e-5), lambda: rmsnorm_plain(x, s_, 1e-5),
+                2 * x.numel() * es + width * es, 4.0 * x.numel(), lib)
+        turns("rmsnorm", [T, width], timer, lambda: rmsnorm(x, s_, 1e-5), lib)
+    for n, m in ((d, d_in_proj), (d_inner, d)):
+        r = TRAIN_RANK
+        x, dy, v1 = randn(T, n), randn(T, m), randn(n, r)
+        compare_rel("lowrank_wgrad", dt, [T, n, m, r], lowrank_wgrad_project(x, dy, v1),
+                    lowrank_wgrad_project_plain(x, dy, v1), timer,
+                    lambda: lowrank_wgrad_project(x, dy, v1),
+                    lambda: lowrank_wgrad_project_plain(x, dy, v1),
+                    nbytes(x, dy, v1) + r * m * 4, 2.0 * T * r * (n + m),
+                    lambda: torch.linalg.multi_dot([v1.T, x.T, dy]))
+        turns("lowrank_wgrad", [T, n, m, r], timer, lambda: lowrank_wgrad_project(x, dy, v1),
+              lambda: torch.linalg.multi_dot([v1.T, x.T, dy]))
+    before = {n: WRAPPERS[n].launches for n in WRAPPERS}
+    g0 = randn(T, 0)
+    outs = {"swiglu (T, 0)": swiglu(g0, g0),
+            "lowrank_wgrad m 0": lowrank_wgrad_project(randn(T, d), randn(T, 0), randn(d, 0)),
+            "lowrank_wgrad n 0": lowrank_wgrad_project(randn(T, 0), randn(T, d), randn(0, 0))}
+    torch.cuda.synchronize()
+    launched = {n: WRAPPERS[n].launches - before[n] for n in WRAPPERS}
+    shapes = {k: list(v.shape) for k, v in outs.items()}
+    ok = (not any(launched.values()) and shapes["swiglu (T, 0)"] == [T, 0]
+          and shapes["lowrank_wgrad m 0"] == [0, 0] and shapes["lowrank_wgrad n 0"] == [0, d])
+    emit({"phase": "kernels", "run": "zero-element calls", "shapes": shapes,
+          "launches": launched, "ok": ok})
+    if not ok:
+        raise AssertionError(f"zero-element calls launched {launched} or gave {shapes}")
+    return launched
+
+
+def grad_parity_row(phase, cfg, params, proj, inputs, ctx, names, mode, tol, loss_tol,
+                    **extra) -> dict:
+    """One step's loss and gradients through the kernels and the plain
+    versions (TRAIN_FLAGS), every leaf within ``tol`` of the plain one
+    (||Δ|| / ||g||), the loss within ``loss_tol``; MoE layers' routing held
+    equal (the plain run takes the kernel run's expert ids)."""
+    with routing_log() as k_route:
+        lk, _, gk = loss_and_grads(params, proj, inputs, cfg, ctx, TRAIN_FLAGS)
+    with plain_versions(), forced_routing(k_route) as own:
+        lp, _, gp = loss_and_grads(params, proj, inputs, cfg, ctx, TRAIN_FLAGS)
+    rel = leaf_rel_errs(gk, gp)
+    loss_err = abs(float(lk) - float(lp))
+    finite = all(bool(torch.isfinite(g).all()) for g in tree_leaves(gk))
+    ok = finite and max(rel) <= tol and loss_err <= loss_tol * abs(float(lp))
+    row = {"phase": phase, "config": cfg.name, "dtype": cfg.dtype, "n_layers": cfg.n_layers,
+           "mode": mode, **extra, "remat": TRAIN_FLAGS.remat, "loss_kernels": float(lk),
+           "loss_plain": float(lp), "loss_abs_err": loss_err, "loss_limit_rel": loss_tol,
+           "max_leaf_rel_err": max(rel), "max_leaf": names[rel.index(max(rel))],
+           "top_leaf_rel_errs": sorted(([r, f"{i} {n}"] for i, (n, r) in
+                                        enumerate(zip(names, rel))), reverse=True)[:5],
+           "mean_leaf_rel_err": sum(rel) / len(rel), "n_leaves": len(rel), "limit_rel": tol,
+           "grads_finite": finite, "ok": ok}
+    if own[1]:
+        row.update({"routing": "plain run forced to the kernel run's expert ids",
+                    "routing_decisions": own[1], "routing_decisions_plain_own_differ": own[0]})
+    emit(row)
+    if not ok:
+        raise AssertionError(f"{phase} {cfg.name} {mode} gradient parity failed: {row}")
+    return row
+
+
+def first_layers(tree, n: int):
+    """A params-shaped tree (or V1 tree) cut to its first ``n`` periods."""
+    if isinstance(tree, dict):
+        return {k: (first_layers(v, n) if k == "layers" else v) for k, v in tree.items()}
+    return tuple({part: {k: t[:n] for k, t in blk[part].items()} for part in blk}
+                 for blk in tree)
+
+
+def ssm_train_phase(dev) -> tuple:
+    """Phase 15: full-width, full-depth mamba2-2.7b; returns (launches summed
+    over its steps, the seeded params) for phase 16."""
+    t0 = time.perf_counter()
+    total = {n: 0 for n in TRAIN_KERNELS}
+    cfg = get_config(SSM_CONFIG)
+    B, S = SSM_TRAIN_B, SSM_TRAIN_S
+    free_card("mamba2 train", 62)
+    params, proj, svd_s = seeded_with_proj(dev, cfg, TRAIN_RANK)
+    d_inner = cfg.ssm.expand * cfg.d_model
+    emit({"phase": "mamba2 train", "config": cfg.name, "n_layers": cfg.n_layers,
+          "n_params": count_params(cfg), "svd_refresh_s": svd_s, "svds": 2 * cfg.n_layers,
+          "matrices": [[cfg.d_model, 2 * d_inner + 2 * cfg.ssm.d_state + d_inner // 64],
+                       [d_inner, cfg.d_model]]})
+    keep, w = plan_to_masks(SSM_TRAIN_PLAN, cfg, B)
+    batch = to_device(SyntheticLM(cfg.vocab_size).batch(0, B, S), dev)
+    names = leaf_names(params)
+    # forward-backward peaks: technique II recomputes whole SSM blocks in
+    # degraded mode, so its peak must lie below the healthy step's
+    fb = {}
+    for mode in TRAIN_MODES:
+        ctx = parity_ctx(mode, keep, w, dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t1 = time.perf_counter()
+        loss, _, g = loss_and_grads(params, proj, batch, cfg, ctx, TRAIN_FLAGS)
+        float(loss)
+        torch.cuda.synchronize()
+        fb[mode] = {"peak_above_held_gib": (torch.cuda.max_memory_allocated() - held) / 2 ** 30,
+                    "ms": 1e3 * (time.perf_counter() - t1), "loss": float(loss)}
+        del g
+    emit({"phase": "mamba2 train", "run": "forward-backward", "batch": B, "seq_len": S,
+          "by_mode": fb, "degraded_below_off": fb["degraded"]["peak_above_held_gib"]
+          < fb["off"]["peak_above_held_gib"]})
+    if not fb["degraded"]["peak_above_held_gib"] < fb["off"]["peak_above_held_gib"]:
+        raise AssertionError(f"mamba2: degraded forward-backward peak not below off's: {fb}")
+    # bf16 at full depth, dynamic and degraded, anchored to the f32 step.
+    # The gate is the anchor, as for MoE (phase 14): at 64 layers of seeded
+    # weights the bf16 gradient is rounding noise of the dt path (its
+    # cumulative decays cancel), the plain bf16 path's leaves lying
+    # 1.46 (relative) from the f32 step's, so the kernels-vs-plain leaf
+    # limit is reported; the f32 rows below gate every leaf
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    up = lambda t: t.float()  # noqa: E731
+    tol, loss_tol = TRAIN_PARITY_TOL["bfloat16"]
+    for mode in ("dynamic", "degraded"):
+        ctx = parity_ctx(mode, keep, w, dev)
+        p32, v32 = tree_map(up, params), tree_map(up, proj)
+        with plain_versions():
+            _l32, _, g32 = loss_and_grads(p32, v32, batch, cfg32, ctx, TRAIN_FLAGS)
+        del p32, v32
+        torch.cuda.empty_cache()
+        lk, _, gk = loss_and_grads(params, proj, batch, cfg, ctx, TRAIN_FLAGS)
+        with plain_versions():
+            lp, _, gp = loss_and_grads(params, proj, batch, cfg, ctx, TRAIN_FLAGS)
+        rel = leaf_rel_errs(gk, gp)
+        to_k, to_p = max(leaf_rel_errs(gk, g32)), max(leaf_rel_errs(gp, g32))
+        loss_err = abs(float(lk) - float(lp))
+        finite = all(bool(torch.isfinite(g).all()) for g in tree_leaves(gk))
+        ok = (finite and loss_err <= loss_tol * abs(float(lp))
+              and to_k <= TRAIN_ANCHOR_RATIO * to_p)
+        row = {"phase": "mamba2 train parity", "dtype": "bfloat16", "n_layers": cfg.n_layers,
+               "mode": mode, "batch": B, "seq_len": S, "loss_kernels": float(lk),
+               "loss_plain": float(lp), "loss_f32": float(_l32), "loss_abs_err": loss_err,
+               "loss_limit_rel": loss_tol, "max_leaf_rel_err": max(rel),
+               "max_leaf": names[rel.index(max(rel))], "mean_leaf_rel_err": sum(rel) / len(rel),
+               "leaf_limit_rel_reported": tol, "max_leaf_rel_err_kernels_vs_f32": to_k,
+               "max_leaf_rel_err_plain_vs_f32": to_p, "anchor_ratio_limit": TRAIN_ANCHOR_RATIO,
+               "grads_finite": finite, "ok": ok}
+        emit(row)
+        if not ok:
+            raise AssertionError(f"mamba2 bf16 {mode} train parity failed: {row}")
+        del gk, gp, g32
+        torch.cuda.empty_cache()
+    # f32 on the first SSM_PARITY_LAYERS layers, all four modes
+    cfg4 = dataclasses.replace(cfg, n_layers=SSM_PARITY_LAYERS, dtype="float32")
+    p4, v4 = tree_map(up, first_layers(params, cfg4.n_layers)), tree_map(up, first_layers(proj, cfg4.n_layers))
+    keep4, w4 = plan_to_masks(SSM_TRAIN_PLAN, cfg4, B)
+    for mode in TRAIN_MODES:
+        grad_parity_row("mamba2 train parity", cfg4, p4, v4, batch, parity_ctx(mode, keep4, w4, dev),
+                        leaf_names(p4), mode, SSM_F32_LEAF_TOL, TRAIN_PARITY_TOL["float32"][1],
+                        batch=B, seq_len=S)
+    del p4, v4, batch
+    # MeCeFO steps through make_train_step, launch counts exact
+    rows = {}
+    for mode in TRAIN_MODES:
+        free_card("mamba2 train", 0)
+        row = config_step(dev, cfg, mode, B, S, SSM_TRAIN_STEPS, TRAIN_RANK, SSM_TRAIN_PLAN,
+                          base=(params, proj, svd_s))
+        emit({"phase": "mamba2 train", **row})
+        if not row["ok"]:
+            raise AssertionError(f"mamba2 train {mode}: {row}")
+        rows[mode] = row
+        for n in TRAIN_KERNELS:
+            total[n] += row["launches"][n]
+    # the zero-width FFN: its SwiGLU and #6 calls are empty and launch nothing
+    L = cfg.n_layers
+    zero = {"swiglu": {m: (1 + 1) * L for m in TRAIN_MODES},  # forward + FFN recompute
+            "lowrank_wgrad": {m: 0 if m == "off" else 3 * L for m in TRAIN_MODES}}
+    emit({"phase": "mamba2 train", "run": "zero-width FFN calls per step (no launch)",
+          "calls": zero, "swiglu_launches": {m: rows[m]["launches"]["swiglu"] for m in rows}})
+    # where the device time goes: the plain SSD scan's share
+    for mode in ("off", "degraded"):
+        free_card("mamba2 profile", 0)
+        cell = train_cell(dev, config=SSM_CONFIG, params=params, proj=proj, svd_s=svd_s)
+        emit({"phase": "mamba2 profile", **profile_step(cell, mode, dev)})
+        del cell
+    emit({"phase": "mamba2 train", "run": "phase", "seconds": time.perf_counter() - t0})
+    return total, params
+
+
+def dense_path_logits(params, cfg, prompts, n_steps, forced=None, step_ms=None):
+    """Prefill each prompt alone at its own length into dense caches of
+    ``max(len) + n_steps`` rows, then ``n_steps`` greedy ``forward_decode``
+    steps for all of them at once (per-prompt lengths; an SSM layer keeps
+    its conv window and state per row).  Returns (logits per step, tokens
+    fed); ``step_ms`` collects each decode step's wall ms."""
+    dev = params["embed"].device
+    dt = params["embed"].dtype
+    smax = max(len(p) for p in prompts) + n_steps
+    parts, first = [], []
+    for prompt in prompts:
+        toks = torch.tensor([prompt], dtype=torch.int32, device=dev)
+        caches, logits = forward_prefill(params, {"tokens": toks}, cfg,
+                                         cache_structs(cfg, 1, smax, dt))
+        parts.append(caches)
+        first.append(logits[0])
+    caches = tuple({k: torch.cat([c[i][k] for c in parts], dim=1) for k in parts[0][i]}
+                   for i in range(len(parts[0])))
+    del parts
+    out = [torch.stack(first)]
+    lens = torch.tensor([len(p) for p in prompts], dtype=torch.int32, device=dev)
+    fed = []
+    for step in range(n_steps):
+        tok = greedy_token(out[-1], cfg) if forced is None else forced[step]
+        fed.append(tok)
+        t1 = time.perf_counter()
+        caches, logits = forward_decode(params, caches, tok, lens, cfg)
+        if step_ms is not None:
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t1))
+        out.append(logits)
+        lens = lens + 1
+    return torch.stack(out), fed
+
+
+def prefill_decode_consistency(phase, cfg, params, prompts) -> dict:
+    """Each prompt's last decode logits (kernels) against one prefill of the
+    prompt followed by the tokens fed (the reference's
+    ``test_prefill_decode_matches_full``), and the kernel path against the
+    plain path, at f32, both within SSM_F32_LOGIT_REL of max |logit|."""
+    k_logits, fed = dense_path_logits(params, cfg, prompts, SSM_DECODE_STEPS)
+    with plain_versions():
+        p_logits, _ = dense_path_logits(params, cfg, prompts, SSM_DECODE_STEPS, forced=fed)
+    V = cfg.vocab_size
+    path_err = float((k_logits[..., :V] - p_logits[..., :V]).abs().max())
+    errs = []
+    for i, prompt in enumerate(prompts):
+        seq = list(prompt) + [int(t[i]) for t in fed]
+        toks = torch.tensor([seq], dtype=torch.int32, device=params["embed"].device)
+        _, full = forward_prefill(params, {"tokens": toks}, cfg,
+                                  cache_structs(cfg, 1, len(seq), params["embed"].dtype))
+        errs.append(float((k_logits[-1, i, :V] - full[0, :V]).abs().max()))
+    scale = float(p_logits[..., :V].abs().max())
+    tol = SSM_F32_LOGIT_REL * scale
+    ok = (max(errs) <= tol and path_err <= tol
+          and bool(torch.isfinite(k_logits[..., :V]).all()))
+    row = {"phase": phase, "config": cfg.name, "dtype": "float32", "n_layers": cfg.n_layers,
+           "prompt_lens": [len(p) for p in prompts], "decode_steps": len(fed),
+           "prefill_then_decode_vs_full_prefill_max_abs": errs,
+           "kernels_vs_plain_max_abs": path_err, "max_abs_logit": scale,
+           "limit": {"max_abs <=": tol, "of max |logit|": SSM_F32_LOGIT_REL}, "ok": ok}
+    emit(row)
+    if not ok:
+        raise AssertionError(f"{phase} prefill/decode consistency failed: {row}")
+    return row
+
+
+def ssm_prompts(cfg) -> list:
+    rng = np.random.default_rng(16)
+    return [[int(x) for x in rng.integers(0, cfg.vocab_size, n)] for n in SSM_PROMPT_LENS]
+
+
+def ssm_decode_phase(dev, params) -> dict:
+    """Phase 16: phase 15's weights (full depth, bf16): SSM_PROMPT_LENS
+    prompts through ``forward_prefill``, then SSM_DECODE_STEPS greedy
+    ``forward_decode`` steps over the dense caches, through the kernels and
+    the plain versions (teacher-forced) at the serve phases' bf16 limits;
+    at f32 on SSM_PARITY_LAYERS layers, prefill then decode against the
+    full prefill.  Returns the kernel run's launches."""
+    t0 = time.perf_counter()
+    cfg = get_config(SSM_CONFIG)
+    free_card("mamba2 decode", 4)
+    prompts = ssm_prompts(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    reset_launches()
+    ms = []
+    k_logits, fed = dense_path_logits(params, cfg, prompts, SSM_DECODE_STEPS, step_ms=ms)
+    launches = {n: WRAPPERS[n].launches for n in SERVE_KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    with plain_versions():
+        p_logits, _ = dense_path_logits(params, cfg, prompts, SSM_DECODE_STEPS, forced=fed)
+    up = lambda t: t.float()  # noqa: E731
+    with plain_versions():
+        f_logits, _ = dense_path_logits(tree_map(up, params), dataclasses.replace(
+            cfg, dtype="float32"), prompts, SSM_DECODE_STEPS, forced=fed)
+    V = cfg.vocab_size
+    anchored_bf16_path("mamba2 decode parity", k_logits[..., :V], p_logits[..., :V],
+                       f_logits[..., :V], n_layers=cfg.n_layers, prompt_lens=SSM_PROMPT_LENS,
+                       steps=1 + len(fed))
+    L, n = cfg.n_layers, len(prompts)
+    # per prefill: 3 norms a layer (ln, gate norm, FFN ln) + the final
+    # norm; per decode step the same for the batch
+    want = {"rmsnorm": (n + SSM_DECODE_STEPS) * (3 * L + 1), "swiglu": 0, "flash_attention": 0,
+            "paged_decode": 0, "flash_decode": 0}
+    emit({"phase": "mamba2 decode", "config": cfg.name, "n_layers": L, "batch": n,
+          "prompt_lens": SSM_PROMPT_LENS, "decode_steps": len(fed),
+          "decode_ms": ms, "decode_ms_median": sorted(ms)[len(ms) // 2],
+          "tokens_per_s": n * len(ms) / (sum(ms) / 1e3),
+          "peak_above_held_gib": (peak - held) / 2 ** 30, "launches": launches,
+          "want_launches": want, "ok": launches == want})
+    if launches != want:
+        raise AssertionError(f"mamba2 decode launches {launches}, want {want}")
+    cfg4 = dataclasses.replace(cfg, n_layers=SSM_PARITY_LAYERS, dtype="float32")
+    p4 = tree_map(up, first_layers(params, cfg4.n_layers))
+    prefill_decode_consistency("mamba2 decode parity", cfg4, p4, prompts)
+    del p4
+    emit({"phase": "mamba2 decode", "run": "phase", "seconds": time.perf_counter() - t0})
+    return launches
+
+
+def hybrid_phase(dev) -> dict:
+    """Phase 17: reduced jamba (the hybrid trunk: attention every 8 layers,
+    MoE every second, SSM elsewhere) in f32 on the card: loss and every
+    gradient leaf, kernels against plain versions, in the four NDB modes;
+    prefill then decode against the full prefill.  Then jamba's smallest
+    legal depth (one 8-layer period) at its published widths, in bytes.
+    Returns the launches of its kernel runs."""
+    t0 = time.perf_counter()
+    free_card("hybrid", 2)
+    reset_launches()
+    # capacity for every token: a decode step's few tokens and the full
+    # prefill's route alike only where no expert drops one
+    cfg = reduced(get_config(HYBRID_CONFIG), dtype="float32")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=8.0))
+    params, proj, _ = seeded_with_proj(dev, cfg, HYBRID_RANK, seed=2)
+    B, S = HYBRID_B, HYBRID_S
+    keep, w = plan_to_masks(MOE_TRAIN_PLAN, cfg, B)
+    batch = to_device(SyntheticLM(cfg.vocab_size).batch(0, B, S), dev)
+    names = leaf_names(params)
+    for mode in TRAIN_MODES:
+        grad_parity_row("hybrid parity", cfg, params, proj, batch, parity_ctx(mode, keep, w, dev),
+                        names, mode, SSM_F32_LEAF_TOL, TRAIN_PARITY_TOL["float32"][1],
+                        batch=B, seq_len=S,
+                        layout=[f"{cfg.layer_kind(i)}{'+moe' if cfg.layer_is_moe(i) else ''}"
+                                for i in range(cfg.block_period)])
+    rng = np.random.default_rng(17)
+    prompts = [[int(x) for x in rng.integers(0, cfg.vocab_size, n)] for n in (40, 64, 100, 128)]
+    prefill_decode_consistency("hybrid parity", cfg, params, prompts)
+    launches = {n: WRAPPERS[n].launches for n in WRAPPERS}
+    full = get_config(HYBRID_CONFIG)
+    period = dataclasses.replace(full, n_layers=full.block_period)
+    n_period = count_params(period)
+    emit({"phase": "hybrid", "config": full.name, "smallest_legal_depth_layers": full.block_period,
+          "params": n_period, "bf16_bytes": 2 * n_period, "bf16_gb": 2 * n_period / 1e9,
+          "full_depth_params": count_params(full), "card_bytes": torch.cuda.mem_get_info()[1],
+          "fits_one_card": 2 * n_period < torch.cuda.mem_get_info()[1],
+          "note": "jamba at published widths waits for the multi-GPU slice"})
+    emit({"phase": "hybrid", "run": "phase", "seconds": time.perf_counter() - t0})
+    del params, proj, batch
+    return launches
+
+
+def accum_phase(dev) -> dict:
+    """Gradient accumulation and the dots remat on phase 7's cell
+    (llama-350m, B 8, S 1024, rank 64): accum 1, 2 and 4 at the same global
+    batch in dynamic and degraded mode (step ms, peaks); remat "dots"
+    against "ffn" there; at f32 on a 4-layer copy the accumulated
+    gradients against accum 1's, and "dots"'s against "none"'s, every leaf
+    within TRAIN_PARITY_TOL["float32"].  Returns the launches of its steps."""
+    t0 = time.perf_counter()
+    free_card("accumulation", 30)
+    cell = train_cell(dev)
+    cfg = cell.cfg
+    batch = cell.source().batch(0, TRAIN_B, TRAIN_S)
+    total = {n: 0 for n in TRAIN_KERNELS}
+    peaks = {}
+    for mode in ("dynamic", "degraded"):
+        for accum, remat in ((1, "ffn"), (2, "ffn"), (4, "ffn"), (1, "dots")):
+            state = cell.state()
+            flags = ExecFlags(remat=remat)
+            step = make_train_step(cfg, cell.train, cell.mecefo, cell.shape, ndb_mode=mode,
+                                   flags=flags, device=dev,
+                                   parallel=ParallelConfig(accum=accum))
+            ndb = ({"keep": cell.keep, "example_weight": cell.weight},) if mode == "dynamic" else ()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            reset_launches()
+            losses, times = [], []
+            for i in range(ACCUM_STEPS):
+                t1 = time.perf_counter()
+                state, metrics = step(state, batch, *ndb)
+                losses.append(float(metrics["loss"]))
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - t1))
+            peak = torch.cuda.max_memory_allocated()
+            launches = {n: WRAPPERS[n].launches for n in TRAIN_KERNELS}
+            row = {"phase": "accumulation", "config": cfg.name, "mode": mode, "accum": accum,
+                   "remat": remat, "global_batch": TRAIN_B, "micro_batch": TRAIN_B // accum,
+                   "seq_len": TRAIN_S, "losses": losses, "step_ms": times,
+                   "step_ms_min": min(times), "peak_mem_gib": peak / 2 ** 30,
+                   "peak_above_state_gib": (peak - base) / 2 ** 30, "launches": launches,
+                   "ok": bool(np.isfinite(losses).all())}
+            if remat == "ffn":
+                want = train_launches_per_step(cfg, mode, flags, cell.mecefo)
+                row["want_launches"] = {n: c * accum * ACCUM_STEPS for n, c in want.items()}
+                row["ok"] = row["ok"] and all(launches[n] == c for n, c in row["want_launches"].items())
+            emit(row)
+            if not row["ok"]:
+                raise AssertionError(f"accumulation {mode} accum {accum} {remat}: {row}")
+            peaks[(mode, accum, remat)] = row["peak_above_state_gib"]
+            for n in TRAIN_KERNELS:
+                total[n] += launches[n]
+            del state, step
+    emit({"phase": "accumulation", "peak_above_state_gib": {
+        f"{m} accum {a} {r}": p for (m, a, r), p in peaks.items()}})
+    # f32 gradient rows on 4 layers (seed 1, as phase 8)
+    cfg4 = dataclasses.replace(cfg, n_layers=4, dtype="float32")
+    params = init_params(cfg4, torch.Generator(device=dev).manual_seed(1), dev)
+    proj = refresh_projections(params, cfg4, TRAIN_RANK)
+    keep, w = plan_to_masks(TRAIN_PLAN, cfg4, TRAIN_B)
+    tb = to_device(batch, dev)
+    tol, loss_tol = TRAIN_PARITY_TOL["float32"]
+    for mode in ("dynamic", "degraded"):
+        ctx = parity_ctx(mode, keep, w, dev)
+        l1, _, g1 = loss_and_grads(params, proj, tb, cfg4, ctx, TRAIN_FLAGS)
+        for label, (lx, _, gx) in (
+                ("accum 2", accumulated_loss_and_grads(params, proj, tb, cfg4, ctx, TRAIN_FLAGS, 2)),
+                ("accum 4", accumulated_loss_and_grads(params, proj, tb, cfg4, ctx, TRAIN_FLAGS, 4)),
+                ("remat dots vs none", loss_and_grads(params, proj, tb, cfg4, ctx,
+                                                      ExecFlags(remat="dots")))):
+            ref_l, ref_g = (l1, g1)
+            if label.startswith("remat"):
+                ref_l, _, ref_g = loss_and_grads(params, proj, tb, cfg4, ctx, ExecFlags(remat="none"))
+            rel = leaf_rel_errs(gx, ref_g)
+            loss_err = abs(float(lx) - float(ref_l))
+            ok = max(rel) <= tol and loss_err <= loss_tol * abs(float(ref_l))
+            row = {"phase": "accumulation parity", "dtype": "float32", "n_layers": 4,
+                   "mode": mode, "check": label, "against": "accum 1" if "accum" in label
+                   else "remat none", "loss": float(lx), "loss_ref": float(ref_l),
+                   "loss_abs_err": loss_err, "max_leaf_rel_err": max(rel),
+                   "limit_rel": tol, "ok": ok}
+            emit(row)
+            if not ok:
+                raise AssertionError(f"accumulation parity {mode} {label}: {row}")
+    del params, proj, cell
+    emit({"phase": "accumulation", "run": "phase", "seconds": time.perf_counter() - t0})
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU",
@@ -2792,6 +3374,7 @@ def main() -> int:
 
     timer = ColdTimer(dev)
     rows = kernel_phase(dev, timer)
+    ssm_kernel_rows(dev, timer)
     cfg, params, workload, launches = serve_phase(dev)
     chunk_share_phase(dev, cfg, params)
     parity_phase(dev, cfg, params, workload)
@@ -2804,10 +3387,15 @@ def main() -> int:
     trainer_phase(dev)
     statexfer_phase(dev)
     launches["paged_decode_q8"] = replicas_phase(dev)
-    # phases 12-14 each count their own launches, gated there; they are
+    # phases 12-17 each count their own launches, gated there; they are
     # reported beside the main paths' counts, not added to them
     later = {"moe serve": moe_serve_phase(dev), "dense serve": dense_serve_phase(dev),
              "moe and config train steps": moe_train_phase(dev)}
+    later["mamba2 train"], ssm_params = ssm_train_phase(dev)
+    later["mamba2 decode"] = ssm_decode_phase(dev, ssm_params)
+    del ssm_params
+    later["hybrid"] = hybrid_phase(dev)
+    later["accumulation"] = accum_phase(dev)
 
     emit({"kernels": [
         {"name": n, "route": "cuda", "source": f"src/repro_torch/csrc/{n}.cu",

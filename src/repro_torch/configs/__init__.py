@@ -1,6 +1,7 @@
 from repro_torch.configs.base import (
-    MeCeFOConfig, ModelConfig, ShapeConfig, TrainConfig, get_config, reduced, register,
+    MeCeFOConfig, ModelConfig, ParallelConfig, ShapeConfig, TrainConfig, get_config, reduced,
+    register,
 )
 
-__all__ = ["MeCeFOConfig", "ModelConfig", "ShapeConfig", "TrainConfig", "get_config",
-           "reduced", "register"]
+__all__ = ["MeCeFOConfig", "ModelConfig", "ParallelConfig", "ShapeConfig", "TrainConfig",
+           "get_config", "reduced", "register"]

@@ -1,9 +1,9 @@
 """Configs: a copy of ``repro.configs.base``'s ``ModelConfig``,
 ``MeCeFOConfig``, ``ShapeConfig``, ``TrainConfig``, ``reduced``,
-``register`` and ``get_config``.
-
-The parallelism config stays with the JAX package until the multi-GPU
-slice needs it.
+``register`` and ``get_config``, and of the two fields of its
+``ParallelConfig`` that one device reads (gradient accumulation and the
+micro-gradients' compression); the mesh and sharding fields wait for the
+multi-GPU slice.
 """
 from __future__ import annotations
 
@@ -55,6 +55,17 @@ class MeCeFOConfig:
     lowrank_wgrad: bool = True
     # all-reduce the factored (r x m) gradient instead of the (n x m) one
     lowrank_sync: bool = False
+
+
+@dataclass(frozen=True)
+class ParallelConfig:
+    """The one-device part of the JAX package's ``ParallelConfig``."""
+
+    # Gradient-accumulation microbatches per optimizer step (1 = off).
+    accum: int = 1
+    # "bf16" rounds each micro-gradient to bf16 before the f32 sum; the
+    # collective compressions ("int8", "lowrank") act across devices only
+    grad_compression: str = "none"
 
 
 @dataclass(frozen=True)
@@ -185,7 +196,9 @@ def _load_all() -> None:
     from repro_torch.configs import (  # noqa: F401
         glm4_9b,
         granite_34b,
+        jamba_1_5_large,
         llama_paper,
+        mamba2_2_7b,
         musicgen_medium,
         nemotron_4_340b,
         phi_3_vision_4_2b,

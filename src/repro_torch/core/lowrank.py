@@ -40,6 +40,8 @@ def svd_projection(w: torch.Tensor, rank: int) -> torch.Tensor:
     if w.dim() == 4:
         return torch.stack([svd_projection(wi, rank) for wi in w.unbind(0)])
     rank = min(rank, w.shape[-2], w.shape[-1])
+    if rank == 0:  # a zero-width leaf (mamba2's d_ff = 0 FFN): no subspace
+        return w.new_zeros(*w.shape[:-1], 0)
     u, _s, _vh = torch.linalg.svd(w.float(), full_matrices=False)
     return u[..., :, :rank].to(w.dtype).contiguous()
 
@@ -103,8 +105,9 @@ class LowRankLinear(torch.autograd.Function):
         dx = dy @ w.T if ctx.needs_input_grad[0] else None
         if not ctx.needs_input_grad[1]:
             return dx, None, None, None, None
-        xf = x.reshape(-1, x.shape[-1])
-        dyf = dy.reshape(-1, dy.shape[-1]).contiguous()
+        # flatten, not reshape(-1, n): a zero-width FFN's (B, S, 0) has no -1
+        xf = x.flatten(0, -2)
+        dyf = dy.flatten(0, -2).contiguous()
         if ctx.mode == "exact":
             dw = xf.T @ dyf
         elif ctx.mode in ("degraded", "degraded_sync"):
@@ -117,8 +120,8 @@ class LowRankLinear(torch.autograd.Function):
             keep = rest[0] if rest else torch.tensor(ctx.keep_const, device=dy.device)
             k = keep.to(dy.dtype)
             k = k.reshape(k.shape + (1,) * (dy.dim() - k.dim())) if k.dim() else k
-            dy_keep = (dy * k).reshape(-1, dy.shape[-1])
-            dy_skip = (dy * (1 - k)).reshape(-1, dy.shape[-1])
+            dy_keep = (dy * k).flatten(0, -2)
+            dy_skip = (dy * (1 - k)).flatten(0, -2)
             dw = xf.T @ dy_keep + lowrank_wgrad(xf, dy_skip, v1)
         return dx, dw.to(w.dtype), None, None, None
 

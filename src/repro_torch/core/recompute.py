@@ -5,11 +5,29 @@ The neighbour node keeps only the input of each FFN and recomputes its
 intermediates during the backward: ``torch.utils.checkpoint`` (non-reentrant)
 around the FFN function, which saves its inputs and nothing inside it, as
 ``jax.checkpoint`` with ``nothing_saveable`` does.
+
+The JAX package's dot-saving policies are torch's selective activation
+checkpointing: the checkpointed function's matrix products are saved and
+everything else is recomputed.  ``dots`` saves every product
+(``checkpoint_dots``); ``dots_no_batch`` only those without a batch
+dimension (``checkpoint_dots_with_no_batch_dims``): ``mm`` and ``addmm``,
+which is what ``x @ w`` with a 2-D weight dispatches, and not ``bmm``.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+)
+
+_aten = torch.ops.aten
+_SAVED_OPS = {
+    "dots": (_aten.mm.default, _aten.addmm.default, _aten.bmm.default,
+             _aten.baddbmm.default),
+    "dots_no_batch": (_aten.mm.default, _aten.addmm.default),
+}
 
 
 def records_grad(*args) -> bool:
@@ -38,12 +56,38 @@ def ffn_recompute(fn):
     return wrapped
 
 
+def _dots_context(policy: str):
+    saved = _SAVED_OPS[policy]
+
+    def choose(_ctx, op, *_args, **_kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in saved else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return functools.partial(create_selective_checkpoint_contexts, choose)
+
+
+def dots_recompute(fn, policy: str = "dots_no_batch"):
+    """``fn`` under recompute that keeps its matrix products (``policy``:
+    "dots" or "dots_no_batch"); where autograd records nothing, ``fn`` as
+    it is."""
+    context_fn = _dots_context(policy)
+
+    def wrapped(*args):
+        if not records_grad(*args):
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+                          context_fn=context_fn)
+
+    return wrapped
+
+
 def maybe_remat(fn, enable: bool, policy: str = "nothing"):
-    """``fn`` under recompute when enabled.  "nothing" and "none" (JAX's
-    default checkpoint) both save nothing; the JAX package's dot-saving
-    policies are not ported."""
+    """``fn`` under recompute when enabled, with the JAX package's named
+    policies: "nothing" and "none" (JAX's default checkpoint) save nothing;
+    "dots" and "dots_no_batch" save matrix products."""
     if not enable:
         return fn
-    if policy not in ("nothing", "none"):
-        raise NotImplementedError(f"remat policy {policy!r} is not ported")
-    return ffn_recompute(fn)
+    if policy in ("nothing", "none"):
+        return ffn_recompute(fn)
+    if policy not in _SAVED_OPS:
+        raise ValueError(f"unknown remat policy {policy!r}")
+    return dots_recompute(fn, policy)

@@ -51,14 +51,16 @@ def lowrank_wgrad_project_launch(x: torch.Tensor, dy: torch.Tensor, v1: torch.Te
     m, r = dy.shape[1], v1.shape[1]
     if dy.shape[0] != T or v1.shape[0] != n:
         raise ValueError(f"x {tuple(x.shape)}, dy {tuple(dy.shape)}, v1 {tuple(v1.shape)}")
-    if not 0 < r <= MAX_RANK:
-        raise ValueError(f"rank {r} outside 1..{MAX_RANK}")
+    if r > MAX_RANK:
+        raise ValueError(f"rank {r} above {MAX_RANK}")
     check_operand(x, "x")
     check_operand(dy, "dy", x.dtype)
     check_operand(v1, "v1", x.dtype)
     code = dtype_code(x)
     a = torch.empty(r, m, dtype=torch.float32, device=x.device)
-    if T == 0 or n == 0 or m == 0:
+    if T == 0 or n == 0 or m == 0 or r == 0:
+        # a zero-width leaf (mamba2's d_ff = 0 FFN has m = 0 and r = 0):
+        # A is zeros, and a grid of zero blocks is an invalid launch
         return a.zero_()
     n_scratch = kernel_fn("lowrank_wgrad", "lowrank_wgrad_scratch", [INT] * 5,
                           ctypes.c_longlong)(T, n, m, r, code)

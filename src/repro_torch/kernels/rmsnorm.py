@@ -40,7 +40,9 @@ def rmsnorm_launch(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> t
     check_operand(scale, "scale", x.dtype)
     code = dtype_code(x)
     y = torch.empty_like(x)
-    rows = x.numel() // d if d else 0
+    if y.numel() == 0:  # nothing to launch (an empty grid is invalid)
+        return y
+    rows = x.numel() // d
     vec = int(d % (16 // x.element_size()) == 0 and aligned16(x, scale, y))
     fn = kernel_fn("rmsnorm", "rmsnorm_launch", [PTR, PTR, PTR, INT, INT, FLOAT, INT, INT, PTR])
     err = fn(x.data_ptr(), scale.data_ptr(), y.data_ptr(), rows, d, float(eps),

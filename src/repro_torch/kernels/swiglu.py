@@ -36,6 +36,8 @@ def swiglu_launch(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     check_operand(u, "u", g.dtype)
     code = dtype_code(g)
     out = torch.empty_like(g)
+    if out.numel() == 0:  # a zero-width FFN: nothing to launch (an empty grid is invalid)
+        return out
     vec = int(aligned16(g, u, out))
     fn = kernel_fn("swiglu", "swiglu_launch", [PTR, PTR, PTR, ctypes.c_longlong, INT, INT, PTR])
     err = fn(g.data_ptr(), u.data_ptr(), out.data_ptr(), g.numel(), code, vec,

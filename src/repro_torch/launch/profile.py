@@ -1,16 +1,22 @@
-"""The training cell, and where a training step's time goes on the card.
+"""The training cells, and where a training step's time goes on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile --modes off degraded
+    PYTHONPATH=src python -m repro_torch.launch.profile --config mamba2-2.7b
 
-The cell is the one ``chip_smoke.py``'s train phase runs (it imports it from
-here): full-width, full-depth llama-350m (bf16, weights from seed 0) at
-B=8, S=1024, rank 64, FFN recompute, under ``NDBPlan(n_dp=4, n_stages=8,
-failed={(1, 3)})``.  The profile refreshes V1 and, for each NDB mode, runs
-two warm-up steps and then one step under ``torch.profiler`` (CPU and CUDA
-activities).  Prints one JSON line per mode: the step's wall time, the
-device time summed over its kernels, the device busy and idle shares, the
-kernels that take the most device time, and each of the port's kernels'
-share of the device time.
+The llama cell is the one ``chip_smoke.py``'s train phase runs (it imports
+it from here): full-width, full-depth llama-350m (bf16, weights from seed
+0) at B=8, S=1024, rank 64, FFN recompute, under ``NDBPlan(n_dp=4,
+n_stages=8, failed={(1, 3)})``.  The mamba2 cell is full-width, full-depth
+mamba2-2.7b at B=1 (the largest batch whose healthy step fits the card),
+S=1024, under ``NDBPlan(n_dp=1, n_stages=8, failed={(0, 3)})``.  The
+profile refreshes V1 and, for each NDB mode, runs two warm-up steps and
+then one step under ``torch.profiler`` (CPU and CUDA activities).  Prints
+one JSON line per mode: the step's wall time, the device time summed over
+its kernels, the device busy and idle shares, the kernels that take the
+most device time, and each of the port's kernels' share of the device
+time; for an SSM config also the SSD scan's share (``ssd_scan_ms``: the
+scan's forward and backward timed alone at the step's shapes, times the
+SSM layers, the forward twice where technique II recomputes it).
 """
 from __future__ import annotations
 
@@ -39,10 +45,15 @@ from repro_torch.optim.optimizers import init_opt_state
 
 CONFIG, BATCH, SEQ_LEN, RANK = "llama-350m", 8, 1024, 64
 PLAN = NDBPlan(n_dp=4, n_stages=8, failed=frozenset({(1, 3)}))
+# the SSM cell: one sequence a step (B 2 runs out of the card's memory in
+# the healthy step), so the plan has one DP rank
+SSM_CONFIG, SSM_BATCH = "mamba2-2.7b", 1
+SSM_PLAN = NDBPlan(n_dp=1, n_stages=8, failed=frozenset({(0, 3)}))
+CELLS = {CONFIG: (BATCH, PLAN), SSM_CONFIG: (SSM_BATCH, SSM_PLAN)}
 FLAGS = ExecFlags(remat="ffn")  # the Trainer's default (repro/launch/train.py:83-85)
 # the port's kernels by the names of their CUDA functions (csrc/*.cu)
 PORT_KERNELS = {"lowrank_wgrad": "lowrank_", "flash_attention": "flash_fwd_",
-                "rmsnorm": "rmsnorm_kernel", "swiglu": "swiglu_kernel"}
+                "rmsnorm": "rmsnorm_", "swiglu": "swiglu_kernel"}
 
 
 @dataclass
@@ -76,64 +87,133 @@ class TrainCell:
         return step, ndb
 
 
-def train_cell(device, seed: int = 0) -> TrainCell:
-    cfg = get_config(CONFIG)
-    params = init_params(cfg, torch.Generator(device=device).manual_seed(seed), device)
-    t0 = time.perf_counter()
-    proj = refresh_projections(params, cfg, RANK)
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize()
-    svd_s = time.perf_counter() - t0
-    keep, weight = plan_to_masks(PLAN, cfg, BATCH)
+def train_cell(device, seed: int = 0, config: str = CONFIG, params=None, proj=None,
+               svd_s: float = 0.0) -> TrainCell:
+    """The cell of ``config`` (a key of CELLS); ``params`` and ``proj``
+    given are used as they are (no refresh)."""
+    cfg = get_config(config)
+    batch, plan = CELLS[config]
+    if params is None:
+        params = init_params(cfg, torch.Generator(device=device).manual_seed(seed), device)
+    if proj is None:
+        t0 = time.perf_counter()
+        proj = refresh_projections(params, cfg, RANK)
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        svd_s = time.perf_counter() - t0
+    keep, weight = plan_to_masks(plan, cfg, batch)
     return TrainCell(cfg, TrainConfig(), MeCeFOConfig(mode="dynamic", rank=RANK),
-                     ShapeConfig("smoke", SEQ_LEN, BATCH, "train"), params, proj, keep,
+                     ShapeConfig("smoke", SEQ_LEN, batch, "train"), params, proj, keep,
                      weight, svd_s)
+
+
+def _device_s(prof) -> float:
+    """Device seconds summed over a profile's CUDA kernels."""
+    return sum(float(getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0)))
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+
+
+def ssd_scan_ms(cfg: ModelConfig, batch: int, seq_len: int, device) -> dict:
+    """The SSD scan (``models/ssm.py:ssd_chunked``) of one layer alone at
+    the step's shapes: forward and forward+backward device ms (its kernels'
+    device time under ``torch.profiler``, a mean over 5 calls after a
+    warm-up), on seeded inputs in the model dtype."""
+    from repro_torch.models.ssm import ssd_chunked
+
+    ssm = cfg.ssm
+    nh = ssm.expand * cfg.d_model // ssm.head_dim
+    dt = getattr(torch, cfg.dtype)
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=device).to(dt).requires_grad_()
+
+    xh, b, c = (randn(batch, seq_len, nh, ssm.head_dim), randn(batch, seq_len, ssm.d_state),
+                randn(batch, seq_len, ssm.d_state))
+    dtv = torch.nn.functional.softplus(randn(batch, seq_len, nh).float()).detach().requires_grad_()
+    a_log = torch.log(torch.linspace(1.0, 16.0, nh, device=device)).to(dt)
+
+    def fwd():
+        return ssd_chunked(xh, dtv, a_log, b, c, ssm.chunk)[0]
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), [xh, dtv, b, c], torch.ones_like(xh))
+
+    out = {}
+    for name, fn in (("forward_ms", fwd), ("forward_backward_ms", fwd_bwd)):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+        out[name] = 1e3 * _device_s(prof) / 5
+    return out
+
+
+def profile_step(cell: TrainCell, mode: str, device, warmup: int = 2) -> dict:
+    """One step of ``cell`` in ``mode`` under ``torch.profiler`` after
+    ``warmup`` steps, from a fresh state; the row ``main`` prints."""
+    batch = cell.source().batch(0, cell.shape.global_batch, SEQ_LEN)
+    state = cell.state()
+    step, ndb = cell.step(mode, device)
+    for _ in range(warmup):
+        state, _m = step(state, batch, *ndb)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, *ndb)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+
+    def dev_us(e) -> float:
+        return float(getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0)))
+
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernel_s = _device_s(prof)
+    top = sorted(kernels, key=dev_us, reverse=True)[:15]
+    cfg = cell.cfg
+    row = {
+        "config": cfg.name, "n_layers": cfg.n_layers, "mode": mode,
+        "device": torch.cuda.get_device_name(0), "batch": cell.shape.global_batch,
+        "seq_len": SEQ_LEN, "rank": RANK, "wall_s": wall,
+        "device_kernel_s": kernel_s, "device_busy_share": kernel_s / wall,
+        "device_idle_share": 1.0 - kernel_s / wall,
+        "top_kernels": [{"name": e.key[:80], "calls": e.count, "device_s": dev_us(e) / 1e6}
+                        for e in top],
+        "port_kernel_share": {
+            name: sum(dev_us(e) for e in kernels if tag in e.key) / 1e6 / kernel_s
+            for name, tag in PORT_KERNELS.items()},
+    }
+    del state, step
+    if cfg.ssm is not None:
+        scan = ssd_scan_ms(cfg, cell.shape.global_batch, SEQ_LEN, device)
+        n_ssm = sum(cfg.layer_kind(i) == "ssm" for i in range(cfg.n_layers))
+        # technique II recomputes the whole SSM block (its scan's forward)
+        # in degraded mode
+        extra_fwd = scan["forward_ms"] if mode == "degraded" and cell.mecefo.recompute_ffn else 0.0
+        scan_s = n_ssm * (scan["forward_backward_ms"] + extra_fwd) / 1e3
+        row.update({"ssd_scan_layer_ms": scan, "ssd_scan_step_s": scan_s,
+                    "ssd_scan_share_of_device_time": scan_s / kernel_s})
+    torch.cuda.empty_cache()
+    return row
 
 
 def main(argv=None) -> list:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--modes", nargs="+", default=["off", "degraded"], choices=NDB_MODES)
+    ap.add_argument("--config", default=CONFIG, choices=sorted(CELLS))
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
-    cell = train_cell(dev)
-    batch = cell.source().batch(0, BATCH, SEQ_LEN)
+    cell = train_cell(dev, config=args.config)
     out = []
     for mode in args.modes:
-        state = cell.state()
-        step, ndb = cell.step(mode, dev)
-        for _ in range(2):  # warm-up
-            state, _m = step(state, batch, *ndb)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            state, metrics = step(state, batch, *ndb)
-            float(metrics["loss"])
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        events = prof.key_averages()
-
-        def dev_us(e) -> float:
-            return float(getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0)))
-
-        kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-        kernel_s = sum(dev_us(e) for e in kernels) / 1e6
-        top = sorted(kernels, key=dev_us, reverse=True)[:15]
-        row = {
-            "config": cell.cfg.name, "n_layers": cell.cfg.n_layers, "mode": mode,
-            "device": torch.cuda.get_device_name(0), "batch": BATCH,
-            "seq_len": SEQ_LEN, "rank": RANK, "wall_s": wall,
-            "device_kernel_s": kernel_s, "device_busy_share": kernel_s / wall,
-            "device_idle_share": 1.0 - kernel_s / wall,
-            "top_kernels": [{"name": e.key[:80], "calls": e.count, "device_s": dev_us(e) / 1e6}
-                            for e in top],
-            "port_kernel_share": {
-                name: sum(dev_us(e) for e in kernels if tag in e.key) / 1e6 / kernel_s
-                for name, tag in PORT_KERNELS.items()},
-        }
+        row = profile_step(cell, mode, dev)
         print(json.dumps(row), flush=True)
         out.append(row)
-        del state, step
-        torch.cuda.empty_cache()
     return out
 
 

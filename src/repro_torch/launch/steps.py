@@ -6,9 +6,16 @@ the MHA backward, II recomputes the FFN, III takes the low-rank Wgrad
 through kernel #6), eq. (1)'s rescale, clipping by the global norm and the
 optimizer update.  It runs eagerly where the JAX package jits, and updates
 params and moments in place (see ``optim/optimizers.py``).
+
+Gradient accumulation (``parallel.accum``) splits the batch, ``keep`` and
+``example_weight`` into contiguous micro-batches (the JAX package's split
+on one data shard), sums their gradients in f32, each optionally rounded
+to bf16 first (``parallel.grad_compression == "bf16"``), divides by
+``accum``, and applies eq. (1), clipping and the update to the mean.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -60,6 +67,35 @@ def loss_and_grads(params: Tree, proj: Optional[Tree], batch: Dict, cfg: ModelCo
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
+def accumulated_loss_and_grads(params: Tree, proj: Optional[Tree], batch: Dict,
+                               cfg: ModelConfig, ctx: NDBContext, flags: ExecFlags,
+                               accum: int, compression: str = "none"):
+    """(mean loss, metrics, grads) over ``accum`` contiguous micro-batches
+    of ``batch`` (``keep`` and ``example_weight`` split alike): the f32 sum
+    of the micro-batches' gradients, each rounded to bf16 first when
+    ``compression == "bf16"``, divided by ``accum``.  ``metrics`` are the
+    last micro-batch's with the mean loss, as the JAX package reports."""
+    B = next(iter(batch.values())).shape[0]
+    if B % accum:
+        raise ValueError(f"batch {B} does not split into {accum} micro-batches")
+    b = B // accum
+    grads, loss_sum = None, None
+    for i in range(accum):
+        sl = slice(i * b, (i + 1) * b)
+        mctx = ctx if ctx.keep is None else dataclasses.replace(
+            ctx, keep=ctx.keep[:, sl], example_weight=ctx.example_weight[sl])
+        loss, metrics, g = loss_and_grads(params, proj, {k: v[sl] for k, v in batch.items()},
+                                          cfg, mctx, flags)
+        if compression == "bf16":  # each micro-gradient rounded as it would cross the wire
+            g = tree_map(lambda a: a.to(torch.bfloat16), g)
+        grads = (tree_map(lambda a: a.float(), g) if grads is None else
+                 tree_map(lambda acc, a: acc.add_(a.float()), grads, g))
+        loss_sum = loss.float() if loss_sum is None else loss_sum + loss
+        del g
+    loss = loss_sum / accum
+    return loss, dict(metrics, loss=loss), tree_map(lambda a: a.div_(accum), grads)
+
+
 def make_train_step(
     cfg: ModelConfig,
     train: TrainConfig,
@@ -84,12 +120,18 @@ def make_train_step(
     (L, B) and ``example_weight`` (B,), numpy or tensors.  ``flags``
     defaults to ``ExecFlags()`` (FFN recompute, the Trainer's default).
     The step runs on ``device`` (CUDA unless the caller asks for the CPU).
-    Gradient accumulation (``parallel.accum > 1``) is not ported.
+    ``parallel`` (any object with ``accum`` and, optionally,
+    ``grad_compression``) sets gradient accumulation: ``accum``
+    micro-batches a step, or one where the global batch does not divide;
+    ``metrics`` then carry the mean loss and the last micro-batch's
+    ``ce`` and ``aux``, as in the JAX package.
     """
     if ndb_mode not in NDB_MODES:
         raise ValueError(f"ndb_mode {ndb_mode!r} not in {NDB_MODES}")
-    if parallel is not None and parallel.accum > 1:
-        raise NotImplementedError("gradient accumulation (parallel.accum > 1) is not ported")
+    accum = max(getattr(parallel, "accum", 1), 1)
+    if shape.global_batch % accum:  # one data shard: B % (nds * accum)
+        accum = 1
+    compress = getattr(parallel, "grad_compression", "none")
     dev = resolve_device(device)
     flags = flags or ExecFlags()
     schedule = lr_schedule(train, total_steps)
@@ -121,7 +163,11 @@ def make_train_step(
             raise ValueError(f"trunk sequence {trunk_shape(batch)}, want {want} ({shape.name})")
         ctx = make_ctx(ndb)
         proj = state.proj if mecefo.mode != "off" else None
-        _loss, metrics, grads = loss_and_grads(state.params, proj, batch, cfg, ctx, flags)
+        if accum == 1:
+            _loss, metrics, grads = loss_and_grads(state.params, proj, batch, cfg, ctx, flags)
+        else:
+            _loss, metrics, grads = accumulated_loss_and_grads(
+                state.params, proj, batch, cfg, ctx, flags, accum, compress)
         if mecefo.skip_mha_backward and ndb_mode in ("dynamic", "static"):
             # eq. (1), with |N_l|/n measured over live examples only
             grads = rescale_skipped_grads(grads, ctx.keep, cfg, ctx.example_weight)

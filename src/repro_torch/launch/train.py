@@ -73,9 +73,9 @@ class Trainer:
 
     ``state`` starts the run from a given ``TrainState`` instead of the
     seeded init; the trainer owns it from then on (its steps update params
-    and moments in place).  ``parallel`` is consulted only for gradient
-    accumulation, which is not ported (``accum > 1`` raises); params are
-    replicated, so recovery fetches from a peer.  With ``statexfer`` the
+    and moments in place).  ``parallel`` (``configs.base.ParallelConfig``)
+    sets gradient accumulation for the step; params are replicated, so
+    recovery fetches from a peer.  With ``statexfer`` the
     trainer snapshots its state every ``snapshot_every`` steps to host
     replicas and executes each resize on them; restored trees are host
     copies kept in ``xfer.last_restored`` (in one process every rank's

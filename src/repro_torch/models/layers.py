@@ -184,8 +184,8 @@ def _attention(p, x, cfg, positions, cache, cur_len, history, page_tables, page_
             cache["v"][at] = v[:, 0].to(cache["v"].dtype)
             o = decode_attention(q, cache["k"], cache["v"], cur_len + 1, block_k=page_size)
         else:
-            cache["k"].copy_(k)
-            cache["v"].copy_(v)
+            cache["k"][:, :S].copy_(k)
+            cache["v"][:, :S].copy_(v)
             o = flash_attention(q, k, v)
     else:
         o = flash_attention(q, k, v)

@@ -17,7 +17,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.ndb import NDBContext
-from repro_torch.core.recompute import records_grad
+from repro_torch.core.recompute import dots_recompute, records_grad
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.models import frontends
 from repro_torch.models.layers import (
@@ -28,6 +28,7 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.moe import moe_block
 from repro_torch.models.params import block_layout
+from repro_torch.models.ssm import ssm_block
 
 Tree = Any
 
@@ -35,7 +36,9 @@ Tree = Any
 @dataclass(frozen=True)
 class ExecFlags:
     """Execution policy.  remat: "none", "ffn" (recompute every FFN in the
-    backward, the Trainer's default) or "full" (recompute every layer);
+    backward, the Trainer's default), "full" (recompute every layer) or
+    "dots" (recompute each period but keep its matrix products without a
+    batch dimension, the JAX package's ``checkpoint_dots_with_no_batch_dims``);
     ce_chunk: sequence positions per cross-entropy chunk."""
 
     remat: str = "ffn"
@@ -78,11 +81,11 @@ def run_trunk(
     view), or with ``page_tables`` the physical page pools ``(n_periods,
     n_pages, page_size, KV, hd)``.  Both are written in place.
     ``prefill_history`` marks a chunk prefill (queries at ``cur_len..``
-    attending to the cache prefix plus themselves).
+    attending to the cache prefix plus themselves).  An SSM layer's caches
+    are its ``conv`` window and ``ssd`` state (``models/ssm.py``), also
+    written in place; it ignores ``cur_len``.
     """
     layout = block_layout(cfg)
-    if any(kind != "attn" for kind, _ in layout):
-        raise NotImplementedError("only attention mixers are ported (SSM mixers are not)")
     ctx = ctx or NDBContext()
     flags = flags or ExecFlags()
     period = cfg.block_period
@@ -93,7 +96,12 @@ def run_trunk(
     layer_params = [{part: _unbind(bp[part]) for part in ("mixer", "ffn")}
                     for bp in params["layers"]]
     layer_proj = (None if proj is None else
-                  [_unbind(pj.get("ffn")) or None for pj in proj["layers"]])
+                  [{part: _unbind(pj.get(part)) or None for part in ("mixer", "ffn")}
+                   for pj in proj["layers"]])
+
+    def proj_of(pos, part, i):
+        tree = None if layer_proj is None else layer_proj[pos][part]
+        return None if tree is None else {k: t[i] for k, t in tree.items()}
 
     def super_block(h, i):
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -102,15 +110,20 @@ def run_trunk(
             bp = layer_params[pos]
             keep_l = keep[layer] if keep is not None else (
                 0.0 if ctx.mode == "degraded" else 1.0)
-            h, _ = attention_block(
-                {k: t[i] for k, t in bp["mixer"].items()}, h, cfg, positions,
-                keep=keep_l if ctx.mecefo.skip_mha_backward else 1.0,
-                cache=None if caches is None else _period(caches[pos], i),
-                cur_len=cur_len, history=prefill_history, page_tables=page_tables,
-                page_size=page_size,
-            )
-            pj = None if layer_proj is None or layer_proj[pos] is None else {
-                k: t[i] for k, t in layer_proj[pos].items()}
+            mp = {k: t[i] for k, t in bp["mixer"].items()}
+            cache = None if caches is None else _period(caches[pos], i)
+            if layout[pos][0] == "attn":
+                h, _ = attention_block(
+                    mp, h, cfg, positions,
+                    keep=keep_l if ctx.mecefo.skip_mha_backward else 1.0,
+                    cache=cache, cur_len=cur_len, history=prefill_history,
+                    page_tables=page_tables, page_size=page_size,
+                )
+            else:  # technique I does not apply; II only in degraded mode
+                h, _ = ssm_block(mp, h, cfg, proj=proj_of(pos, "mixer", i), keep=keep_l,
+                                 lowrank_mode=lowrank_mode, recompute=ctx.recompute_ffn(),
+                                 cache=cache)
+            pj = proj_of(pos, "ffn", i)
             fp = {k: t[i] for k, t in bp["ffn"].items()}
             if layout[pos][1]:
                 h, a = moe_block(fp, h, cfg, proj=pj, keep=keep_l,
@@ -122,11 +135,14 @@ def run_trunk(
         return h, aux
 
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    block = super_block
+    if flags.remat == "dots":
+        block = dots_recompute(super_block, "dots_no_batch")
     for i in range(n_periods):
         if flags.remat == "full" and records_grad(h, *params["layers"][0].values()):
             h, a = checkpoint(super_block, h, i, use_reentrant=False, preserve_rng_state=False)
         else:
-            h, a = super_block(h, i)
+            h, a = block(h, i)
         aux = aux + a
     return h, caches, aux
 
@@ -181,7 +197,7 @@ def forward_prefill(
     B, S = tokens.shape
     positions = torch.arange(S, device=h.device)
     caches = tuple(
-        {k: torch.empty(s.shape, dtype=s.dtype, device=h.device) for k, s in entry.items()}
+        {k: torch.zeros(s.shape, dtype=s.dtype, device=h.device) for k, s in entry.items()}
         for entry in cache_structs_tree
     )
     h, caches, _ = run_trunk(params, h, cfg, positions=positions, caches=caches, cur_len=0)

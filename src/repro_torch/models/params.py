@@ -13,9 +13,13 @@ leaf::
                     n_periods on dim 0.
     }
 
-Attention mixers with dense FFNs (SwiGLU, or non-gated ``gelu``/``relu2``
-with ``w_up``/``w_down`` only) or MoE FFNs (``router (d, E)``, ``w_up`` and
-``w_gate (E, d, f)``, ``w_down (E, f, d)``); SSM mixers raise.
+Attention mixers (``wq``/``wk``/``wv``/``wo``) or Mamba2 mixers (``in_proj
+(d, 2 d_inner + 2 N + nh)``, the depthwise ``conv_w``/``conv_b`` over
+``[x, B, C]``, ``A_log``, ``D``, ``dt_bias``, ``gate_norm``, ``out_proj``),
+with dense FFNs (SwiGLU, or non-gated ``gelu``/``relu2`` with
+``w_up``/``w_down`` only; mamba2's ``d_ff = 0`` gives zero-width leaves) or
+MoE FFNs (``router (d, E)``, ``w_up`` and ``w_gate (E, d, f)``, ``w_down
+(E, f, d)``).
 """
 from __future__ import annotations
 
@@ -29,16 +33,35 @@ from repro_torch.configs.base import ModelConfig
 
 Tree = Any
 
-_NORMS = ("ln", "final_norm", "q_norm", "k_norm")
+_NORMS = ("ln", "final_norm", "gate_norm", "q_norm", "k_norm")
+# the SSM leaves with fixed values: (stacked) per-head or per-channel
+# vectors, as ``repro.models.params._init_leaf`` sets them
+_FILLS = {"conv_b": 0.0, "dt_bias": 0.5, "D": 1.0}
 # elements drawn per piece in init_params (a leaf this size or smaller is
 # one draw)
 _DRAW = 1 << 28
 
 
 def _mixer_shapes(cfg: ModelConfig, kind: str) -> Dict[str, Tuple[int, ...]]:
-    if kind != "attn":
-        raise NotImplementedError(f"mixer kind {kind!r} is not ported yet")
     d = cfg.d_model
+    if kind == "ssm":
+        ssm = cfg.ssm
+        d_inner = ssm.expand * d
+        nh = d_inner // ssm.head_dim
+        conv_ch = d_inner + 2 * ssm.d_state  # the conv runs over [x, B, C]
+        return {
+            "ln": (d,),
+            "in_proj": (d, 2 * d_inner + 2 * ssm.d_state + nh),  # z, x, B, C, dt
+            "conv_w": (ssm.d_conv, conv_ch),
+            "conv_b": (conv_ch,),
+            "A_log": (nh,),
+            "D": (nh,),
+            "dt_bias": (nh,),
+            "gate_norm": (d_inner,),
+            "out_proj": (d_inner, d),
+        }
+    if kind != "attn":
+        raise ValueError(kind)
     hd = cfg.resolved_head_dim
     out = {
         "ln": (d,),
@@ -131,7 +154,9 @@ def map_leaves(fn, tree: Tree, name: str = "") -> Tree:
 def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda",
                 dtype=None) -> Tree:
     """Seeded weights following ``repro.models.params._init_leaf``: embed
-    ``N(0, 0.02²)``, norm scales 1, matmul weights ``N(0, 1/fan_in)``.
+    ``N(0, 0.02²)``, norm scales 1, matmul weights ``N(0, 1/fan_in)``; the
+    SSM's ``A_log`` = log(linspace(1, 16, nh)), ``dt_bias`` 0.5, ``D`` 1
+    and ``conv_b`` 0.
 
     The draws come from ``generator`` (on its own device) in sorted key
     order; ``torch`` and ``jax.random`` give different numbers for one
@@ -146,6 +171,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda",
     def leaf(name, shape):
         if name in _NORMS:
             return torch.ones(shape, dtype=dt, device=dev)
+        if name in _FILLS:
+            return torch.full(shape, _FILLS[name], dtype=dt, device=dev)
+        if name == "A_log":  # A in [1, 16), as in Mamba2
+            a = torch.log(torch.linspace(1.0, 16.0, shape[-1], dtype=torch.float32))
+            return a.expand(shape).to(device=dev, dtype=dt).contiguous()
         std = 0.02 if name == "embed" else 1.0 / math.sqrt(max(shape[-2], 1))
         out = torch.empty(shape, dtype=dt, device=dev)
         flat = out.view(-1)

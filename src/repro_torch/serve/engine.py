@@ -70,10 +70,16 @@ it fits the prefill chunk, else the chunks from position 0 at the unforked
 boundaries), and only its tail's pages are written from that result.  The
 forked pages hold the donor's rows, which are the prompt's own where the
 recipes give a prefix's rows independently of what follows it (the dense
-configs' prefill, as measured).  Sharing saves pages, not compute.  An MoE
-layer's capacity depends on the call's token count, so there a prefix's
-rows depend on what follows it, and the reference computes a forked
-prompt's tail alone: the engine refuses ``prefix_sharing`` for MoE configs.
+configs' prefill, as measured).  Sharing saves pages, not compute.
+
+MoE configs follow the reference instead: an MoE layer's capacity depends
+on the call's token count, so a prefix's rows depend on what follows it,
+and the reference computes a forked prompt's tail alone, in chunks from the
+shared length against the donor's forked pages.  So does the port, and the
+recipe is ``("fork", donor, donor_recipe, n_shared)``: the replay restore
+rebuilds the donor by its own recipe, takes its rows as the forked prefix
+and runs the tail's chunks again.  Under MoE a prompt's K/V, and so its
+stream, depend on the prefix registry it met, as in the reference.
 """
 from __future__ import annotations
 
@@ -231,11 +237,6 @@ class ServeEngine:
     def __init__(self, cfg: ModelConfig, params: Tree, ecfg: EngineConfig, *,
                  device="cuda", alloc_rng: Optional[np.random.Generator] = None):
         check_attention_only(cfg)
-        if cfg.moe is not None and ecfg.prefix_sharing:
-            raise ValueError(
-                f"{cfg.name}: prefix_sharing is refused for MoE configs: an MoE layer's "
-                "capacity follows the call's token count, so the forked donor rows are not "
-                "the prompt's own, and the reference computes only the tail")
         if cfg.frontend is not None:
             # the reference's prefill embeds through the frontend stub, which
             # wants precomputed embeddings a token prompt does not carry
@@ -258,6 +259,9 @@ class ServeEngine:
         # registry holds a refcount on the pages (a pseudo table), so a
         # prefix outlives its first request until page pressure releases it
         self._registry: Dict[Tuple[int, ...], Tuple[str, List[int]]] = {}
+        # each registered prompt's prefill recipe (an MoE fork records its
+        # donor's, so a replay restore can rebuild the donor)
+        self._reg_recipe: Dict[Tuple[int, ...], tuple] = {}
         self._reg_counter = 0
         self._page_nbytes = page_nbytes(self.pool)
         # admission-plan cache: (rid, state fingerprint, plan-or-None), so a
@@ -400,10 +404,14 @@ class ServeEngine:
         """Begin a chunked or shared-suffix prefill on a bound slot.  The
         first chunk runs now, later ones one per engine step.  Returns the
         first token when the prompt finished within this call, else None.
-        The recipe is the prompt's unforked one (see the module doc)."""
+        The recipe is the prompt's unforked one, or for an MoE config's
+        forked prompt the fork itself (see the module doc)."""
         cp = self.ecfg.prefill_chunk_pages
         fits = cp <= 0 or pages_needed(len(rs.req.prompt), self.ecfg.page_size) <= cp
         rs.prefill_recipe = ALONE if fits else ("chunk",)
+        if plan.n_shared and self.cfg.moe is not None:
+            rs.prefill_recipe = ("fork", plan.donor, self._reg_recipe[plan.donor],
+                                 plan.n_shared)
         if plan.n_shared:
             self.stats["shared_prefix_tokens"] += plan.n_shared
             self.stats["n_prefix_hits"] += 1
@@ -504,7 +512,11 @@ class ServeEngine:
           a dense config's lanes are isolated, so only the shapes matter);
         * ``("batch", n, i, prompts)`` — an MoE config's batch, run again
           with its ``prompts`` (its lanes share expert capacity);
-        * ``("chunk",)`` — the chunks from position 0.
+        * ``("chunk",)`` — the chunks from position 0;
+        * ``("fork", donor, donor_recipe, n_shared)`` — an MoE config's
+          forked prompt: the donor rebuilt by its own recipe, its rows
+          covering ``n_shared`` positions taken as the forked prefix, then
+          the chunks from ``n_shared``.
         """
         kind = recipe[0]
         if kind == "batch":
@@ -518,9 +530,16 @@ class ServeEngine:
             dense, toks = self._prefill_rows(prompts)
             return (tuple({k: d[:, row:row + 1] for k, d in e.items()} for e in dense),
                     int(toks[row]))
-        if kind != "chunk":
-            raise ValueError(f"unknown prefill recipe {recipe!r}")
         view, off = self._empty_view(), 0
+        if kind == "fork":
+            _, donor, donor_recipe, off = recipe
+            ddense, _ = self._rebuild(donor, donor_recipe)
+            n_cov = pages_needed(off, self.ecfg.page_size) * self.ecfg.page_size
+            for e, de in zip(view, ddense):
+                for k in e:
+                    e[k][:, :, :n_cov] = de[k][:, :, :n_cov]
+        elif kind != "chunk":
+            raise ValueError(f"unknown prefill recipe {recipe!r}")
         while True:
             view, logits, off, final = self._chunk_forward(view, prompt, off)
             if final:
@@ -581,9 +600,12 @@ class ServeEngine:
         one whole-prompt prefill alone when the prompt fits the prefill
         chunk (a forked prompt: its one chunk), else the chunks from
         position 0, run in the slot's own view until they cover
-        ``pg_end``.  Shared pages in the write range are copied first
-        (write-triggered COW: this is where a forked partial page
-        detaches).  Returns the first token when this chunk was the last.
+        ``pg_end``.  An MoE config's forked prompt runs the chunk itself,
+        as the reference does: against the slot's gathered view (the forked
+        prefix pages plus its earlier chunks).  Shared pages in the write
+        range are copied first (write-triggered COW: this is where a forked
+        partial page detaches).  Returns the first token when this chunk
+        was the last.
         """
         t0 = time.perf_counter()
         pend = self._pending[slot]
@@ -591,7 +613,12 @@ class ServeEngine:
         pg_lo, pg_end, final = self._chunk_span(len(pend.prompt), pend.next_off)
         for idx in range(pg_lo, pg_end + 1):
             self._cow_slot_page(slot, idx)
-        if self.slots[slot].prefill_recipe[0] == "batch":
+        kind = self.slots[slot].prefill_recipe[0]
+        if kind == "fork":
+            dense = gather_pages(self.pool, self._dev(self._tables[slot][None]), page_size=ps)
+            dense, logits, _, _ = self._chunk_forward(dense, pend.prompt, pend.next_off)
+            tok = int(greedy_token(logits, self.cfg)[0]) if final else None
+        elif kind == "batch":
             assert final, "a prompt that fits the prefill chunk is one chunk"
             dense, tok = self._rebuild(pend.prompt, ALONE)
         else:
@@ -652,6 +679,7 @@ class ServeEngine:
         self._reg_counter += 1
         self.alloc.fork(pseudo, pages)
         self._registry[prompt] = (pseudo, pages)
+        self._reg_recipe[prompt] = self.slots[slot].prefill_recipe
 
     def _release_prefixes(self, need: int, protect: Optional[Tuple[int, ...]] = None) -> None:
         """Page pressure: drop registry entries (oldest first) until ``need``
@@ -666,6 +694,7 @@ class ServeEngine:
             if key is None:
                 return
             pseudo, _pages = self._registry.pop(key)
+            del self._reg_recipe[key]
             self.alloc.free(pseudo)
 
     def _cow_slot_page(self, slot: int, idx: int) -> None:

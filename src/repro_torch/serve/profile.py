@@ -38,7 +38,7 @@ from repro_torch.serve.request import WorkloadSpec, build_workload
 # decode kernels' split passes by their row policy, their shared combine pass
 PORT_KERNELS = {"paged_decode": "PagedRows>", "flash_decode": "DenseRows",
                 "decode_combine": "decode::combine_kernel", "flash_attention": "flash_fwd_",
-                "rmsnorm": "rmsnorm_kernel", "swiglu": "swiglu_kernel"}
+                "rmsnorm": "rmsnorm_", "swiglu": "swiglu_kernel"}
 
 
 # the model's parts: (module, function) the profiled run labels

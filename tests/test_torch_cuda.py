@@ -564,6 +564,59 @@ def test_lowrank_wgrad_kernel(cuda, dtype, shape):
     assert torch.equal(a, lowrank_wgrad_project(x, dy, v1))  # no float atomics: bitwise repeat
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", [("rmsnorm", 2560), ("rmsnorm", 5120),
+                                  ("lowrank_wgrad", (2560, 10576)), ("lowrank_wgrad", (5120, 2560))],
+                         ids=["norm-d2560", "norm-d5120", "in_proj", "out_proj"])
+def test_kernels_at_the_mamba2_shapes(cuda, dtype, case):
+    """#3 at mamba2's d_model and d_inner (the gate norm), #6 at in_proj's
+    and out_proj's (n, m) with rank 64, over 1024 rows, against their
+    plain versions."""
+    from repro_torch.kernels.lowrank_wgrad import (
+        lowrank_wgrad_project, lowrank_wgrad_project_plain,
+    )
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
+
+    name, dims = case
+    gen = torch.Generator(device=cuda).manual_seed(9)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda).to(dtype)
+
+    if name == "rmsnorm":
+        x, s = randn(1024, dims), randn(dims)
+        _close(rmsnorm(x, s), rmsnorm_plain(x, s), dtype)
+        return
+    (n, m), T = dims, 1024
+    x, dy, v1 = randn(T, n), randn(T, m), randn(n, 64)
+    ref = lowrank_wgrad_project_plain(x, dy, v1)
+    a = lowrank_wgrad_project(x, dy, v1)
+    assert float((a - ref).abs().max()) <= 1e-4 * (float(ref.abs().max()) + 1e-6)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_zero_element_calls_launch_nothing(cuda, dtype):
+    """mamba2's zero-width FFN: #4 on (T, 0) and #6 with m = 0 or n = 0
+    (rank 0) return their empty or zero results without a launch (a grid of
+    zero blocks is an invalid launch) and without an error; so does #3 on
+    zero rows."""
+    from repro_torch.kernels.lowrank_wgrad import lowrank_wgrad_project
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.swiglu import swiglu
+
+    def z(*shape):
+        return torch.zeros(*shape, device=cuda, dtype=dtype)
+
+    counts = (rmsnorm.launches, swiglu.launches, lowrank_wgrad_project.launches)
+    assert swiglu(z(64, 0), z(64, 0)).shape == (64, 0)
+    assert rmsnorm(z(0, 256), z(256)).shape == (0, 256)
+    a = lowrank_wgrad_project(z(64, 256), z(64, 0), z(256, 0))
+    b = lowrank_wgrad_project(z(64, 0), z(64, 256), z(0, 0))
+    torch.cuda.synchronize()
+    assert a.shape == (0, 0) and b.shape == (0, 256) and not b.any()
+    assert (rmsnorm.launches, swiglu.launches, lowrank_wgrad_project.launches) == counts
+
+
 # the bf16 kernel's edges: T not a multiple of its 64-token steps or of the
 # split, m not a multiple of the 64-column tile or of 8 (element loads), n
 # not a multiple of 8, r from 1 to past one 64-rank tile

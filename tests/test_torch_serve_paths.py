@@ -473,10 +473,15 @@ MOE_ENGINE_CASES = {
     "dense": (GEOM, SPEC),
     "paged": (dict(GEOM, use_paged_kernel=True), SPEC),
     # two prefills a step share each expert's capacity (seed 4 admits two
-    # 4-page prompts together); prompts past 4 pages chunk (prefix sharing
-    # is refused for MoE)
+    # 4-page prompts together); prompts past 4 pages chunk
     "batched_chunked": (dict(GEOM, use_paged_kernel=True, max_prefills_per_step=2,
                              prefill_chunk_pages=4), dict(SPEC, seed=4)),
+    # a forked prompt's tail runs alone against the donor's pages, as in the
+    # reference (a 6-token prefix: the partial page is copied on write)
+    "shared_cow": (dict(GEOM, prefix_sharing=True), dict(SPEC, shared_prefix=6)),
+    "composed": (dict(GEOM, use_paged_kernel=True, max_prefills_per_step=2,
+                      prefill_chunk_pages=2, prefix_sharing=True),
+                 dict(SPEC, shared_prefix=10, n_prefix_groups=2)),
 }
 
 
@@ -505,12 +510,38 @@ def test_moe_engine_matches_jax_replica_set_event_for_event(moe_model, name):
     if name == "batched_chunked":
         assert ("chunk",) in recipes
         assert any(r[0] == "batch" and r[1] == 2 and len(r[3]) == 2 for r in recipes)
+    if name in ("shared_cow", "composed"):
+        assert tres.accounting["n_prefix_hits"] > 0
+        forks = [r for r in recipes if r[0] == "fork"]
+        assert len(forks) == tres.accounting["n_prefix_hits"]
+    if name == "shared_cow":
+        assert tres.accounting["n_cow_pages"] > 0
 
 
-def test_engine_refuses_prefix_sharing_for_moe(moe_model):
+def test_moe_replay_restore_rebuilds_a_forked_prompt_bitwise(moe_model):
+    """An MoE prompt that forked a donor's prefix is rebuilt by the replay
+    path's ``("fork", ...)`` recipe in a fresh engine: its pages equal the
+    original's bitwise, and its first token too."""
     _, tcfg, _, tp = moe_model
-    with pytest.raises(ValueError, match="prefix_sharing is refused for MoE"):
-        ServeEngine(tcfg, tp, EngineConfig(**GEOM, prefix_sharing=True), device="cpu")
+    rng = np.random.default_rng(8)
+    base = tuple(int(x) for x in rng.integers(0, tcfg.vocab_size, 13))
+    donor, prompt = base, base[:9] + tuple(int(x) for x in rng.integers(0, 512, 5))
+    geom = dict(GEOM, prefix_sharing=True, prefill_chunk_pages=1)
+    eng = ServeEngine(tcfg, tp, EngineConfig(**geom), device="cpu")
+    d, p = RequestState(Request(0, 0, donor, 4)), RequestState(Request(1, 0, prompt, 4))
+    _admit_all(eng, [p], _admit_all(eng, [d]))  # the donor registers first
+    assert p.prefill_recipe[0] == "fork" and p.prefill_recipe[1] == donor
+    assert p.prefill_recipe[3] == 9
+    pages, tok = _prompt_pages(eng, p)
+    fresh = ServeEngine(tcfg, tp, EngineConfig(**geom), device="cpu")
+    rs = RequestState(Request(1, 0, prompt, 4))
+    rs.prefill_recipe, rs.emitted = p.prefill_recipe, [tok]
+    slot = fresh._bind(rs)
+    assert fresh._prefill_into(slot, rs, rs.prefill_recipe) == tok
+    again, _ = _prompt_pages(fresh, rs)
+    for e, e2 in zip(pages, again):
+        for k in e:
+            assert torch.equal(e[k], e2[k]), k
 
 
 def test_engine_admits_moe_and_non_gated_configs_and_refuses_ssm_and_frontends():
@@ -519,18 +550,12 @@ def test_engine_admits_moe_and_non_gated_configs_and_refuses_ssm_and_frontends()
 
     for name in ("qwen3-moe-30b-a3b", "granite-34b", "nemotron-4-340b", "glm4-9b"):
         tkv.check_attention_only(reduced(get_config(name)))
-    jamba = jreduced(jax_get_config("jamba-1.5-large-398b"))
-    with pytest.raises(ValueError) as jerr:
-        jax_check(jamba)
-    # the port has no SSM config: the same check on a copy of its fields
-    from repro_torch.configs.base import ModelConfig, MoEConfig, SSMConfig
-
-    fields = {k: v for k, v in vars(jamba).items() if k not in ("moe", "ssm")}
-    port_jamba = ModelConfig(**fields, moe=MoEConfig(**vars(jamba.moe)),
-                             ssm=SSMConfig(**vars(jamba.ssm)))
-    with pytest.raises(ValueError) as terr:
-        tkv.check_attention_only(port_jamba)
-    assert str(terr.value) == str(jerr.value)
+    for name in ("jamba-1.5-large-398b", "mamba2-2.7b"):
+        with pytest.raises(ValueError) as jerr:
+            jax_check(jreduced(jax_get_config(name)))
+        with pytest.raises(ValueError) as terr:
+            tkv.check_attention_only(reduced(get_config(name)))
+        assert str(terr.value) == str(jerr.value)
     for name in ("musicgen-medium", "phi-3-vision-4.2b"):
         cfg = reduced(get_config(name), dtype="float32")
         from repro_torch.models.params import init_params

@@ -131,11 +131,6 @@ def test_step_refuses_what_it_does_not_port():
     tc, mecefo = tbase.TrainConfig(), tbase.MeCeFOConfig(mode="dynamic", rank=RANK)
     shape = tbase.ShapeConfig("t", S, B, "train")
 
-    class Parallel:
-        accum = 2
-
-    with pytest.raises(NotImplementedError):
-        make_train_step(tcfg, tc, mecefo, shape, parallel=Parallel(), device="cpu")
     with pytest.raises(ValueError):
         make_train_step(tcfg, tc, mecefo, shape, ndb_mode="static", device="cpu")
     state = init_state(tcfg, tc, mecefo, torch.Generator().manual_seed(0), device="cpu")

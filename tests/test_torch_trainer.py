@@ -330,17 +330,31 @@ def test_cli_records_a_trace_the_jax_package_replays(tmp_path):
     assert trace.footer.total_steps == 6 and jtrace.verify_replay(trace, engine) == []
 
 
-def test_trainer_refuses_what_it_does_not_port():
-    """Gradient accumulation is not ported: ``accum > 1`` raises."""
-    cfg = tbase.ModelConfig(**TINY)
-    shape = tbase.ShapeConfig("t", 16, 4, "train")
+def test_trainer_with_gradient_accumulation_matches_jax(monkeypatch):
+    """``accum`` 2 through the Trainer, dynamic mode with one injected
+    failure: losses, grad norms and step keys follow the JAX Trainer's."""
+    from tests.conftest import TINY_DENSE
 
-    class Parallel:
-        accum = 2
-
-    tr = Trainer(cfg, shape, tbase.TrainConfig(steps=1), parallel=Parallel(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        tr.run(log_every=0)
+    tcfg = tbase.ModelConfig(**TINY)
+    jpar = jbase.ParallelConfig(fsdp=False, remat="ffn", scan_layers=True, accum=2)
+    jtr = jtrain.Trainer(TINY_DENSE, jbase.ShapeConfig("t", 16, 4, "train"),
+                         jbase.TrainConfig(steps=6, learning_rate=1e-3), parallel=jpar,
+                         mecefo=jbase.MeCeFOConfig(mode="dynamic", rank=8), n_dp=2, n_stages=2)
+    state = state_from_numpy(jax.tree.map(np.asarray, jtr.state), tcfg, device="cpu")
+    ttr = Trainer(tcfg, tbase.ShapeConfig("t", 16, 4, "train"),
+                  tbase.TrainConfig(steps=6, learning_rate=1e-3),
+                  parallel=tbase.ParallelConfig(accum=2),
+                  mecefo=tbase.MeCeFOConfig(mode="dynamic", rank=8), n_dp=2, n_stages=2,
+                  state=state, device="cpu")
+    jkeys, tkeys = _record_keys(monkeypatch, jtr), _record_keys(monkeypatch, ttr)
+    jtr.process.inject(2, (0, 1), down_steps=3)
+    ttr.process.inject(2, (0, 1), down_steps=3)
+    jh, th = jtr.run(log_every=0), ttr.run(log_every=0)
+    assert tkeys == jkeys and ("dynamic",) in tkeys
+    for j, t in zip(jh, th):
+        assert {k: t[k] for k in EXACT} == {k: j[k] for k in EXACT}
+        np.testing.assert_allclose(t["loss"], j["loss"], rtol=LOSS_RTOL)
+        np.testing.assert_allclose(t["grad_norm"], j["grad_norm"], rtol=LOSS_RTOL)
 
 
 def test_trainer_and_cli_default_to_cuda_and_raise_without_it():
