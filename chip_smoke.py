@@ -238,13 +238,28 @@ Then accumulation — phase 7's cell with ``accum`` 1, 2 and 4 and with
              against accum 1's and ``"dots"``'s against ``"none"``'s within
              1e-4 per leaf.  Phase 11's restore_bitwise rows include an MoE
              prompt forked onto a donor's prefix (reduced qwen3-moe).
+18. multi-rank — the data-parallel step (``launch/mesh.py``,
+             ``launch/dist.py``): (a) one NCCL rank on phase 7's cell,
+             MR_STEPS steps in each mode and ``degraded`` with
+             ``lowrank_sync``, replicated and FSDP, params, moments and
+             metrics bitwise equal to the one-process step, every
+             collective reached; (b) two gloo ranks sharing the card with
+             CUDA tensors (the host-staged ``all_reduce`` route) on a
+             4-layer f32 llama-350m at full width, B 8 (4 a rank), each
+             leaf within 1e-4 of the one-process global-batch step, the
+             replicas bitwise equal, ``degraded_sync``'s factored bytes
+             exactly r/n of ``degraded``'s gradient bytes per low-rank
+             leaf, FSDP's held bytes half plus the whole leaves; (c) the
+             Trainer on those two ranks replays ``golden_trace.jsonl`` at
+             the CLI's reduced config, ``REPLAY OK`` agreed by both.
 
-Each of phases 12-17 frees the card first and fails with a clear message
+Each of phases 12-18 frees the card first and fails with a clear message
 when too little memory is free.  Then the kernels' summary line (each
 kernel's ``launches`` from the main paths of phases 3, 4, 7 and 11; the
-launches of phases 12-17 and the accumulation phase beside them in
-``launches_by_later_path``), the card's name and power limit, and the
-final ``{"ok": true, ...}`` line.  Any failed check raises.
+launches of phases 12-18 and the accumulation phase beside them in
+``launches_by_later_path``, phase 18's per rank), the card's name and
+power limit, and the final ``{"ok": true, ...}`` line.  Any failed check
+raises.
 """
 from __future__ import annotations
 
@@ -3357,6 +3372,306 @@ def accum_phase(dev) -> dict:
     return total
 
 
+# phase 18, multi-rank: (a) one NCCL rank at full width and depth on phase
+# 7's cell, MR_STEPS steps a run, bitwise against the one-process step; (b)
+# two gloo ranks sharing the card with CUDA tensors, 4-layer f32 llama-350m
+# at full width, MR_GLOO_STEPS steps a run, each leaf within
+# TRAIN_PARITY_TOL["float32"] of the one-process global-batch step; (c) the
+# Trainer on those two ranks replaying golden_trace.jsonl at the CLI's
+# reduced config
+MR_MODES = (("off", False), ("dynamic", False), ("static", False), ("degraded", False),
+            ("degraded", True))
+MR_STEPS, MR_GLOO_STEPS, MR_GLOO_LAYERS = 2, 3, 4
+MR_TRACE = "golden_trace.jsonl"
+MR_TIMEOUT_S = 600
+
+
+def mr_label(mode: str, sync: bool) -> str:
+    return "degraded_sync" if sync else mode
+
+
+def mr_tags_reached(counts: dict, fsdp: bool, sync: bool) -> dict:
+    """Whether each collective the step runs was reached in ``counts``."""
+    tags = {k: set(t) for k, t in counts.items()}
+    ar = tags.get("all_reduce", set())
+    want = {"loss_count": "loss_count" in ar, "metrics": "metrics" in ar,
+            "grad": any(t.startswith("grad:") for t in ar | tags.get("reduce_scatter", set()))}
+    if fsdp:
+        want["param all_gather"] = any(t.startswith("param:") for t in tags.get("all_gather", ()))
+        want["grad reduce_scatter"] = bool(tags.get("reduce_scatter"))
+        want["grad_norm"] = "grad_norm" in ar
+    if sync:
+        want["lowrank factor"] = any(t.startswith("lowrank:") for t in ar)
+    return want
+
+
+def mr_steps(step, state, batches, ndb, dev) -> tuple:
+    """Runs the step over ``batches``; (state, metrics per step as floats,
+    step ms)."""
+    metrics, times = [], []
+    for b in batches:
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b, *ndb)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        metrics.append({k: float(v) for k, v in m.items()})
+    return state, metrics, times
+
+
+def mr_nccl_rows(dev, tmp: str) -> dict:
+    """(a): one NCCL rank on phase 7's cell in every mode, replicated and
+    FSDP, against ``make_train_step(..., mesh=None)`` from the same state:
+    params, moments and metrics bitwise.  Returns its launches."""
+    from repro_torch.launch.dist import destroy, init_process_group
+    from repro_torch.launch.state import to_local
+    from repro_torch.parallel import collectives
+
+    mesh = init_process_group(0, 1, init_method="file://" + os.path.join(tmp, "nccl"),
+                              backend="nccl", device=dev)
+    total = {n: 0 for n in TRAIN_KERNELS}
+    try:
+        cell = train_cell(dev)
+        cfg = cell.cfg
+        batches = [cell.source().batch(i, TRAIN_B, TRAIN_S) for i in range(MR_STEPS)]
+        for mode, sync in MR_MODES:
+            mecefo = dataclasses.replace(cell.mecefo, lowrank_sync=sync)
+            kw = dict(ndb_mode=mode, static_ndb=(cell.keep, cell.weight) if mode == "static"
+                      else None, total_steps=cell.train.steps, flags=TRAIN_FLAGS)
+            ndb = ({"keep": cell.keep, "example_weight": cell.weight},) if mode == "dynamic" else ()
+            ref_step = make_train_step(cfg, cell.train, mecefo, cell.shape,
+                                       device=dev, **kw)
+            ref, ref_m, ref_ms = mr_steps(ref_step, cell.state(), batches, ndb, dev)
+            for fsdp in (False, True):
+                step = make_train_step(cfg, cell.train, mecefo, cell.shape, mesh=mesh,
+                                       parallel=ParallelConfig(fsdp=fsdp), **kw)
+                state = to_local(cell.state(), step.layout)
+                collectives.reset_counts()
+                reset_launches()
+                state, metrics, ms = mr_steps(step, state, batches, ndb, dev)
+                launches = {n: WRAPPERS[n].launches for n in TRAIN_KERNELS}
+                counts = collectives.counts()
+                pairs = list(zip(tree_leaves(state.params) + tree_leaves(state.opt.m)
+                                 + tree_leaves(state.opt.v),
+                                 tree_leaves(ref.params) + tree_leaves(ref.opt.m)
+                                 + tree_leaves(ref.opt.v)))
+                unequal = sum(not torch.equal(a, b) for a, b in pairs)
+                reached = mr_tags_reached(counts, fsdp, sync)
+                ok = unequal == 0 and metrics == ref_m and all(reached.values())
+                emit({"phase": "multi-rank", "row": "a: nccl, one rank", "config": cfg.name,
+                      "n_layers": cfg.n_layers, "dtype": cfg.dtype, "batch": TRAIN_B,
+                      "seq_len": TRAIN_S, "rank": TRAIN_RANK, "mode": mr_label(mode, sync),
+                      "fsdp": fsdp, "backend": mesh.comm.backend, "route": mesh.comm.route,
+                      "leaves": len(pairs), "leaves_not_bitwise": unequal,
+                      "metrics_bitwise": metrics == ref_m, "losses": [m["loss"] for m in metrics],
+                      "step_ms": ms, "step_ms_one_process": ref_ms, "reached": reached,
+                      "collectives": {k: {"calls": sum(c["calls"] for c in t.values()),
+                                          "bytes": sum(c["bytes"] for c in t.values())}
+                                      for k, t in counts.items()},
+                      "launches": launches, "ok": ok})
+                if not ok:
+                    raise AssertionError(f"multi-rank (a) {mode} sync={sync} fsdp={fsdp}: "
+                                         f"{unequal} leaves differ, metrics {metrics} vs {ref_m}, "
+                                         f"reached {reached}")
+                for n in TRAIN_KERNELS:
+                    total[n] += launches[n]
+                del state, step
+            del ref, ref_step
+        del cell
+    finally:
+        destroy()
+    return total
+
+
+def mr_gloo_rank(mesh, tmp: str, cfg, seq_len: int, trainer_cfg) -> None:
+    """(b) on ``cfg`` at ``seq_len`` and (c) on ``trainer_cfg``, on one of
+    two gloo ranks sharing the card: writes ``rank<r>.pt`` (rows, digests,
+    rel errors, counts, launches)."""
+    from repro_torch.launch.state import gather_state, to_local
+    from repro_torch.parallel import collectives
+
+    dev = mesh.device
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init = torch.load(os.path.join(tmp, "init.pt"), weights_only=False)
+    init = tree_map(lambda t: t.to(dev), init)
+    train = TrainConfig()
+    shape = ShapeConfig("multi-rank", seq_len, TRAIN_B, "train")
+    keep, w = plan_to_masks(TRAIN_PLAN, cfg, TRAIN_B)
+    src = SyntheticLM(cfg.vocab_size)
+    batches = [src.batch(i, TRAIN_B, seq_len) for i in range(MR_GLOO_STEPS)]
+    tol = TRAIN_PARITY_TOL["float32"][0]
+
+    def fresh():
+        params = tree_map(lambda t: t.clone(), init["params"])
+        return TrainState(step=0, params=params, opt=init_opt_state(params, train),
+                          proj=init["proj"])
+
+    rows, launches = [], {n: 0 for n in TRAIN_KERNELS}
+    for mode, sync in MR_MODES:
+        mecefo = MeCeFOConfig(mode="dynamic", rank=TRAIN_RANK, lowrank_sync=sync)
+        kw = dict(ndb_mode=mode, static_ndb=(keep, w) if mode == "static" else None,
+                  total_steps=train.steps, flags=TRAIN_FLAGS)
+        ndb = ({"keep": keep, "example_weight": w},) if mode == "dynamic" else ()
+        ref = None
+        if mesh.rank == 0:  # the one-process step on the global batch; rank 1 waits
+            ref, ref_m, ref_ms = mr_steps(make_train_step(cfg, train, mecefo, shape, device=dev,
+                                                          **kw), fresh(), batches, ndb, dev)
+        for fsdp in (False, True):
+            step = make_train_step(cfg, train, mecefo, shape, mesh=mesh,
+                                   parallel=ParallelConfig(fsdp=fsdp), **kw)
+            state = to_local(fresh(), step.layout)
+            collectives.reset_counts()
+            reset_launches()
+            state, metrics, ms = mr_steps(step, state, batches, ndb, dev)
+            for n in TRAIN_KERNELS:
+                launches[n] += WRAPPERS[n].launches
+            counts = collectives.counts()
+            local = tree_leaves(state.params) + tree_leaves(state.opt.m) + tree_leaves(state.opt.v)
+            dims = list(step.layout.dims) * 3
+            row = {"mode": mr_label(mode, sync), "fsdp": fsdp, "metrics": metrics, "step_ms": ms,
+                   "counts": counts, "paths": step.layout.paths, "dims": step.layout.dims,
+                   "leaf_numel": [x.numel() for x in tree_leaves(state.params)],
+                   "whole_leaves": step.layout.whole,
+                   "held_bytes": sum(x.numel() * x.element_size() for x in local),
+                   "replicated_digest": tree_digest([x for x, d in zip(local, dims) if d is None],
+                                                    dev),
+                   "route": mesh.comm.route, "backend": mesh.comm.backend}
+            whole = gather_state(state, step.layout)
+            if mesh.rank == 0:
+                row["ref_step_ms"] = ref_ms
+                row["loss_rel_err"] = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                                          for a, b in zip(metrics, ref_m))
+                errs = {what: leaf_rel_errs(getattr(whole, part) if what == "params" else
+                                            getattr(whole.opt, what),
+                                            getattr(ref, part) if what == "params" else
+                                            getattr(ref.opt, what))
+                        for what, part in (("params", "params"), ("m", "opt"), ("v", "opt"))}
+                row["max_leaf_rel_err"] = {k: max(v) for k, v in errs.items()}
+                row["limit_rel"] = tol
+            rows.append(row)
+            del state, whole, step
+        del ref
+    # (c): the Trainer replays the golden trace at the CLI's reduced config
+    trace = load_trace(os.path.join(TRAINER_DATA, MR_TRACE))
+    collectives.reset_counts()
+    reset_launches()
+    t0 = time.perf_counter()
+    trainer = Trainer(trainer_cfg, ShapeConfig("cli", 128, 8, "train"),
+                      TrainConfig(steps=trace.footer.total_steps),
+                      mecefo=MeCeFOConfig(mode="dynamic", rank=16, svd_period=20),
+                      trace_replay=trace, mesh=mesh)
+    hist = trainer.run(log_every=0)
+    agreed = trainer.replay_agreed()
+    trainer_launches = {n: WRAPPERS[n].launches for n in TRAIN_KERNELS}
+    for n in TRAIN_KERNELS:
+        launches[n] += trainer_launches[n]
+    torch.save({"rows": rows, "launches": launches,
+                "trainer": {"agreed": agreed, "own_verify": trainer.verify_replay(),
+                            "steps": len(hist), "losses": [r["loss"] for r in hist],
+                            "wall_s": time.perf_counter() - t0, "launches": trainer_launches,
+                            "collectives": {k: sum(c["calls"] for c in t.values())
+                                            for k, t in collectives.counts().items()}}},
+               os.path.join(tmp, f"rank{mesh.rank}.pt"))
+
+
+def mr_gloo_rows(dev, tmp: str, cfg, seq_len: int, trainer_cfg) -> dict:
+    """(b) and (c): spawn the two gloo ranks, then gate their results.
+    Returns each rank's launches."""
+    from repro_torch.launch.dist import spawn
+
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(1), dev)
+    proj = refresh_projections(params, cfg, TRAIN_RANK)
+    torch.save(tree_map(lambda t: t.cpu(), {"params": params, "proj": proj}),
+               os.path.join(tmp, "init.pt"))
+    del params, proj
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    spawn(mr_gloo_rank, 2, tmp, cfg, seq_len, trainer_cfg, backend="gloo", device=dev.type,
+          timeout=MR_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False) for r in range(2)]
+    tol = TRAIN_PARITY_TOL["float32"][0]
+    fails = []
+    by = {(r["mode"], r["fsdp"]): r for r in ranks[0]["rows"]}
+    for r0, r1 in zip(ranks[0]["rows"], ranks[1]["rows"]):
+        bitwise = r0["replicated_digest"] == r1["replicated_digest"]
+        ok = (bitwise and r0["metrics"] == r1["metrics"]
+              and max(r0["max_leaf_rel_err"].values()) <= tol and r0["loss_rel_err"] <= tol)
+        emit({"phase": "multi-rank", "row": "b: gloo, two ranks on one card",
+              "config": cfg.name, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+              "batch": TRAIN_B, "rows_per_rank": TRAIN_B // 2, "seq_len": seq_len,
+              "mode": r0["mode"], "fsdp": r0["fsdp"], "backend": r0["backend"],
+              "route": r0["route"], "replicas_bitwise": bitwise,
+              "losses": [m["loss"] for m in r0["metrics"]],
+              "loss_rel_err": r0["loss_rel_err"], "max_leaf_rel_err": r0["max_leaf_rel_err"],
+              "limit_rel": tol, "step_ms_rank0": r0["step_ms"], "step_ms_rank1": r1["step_ms"],
+              "step_ms_one_process": r0["ref_step_ms"],
+              "held_bytes": r0["held_bytes"], "ok": ok})
+        if not ok:
+            fails.append(f"(b) {r0['mode']} fsdp={r0['fsdp']}")
+    # degraded_sync's factored all-reduce: r/n of each low-rank leaf's bytes
+    deg = by[("degraded", False)]["counts"]["all_reduce"]
+    syn = by[("degraded_sync", False)]["counts"]["all_reduce"]
+    ratios = {}
+    for tag, c in syn.items():
+        if tag.startswith("lowrank:"):
+            path = tag[len("lowrank:"):]
+            n = cfg.d_ff if path.endswith("w_down") else cfg.d_model  # W's input dim
+            r = min(TRAIN_RANK, cfg.d_model, cfg.d_ff)
+            grad = deg["grad:" + path]["bytes"]
+            ratios[path] = {"factor_bytes": c["bytes"], "gradient_bytes_degraded": grad,
+                            "ratio": c["bytes"] / grad, "want": f"{r}/{n}",
+                            "ok": c["bytes"] * n == grad * r and "grad:" + path not in syn}
+    bytes_ok = len(ratios) == 3 and all(v["ok"] for v in ratios.values())
+    # FSDP: half the sharded leaves' params and moments, the whole leaves kept
+    rep, fs = by[("dynamic", False)], by[("dynamic", True)]
+    whole_bytes = 3 * 4 * sum(n for n, d in zip(fs["leaf_numel"], fs["dims"]) if d is None)
+    held_ok = fs["held_bytes"] * 2 == rep["held_bytes"] + whole_bytes
+    emit({"phase": "multi-rank", "row": "b: bytes", "lowrank_sync_factor_vs_gradient": ratios,
+          "bytes_ok": bytes_ok, "held_bytes_replicated": rep["held_bytes"],
+          "held_bytes_fsdp": fs["held_bytes"], "whole_leaves": fs["whole_leaves"],
+          "whole_leaf_bytes": whole_bytes, "held_ratio": fs["held_bytes"] / rep["held_bytes"],
+          "held_ok": held_ok})
+    if not bytes_ok:
+        fails.append("(b) degraded_sync bytes")
+    if not held_ok:
+        fails.append("(b) fsdp held bytes")
+    tr = [r["trainer"] for r in ranks]
+    ok = all(t["agreed"] and not t["own_verify"] for t in tr) and tr[0]["losses"] == tr[1]["losses"]
+    emit({"phase": "multi-rank", "row": "c: trainer, two gloo ranks", "trace": MR_TRACE,
+          "config": f"reduced {trainer_cfg.name} {trainer_cfg.dtype}", "steps": tr[0]["steps"],
+          "replay": "REPLAY OK" if ok else "REPLAY MISMATCH",
+          "agreed": [t["agreed"] for t in tr], "final_loss": tr[0]["losses"][-1],
+          "wall_s": [t["wall_s"] for t in tr], "collective_calls": tr[0]["collectives"],
+          "launches": [t["launches"] for t in tr], "ok": ok})
+    if not ok:
+        fails.append("(c) trainer replay")
+    emit({"phase": "multi-rank", "row": "b+c spawn", "seconds": spawn_s,
+          "launches_by_rank": [r["launches"] for r in ranks]})
+    if fails:
+        raise AssertionError(f"multi-rank: {fails}")
+    return {r: ranks[r]["launches"] for r in range(2)}
+
+
+def multirank_phase(dev) -> dict:
+    """Phase 18.  Returns the launches of each of its paths."""
+    t0 = time.perf_counter()
+    free_card("multi-rank", 30)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = {"multi-rank nccl w1": mr_nccl_rows(dev, tmp)}
+        torch.cuda.empty_cache()
+        full = get_config(TRAIN_CONFIG)
+        gloo = mr_gloo_rows(dev, tmp, dataclasses.replace(full, n_layers=MR_GLOO_LAYERS,
+                                                          dtype="float32"),
+                            TRAIN_S, reduced(full, dtype="float32"))
+    out.update({f"multi-rank gloo w2 rank {r}": c for r, c in gloo.items()})
+    emit({"phase": "multi-rank", "run": "phase", "seconds": time.perf_counter() - t0})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU",
@@ -3396,6 +3711,7 @@ def main() -> int:
     del ssm_params
     later["hybrid"] = hybrid_phase(dev)
     later["accumulation"] = accum_phase(dev)
+    later.update(multirank_phase(dev))
 
     emit({"kernels": [
         {"name": n, "route": "cuda", "source": f"src/repro_torch/csrc/{n}.cu",

@@ -1,4 +1,7 @@
-"""PyTorch/CUDA port of the serving path of ``repro`` (the JAX package).
+"""PyTorch/CUDA port of ``repro`` (the JAX package): serving, the MeCeFO
+training step and Trainer, fault tolerance and state transfer, on one
+process or data-parallel across processes (``launch/mesh.py``,
+``launch/dist.py``).
 
 The port keeps the JAX package's module names and tensor layouts at its
 public functions, so every function here has a counterpart of the same name

@@ -7,6 +7,12 @@ kept as they are.  A save writes ``step_<N>.tmp`` and renames it, and the
 marker makes a partly written checkpoint invisible to restore.  Saves run
 on a background thread whose errors surface on the next ``wait()``;
 ``keep`` bounds disk use but never prunes the newest complete step.
+
+Under a mesh whose FSDP layout (``launch/state.py:ShardLayout``) cuts the
+params and moments, a save gathers the whole state on every rank and rank
+0 alone writes the files one process writes; a restore reads them on
+every rank and keeps each rank's slices.  A checkpoint written at one
+mesh size restores at any other, one process included.
 """
 from __future__ import annotations
 
@@ -18,13 +24,37 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.launch.state import gather_state, to_local
 from repro_torch.utils.trees import host_copy, is_py_scalar, tree_flatten
 
 Tree = Any
 
 
-def save(state: Tree, directory: str, step: int) -> str:
-    """Synchronous atomic save. Returns the checkpoint path."""
+def _whole(state: Tree, layout) -> Tree:
+    """The whole state of a rank's slices (a collective under FSDP)."""
+    if layout is None or not layout.sharded:
+        return state
+    return gather_state(state, layout)
+
+
+def _writes(layout) -> bool:
+    return layout is None or layout.mesh.rank == 0
+
+
+def save(state: Tree, directory: str, step: int, layout=None) -> str:
+    """Synchronous atomic save. Returns the checkpoint path.  Under a mesh
+    (``layout``) every rank calls it: the state is gathered, rank 0 writes,
+    and every rank returns once the files are complete."""
+    final = os.path.join(directory, f"step_{step:08d}")
+    state = _whole(state, layout)
+    if _writes(layout):
+        _write(state, directory, step)
+    if layout is not None:
+        layout.mesh.comm.barrier()
+    return final
+
+
+def _write(state: Tree, directory: str, step: int) -> str:
     os.makedirs(directory, exist_ok=True)
     final = os.path.join(directory, f"step_{step:08d}")
     tmp = final + ".tmp"
@@ -56,8 +86,11 @@ def _restore_leaf(saved: Any, like: Any) -> Any:
     return saved
 
 
-def restore(like: Tree, directory: str, step: Optional[int] = None) -> Tuple[Tree, int]:
-    """Restore into the structure of ``like``. Returns (state, step)."""
+def restore(like: Tree, directory: str, step: Optional[int] = None,
+            layout=None) -> Tuple[Tree, int]:
+    """Restore into the structure of ``like``. Returns (state, step).  Under
+    a mesh (``layout``) ``like`` is a ``TrainState`` and each rank keeps its
+    slices of the params and moments."""
     step = step if step is not None else latest_step(directory)
     if step is None:
         raise FileNotFoundError(f"no complete checkpoint under {directory}")
@@ -66,7 +99,10 @@ def restore(like: Tree, directory: str, step: Optional[int] = None) -> Tuple[Tre
     leaves, unflatten = tree_flatten(like)
     if len(data) != len(leaves):
         raise ValueError(f"{path} holds {len(data)} leaves, the state has {len(leaves)}")
-    return unflatten([_restore_leaf(data[f"leaf_{i}"], x) for i, x in enumerate(leaves)]), step
+    state = unflatten([_restore_leaf(data[f"leaf_{i}"], x) for i, x in enumerate(leaves)])
+    if layout is not None and layout.sharded:
+        state = to_local(state, layout)
+    return state, step
 
 
 def latest_step(directory: str) -> Optional[int]:
@@ -81,24 +117,31 @@ def latest_step(directory: str) -> Optional[int]:
 
 
 class CheckpointManager:
-    """Background-thread checkpointer with retention."""
+    """Background-thread checkpointer with retention.  Under a mesh
+    (``layout``) every rank calls each method: a save gathers on every rank
+    and writes on rank 0, ``wait`` ends with a barrier so every rank sees
+    the files, and a restore keeps each rank's slices."""
 
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3, layout=None):
         self.directory = directory
         self.keep = keep
+        self.layout = layout
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
         self.saved_steps: List[int] = []
 
     def save_async(self, state: Tree, step: int) -> None:
         self.wait()
+        state = _whole(state, self.layout)
+        if not _writes(self.layout):
+            return
         # the device-to-host copy happens here, before the caller's next
         # in-place step can touch the state; the disk write on the thread
         host_state = host_copy(state)
 
         def work():
             try:
-                save(host_state, self.directory, step)
+                _write(host_state, self.directory, step)
                 self.saved_steps.append(step)
                 self._gc()
             except BaseException as e:  # surfaced on next wait()
@@ -114,6 +157,8 @@ class CheckpointManager:
         if self._error is not None:
             err, self._error = self._error, None
             raise err
+        if self.layout is not None:
+            self.layout.mesh.comm.barrier()
 
     def _gc(self) -> None:
         if len(self.saved_steps) <= self.keep:
@@ -133,7 +178,7 @@ class CheckpointManager:
         self.wait()
         if latest_step(self.directory) is None:
             return None
-        return restore(like, self.directory)
+        return restore(like, self.directory, layout=self.layout)
 
 
 __all__ = ["CheckpointManager", "latest_step", "restore", "save"]

@@ -1,16 +1,18 @@
 """Configs: a copy of ``repro.configs.base``'s ``ModelConfig``,
-``MeCeFOConfig``, ``ShapeConfig``, ``TrainConfig``, ``reduced``,
-``register`` and ``get_config``, and of the two fields of its
-``ParallelConfig`` that one device reads (gradient accumulation and the
-micro-gradients' compression); the mesh and sharding fields wait for the
-multi-GPU slice.
+``MeCeFOConfig``, ``ParallelConfig``, ``ShapeConfig``, ``TrainConfig``,
+``reduced``, ``register`` and ``get_config``.
+
+The port runs the ``data`` mesh axis at any size with the ``model`` axis at
+1 (``launch/mesh.py``); :meth:`ParallelConfig.check` refuses what it does
+not run yet: a ``model`` axis above 1, the pure 2-D ``"fsdp"`` sharding
+mode (it shards weights over the ``model`` axis) and sequence parallelism.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -59,13 +61,46 @@ class MeCeFOConfig:
 
 @dataclass(frozen=True)
 class ParallelConfig:
-    """The one-device part of the JAX package's ``ParallelConfig``."""
+    """Mesh + sharding policy (the JAX package's fields and defaults)."""
 
+    # Axis names; the leading axes shard the batch ("dp-like"), the last
+    # shards weights ("tp-like").
+    dp_axes: Tuple[str, ...] = ("data",)
+    tp_axis: str = "model"
+    # FSDP: additionally shard weights and optimizer moments over "data".
+    fsdp: bool = True
+    # "tp_fsdp" (TP over 'model' + FSDP over 'data') or "fsdp" (pure 2-D
+    # FSDP over both axes)
+    sharding_mode: str = "tp_fsdp"
+    # Sequence parallelism over the tp axis.
+    sequence_parallel: bool = False
+    # Kept for the reference's field set: the port's step takes its remat
+    # from ``ExecFlags`` and its trunk is always a loop over periods.
+    remat: str = "full"
+    scan_layers: bool = True
     # Gradient-accumulation microbatches per optimizer step (1 = off).
     accum: int = 1
-    # "bf16" rounds each micro-gradient to bf16 before the f32 sum; the
-    # collective compressions ("int8", "lowrank") act across devices only
+    # Gradient compression: "none", "bf16" (each micro-gradient rounded to
+    # bf16 before the f32 sum), or the collective schemes "int8" and
+    # "lowrank" (``core/grad_sync.py:compress_psum``, MeCeFO's
+    # ``lowrank_sync``)
     grad_compression: str = "none"
+
+    def check(self, mesh_shape: dict) -> None:
+        """Raise for what the port does not run yet on a mesh of
+        ``mesh_shape`` ({axis: size})."""
+        later = "runs in a later slice of the port"
+        if mesh_shape.get(self.tp_axis, 1) > 1:
+            raise NotImplementedError(f"a {self.tp_axis!r} axis above 1 (TP, EP, SP) {later}")
+        if self.sharding_mode not in ("tp_fsdp", "fsdp"):
+            raise ValueError(f"sharding_mode {self.sharding_mode!r}")
+        if self.sharding_mode == "fsdp":
+            raise NotImplementedError(
+                f"sharding_mode 'fsdp' shards weights over the {self.tp_axis!r} axis: it {later}")
+        if self.sequence_parallel:
+            raise NotImplementedError(f"sequence_parallel {later}")
+        if tuple(self.dp_axes) != ("data",):
+            raise NotImplementedError(f"dp_axes {self.dp_axes}: only ('data',) {later}")
 
 
 @dataclass(frozen=True)

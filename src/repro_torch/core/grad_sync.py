@@ -1,6 +1,11 @@
-"""Gradient synchronization on one device (the counterpart of
-``repro.core.grad_sync``): eq. (1)'s rescale.  The int8 ``compress_psum``
-belongs to the multi-GPU slice.
+"""Gradient synchronization pieces (the counterpart of
+``repro.core.grad_sync``).
+
+1. :func:`rescale_skipped_grads`: eq. (1)'s rescale of the MHA gradients
+   of layer l by n / |N_l|, from the global keep mask.
+2. :func:`compress_psum`: the sum of a gradient tree over the data group
+   with optional int8 compression.  As in the JAX package it is a library
+   function that no step calls.
 """
 from __future__ import annotations
 
@@ -9,7 +14,7 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.params import block_layout
+from repro_torch.models.params import block_layout, tree_leaves, tree_map
 
 Tree = Any
 
@@ -50,3 +55,39 @@ def rescale_skipped_grads(
         }
         layers[pos] = dict(layers[pos], mixer=mixer)
     return dict(grads, layers=tuple(layers))
+
+
+# ---------------------------------------------------------------------------
+# Quantized collective
+# ---------------------------------------------------------------------------
+
+
+def compress_psum(tree: Tree, group, method: str = "int8") -> Tree:
+    """The sum over ``group`` (a ``parallel.collectives.Comm``, or a mesh)
+    of each leaf of a gradient tree, as new tensors.
+
+    int8: a shared scale from the all-reduce MAX of ``|g|`` (``/ 127``),
+    each element quantized by round-half-even and clipped to ±127, an int32
+    sum all-reduce, then dequantization to the leaf's dtype.  A leaf under
+    4096 elements, and every leaf with ``method="none"``, is a plain sum.
+    """
+    comm = getattr(group, "comm", group)
+    if method not in ("none", "int8"):
+        raise ValueError(method)
+
+    def plain(g):
+        return comm.all_reduce(g.detach().clone(), tag="compress_psum")
+
+    def one(g):
+        if method == "none" or g.numel() < 4096:
+            return plain(g)
+        amax = comm.all_reduce(g.detach().abs().max().float().reshape(1), op="max",
+                               tag="compress_psum")[0]
+        scale = torch.clamp(amax, min=1e-12) / 127.0
+        q = torch.clamp(torch.round(g.float() / scale), -127, 127)
+        acc = comm.all_reduce(q.to(torch.int32), tag="compress_psum")
+        return (acc.float() * scale).to(g.dtype)
+
+    # in leaf order (dict keys sorted): the ranks' trees may differ in key order
+    out = {id(g): one(g) for g in tree_leaves(tree)}
+    return tree_map(lambda g: out[id(g)], tree)

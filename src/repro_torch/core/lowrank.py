@@ -9,7 +9,11 @@ steps)::
     dW ≈ V1 @ ((x @ V1)^T dy)
 
 ``(x @ V1)^T dy`` is kernel #6 (``kernels/lowrank_wgrad.py``), launched
-inside the backward of :func:`lowrank_linear`.  The MoE experts' grouped
+inside the backward of :func:`lowrank_linear`.  In ``degraded_sync`` mode
+(MeCeFO's ``lowrank_sync``) the step's data group all-reduces that (r, m)
+factor instead of the (n, m) gradient: the backward sums it over the
+ranks before ``V1 @ A``, and marks the weight's gradient as global so the
+step does not reduce it again (``parallel/collectives.py:StepSync``).  The MoE experts' grouped
 form, :func:`lowrank_linear_grouped`, takes batched matrix products, as the
 JAX package's ``einsum`` outside any Pallas kernel.  ``dx`` is always
 exact.
@@ -24,7 +28,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.lowrank_wgrad import lowrank_wgrad
-from repro_torch.models.params import block_layout
+from repro_torch.models.params import block_layout, param_annotations
+from repro_torch.parallel import collectives
 
 Tree = Any
 
@@ -87,14 +92,45 @@ def init_projections(params: Tree, cfg: ModelConfig, rank: int) -> Tree:
     return _projection_tree(params, cfg, zeros)
 
 
+def projection_annotations(cfg: ModelConfig) -> Tree:
+    """Logical sharding annotations of the V1 tree: the input dim follows
+    W's, the rank dim is replicated."""
+    anns = param_annotations(cfg)
+    layers = []
+    for pos, (kind, _is_moe) in enumerate(block_layout(cfg)):
+        block = anns["layers"][pos]
+        out = {"mixer": {}, "ffn": {}}
+        for part in ("mixer", "ffn"):
+            for name in _lowrank_leaf_names(kind, part):
+                if name in block[part]:
+                    out[part][name] = (*block[part][name][:-1], None)
+        layers.append(out)
+    return {"layers": tuple(layers)}
+
+
+def _synced(ctx):
+    """The all-reduce of the (r, m) factor of the weight ``ctx`` saw in its
+    forward, which marks that weight's gradient as global."""
+    sync, leaf = ctx.sync, ctx.leaf
+
+    def reduce(a: torch.Tensor) -> torch.Tensor:
+        sync.comm.all_reduce(a, tag="lowrank:" + sync.paths.get(leaf, "?"))
+        sync.mark(leaf)
+        return a
+
+    return reduce
+
+
 class LowRankLinear(torch.autograd.Function):
     """``y = x @ w`` with a MeCeFO backward for dW (``_ll_bwd``)."""
 
     @staticmethod
-    def forward(ctx, x, w, v1, keep, mode):
+    def forward(ctx, x, w, v1, keep, mode, sync):
         if mode not in MODES:
             raise ValueError(mode)
         ctx.mode = mode
+        ctx.sync = sync if mode == "degraded_sync" else None
+        ctx.leaf = None if ctx.sync is None else collectives.leaf_id(w)
         ctx.keep_const = None if torch.is_tensor(keep) else float(keep)
         ctx.save_for_backward(x, w, v1, *((keep,) if torch.is_tensor(keep) else ()))
         return x @ w
@@ -104,18 +140,17 @@ class LowRankLinear(torch.autograd.Function):
         x, w, v1, *rest = ctx.saved_tensors
         dx = dy @ w.T if ctx.needs_input_grad[0] else None
         if not ctx.needs_input_grad[1]:
-            return dx, None, None, None, None
+            return dx, None, None, None, None, None
         # flatten, not reshape(-1, n): a zero-width FFN's (B, S, 0) has no -1
         xf = x.flatten(0, -2)
         dyf = dy.flatten(0, -2).contiguous()
         if ctx.mode == "exact":
             dw = xf.T @ dyf
         elif ctx.mode in ("degraded", "degraded_sync"):
-            # On one device "degraded_sync" is "degraded": the JAX package's
-            # _replicate, which moves the DP all-reduce onto the factored
-            # (r, m) gradient, is a no-op without a mesh.  The factored
-            # all-reduce belongs to the multi-GPU slice.
-            dw = lowrank_wgrad(xf, dyf, v1)
+            # without a step sync (one process, or ranks that each compute
+            # the whole batch) "degraded_sync" is "degraded"
+            dw = lowrank_wgrad(xf, dyf, v1,
+                               reduce=None if ctx.sync is None else _synced(ctx))
         else:  # mixed: kept examples exact, skipped ones low-rank
             keep = rest[0] if rest else torch.tensor(ctx.keep_const, device=dy.device)
             k = keep.to(dy.dtype)
@@ -123,19 +158,21 @@ class LowRankLinear(torch.autograd.Function):
             dy_keep = (dy * k).flatten(0, -2)
             dy_skip = (dy * (1 - k)).flatten(0, -2)
             dw = xf.T @ dy_keep + lowrank_wgrad(xf, dy_skip, v1)
-        return dx, dw.to(w.dtype), None, None, None
+        return dx, dw.to(w.dtype), None, None, None, None
 
 
 def lowrank_linear(x: torch.Tensor, w: torch.Tensor, v1: torch.Tensor, keep,
-                   mode: str = "exact") -> torch.Tensor:
+                   mode: str = "exact", sync=None) -> torch.Tensor:
     """``y = x @ w`` with a MeCeFO backward for dW.
 
     x: (..., n) activations (batch on dim 0); w: (n, m); v1: (n, r)
     (unused in ``exact`` mode); keep: (B,) per-example keep mask (1 =
     exact), used by ``mixed`` only; mode: "exact" | "degraded" |
-    "degraded_sync" | "mixed".
+    "degraded_sync" | "mixed"; sync: the rank's ``StepSync`` under a mesh,
+    whose data group ``degraded_sync`` all-reduces the factor over (without
+    one it is ``degraded``).
     """
-    return LowRankLinear.apply(x, w, v1, keep, mode)
+    return LowRankLinear.apply(x, w, v1, keep, mode, sync)
 
 
 class LowRankLinearGrouped(torch.autograd.Function):
@@ -143,10 +180,12 @@ class LowRankLinearGrouped(torch.autograd.Function):
     (``_llg_bwd``)."""
 
     @staticmethod
-    def forward(ctx, x, w, v1, keep, mode):
+    def forward(ctx, x, w, v1, keep, mode, sync):
         if mode not in MODES:
             raise ValueError(mode)
         ctx.mode = mode
+        ctx.sync = sync if mode == "degraded_sync" else None
+        ctx.leaf = None if ctx.sync is None else collectives.leaf_id(w)
         ctx.save_for_backward(x, w, v1, keep)
         return torch.bmm(x, w)
 
@@ -156,30 +195,31 @@ class LowRankLinearGrouped(torch.autograd.Function):
         dy = dy.contiguous()
         dx = torch.bmm(dy, w.transpose(1, 2)) if ctx.needs_input_grad[0] else None
         if not ctx.needs_input_grad[1]:
-            return dx, None, None, None, None
+            return dx, None, None, None, None, None
         xt = x.transpose(1, 2)
         if ctx.mode == "exact":
             dw = torch.bmm(xt, dy)
         elif ctx.mode in ("degraded", "degraded_sync"):
-            # one device: "degraded_sync" is "degraded" (see LowRankLinear)
             a = torch.bmm(torch.bmm(x, v1).transpose(1, 2), dy)     # (E, r, m)
+            if ctx.sync is not None:
+                a = _synced(ctx)(a)
             dw = torch.bmm(v1, a)
         else:  # mixed: slots of kept examples exact, skipped ones low-rank
             k = keep.to(dy.dtype)[..., None]
             a = torch.bmm(torch.bmm(x, v1).transpose(1, 2), dy * (1 - k))
             dw = torch.bmm(xt, dy * k) + torch.bmm(v1, a)
-        return dx, dw.to(w.dtype), None, None, None
+        return dx, dw.to(w.dtype), None, None, None, None
 
 
 def lowrank_linear_grouped(x: torch.Tensor, w: torch.Tensor, v1: torch.Tensor,
-                           keep: torch.Tensor, mode: str = "exact") -> torch.Tensor:
+                           keep: torch.Tensor, mode: str = "exact", sync=None) -> torch.Tensor:
     """Grouped ``y[e] = x[e] @ w[e]`` with a MeCeFO backward per expert.
 
     x: (E, C, n); w: (E, n, m); v1: (E, n, r); keep: (E, C) slot mask
     (1 = the slot's example is exact), used by ``mixed`` only; mode as
     :func:`lowrank_linear`.
     """
-    return LowRankLinearGrouped.apply(x, w, v1, keep, mode)
+    return LowRankLinearGrouped.apply(x, w, v1, keep, mode, sync)
 
 
 def wgrad_flops(b: int, n: int, m: int, r: Optional[int]) -> int:

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import FrozenSet, Optional, Tuple
+from typing import Any, FrozenSet, Optional, Tuple
 
 import numpy as np
 import torch
@@ -150,6 +150,10 @@ class NDBContext:
     keep: Optional[torch.Tensor] = None            # (L, B)
     example_weight: Optional[torch.Tensor] = None  # (B,)
     mecefo: MeCeFOConfig = field(default_factory=MeCeFOConfig)
+    # a rank's share of a mesh step: what its forward and backward reduce
+    # over the data group (parallel/collectives.py:StepSync); None on one
+    # process and where each rank computes the whole batch
+    sync: Any = None
 
     @property
     def active(self) -> bool:

@@ -85,7 +85,13 @@ def lowrank_wgrad_project(x: torch.Tensor, dy: torch.Tensor, v1: torch.Tensor) -
 lowrank_wgrad_project.launches = 0
 
 
-def lowrank_wgrad(x: torch.Tensor, dy: torch.Tensor, v1: torch.Tensor) -> torch.Tensor:
+def lowrank_wgrad(x: torch.Tensor, dy: torch.Tensor, v1: torch.Tensor,
+                  reduce=None) -> torch.Tensor:
     """Technique III's weight gradient ``dW = V1 @ ((x V1)^T dy)`` (n, m),
-    in ``v1``'s dtype."""
-    return (v1.float() @ lowrank_wgrad_project(x, dy, v1)).to(v1.dtype)
+    in ``v1``'s dtype.  ``reduce`` (MeCeFO's ``lowrank_sync``) runs on the
+    (r, m) factor between the kernel and the product: the data group's
+    all-reduce, so dW comes out global."""
+    a = lowrank_wgrad_project(x, dy, v1)
+    if reduce is not None:
+        a = reduce(a)
+    return (v1.float() @ a).to(v1.dtype)

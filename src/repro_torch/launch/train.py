@@ -5,9 +5,17 @@ Wires the substrates together: data pipeline -> training step (with NDB
 masks) -> failure process -> failover controller (plan updates, step cache,
 recovery accounting) -> SVD projection refresh every tau -> live state
 transfer (snapshots, replicas, executed reshards) -> async checkpoints.
-One device; the step runs eagerly, so the step cache holds cheap closures
-where the JAX package holds compiled executables, but it keeps the same
-keys.
+The step runs eagerly, so the step cache holds cheap closures where the
+JAX package holds compiled executables, but it keeps the same keys.
+
+On a data-parallel mesh (``Trainer(mesh=...)``, or the CLI under
+``torchrun``) every rank runs the chaos engine, controller, recovery policy
+and NDB plan alike (they are deterministic from the seed and the trace)
+and computes its rows of each global batch.  Rank 0 alone writes traces,
+telemetry, incident logs, obs exports and checkpoints; the replay verdict
+and the exit code are agreed by an all-reduce.  Params are replicated, or
+FSDP-sharded under ``ParallelConfig(fsdp=True)``, where recovery comes
+from the checkpoint as in the JAX package.
 
 CLI (reduced configs by default, on the card unless ``--device cpu``):
   PYTHONPATH=src python -m repro_torch.launch.train --steps 200 \\
@@ -19,6 +27,8 @@ CLI (reduced configs by default, on the card unless ``--device cpu``):
   PYTHONPATH=src python -m repro_torch.obs incidents incidents.jsonl \\
       --verify tests/data/golden_incidents_statexfer.jsonl \\
       --trace tests/data/golden_trace_statexfer.jsonl --require-closed 1
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+      --mecefo dynamic --trace replay tests/data/golden_trace.jsonl
 """
 from __future__ import annotations
 
@@ -35,6 +45,7 @@ from repro_torch.checkpoint.ckpt import CheckpointManager
 from repro_torch.configs.base import (
     MeCeFOConfig,
     ModelConfig,
+    ParallelConfig,
     ShapeConfig,
     TrainConfig,
     get_config,
@@ -59,27 +70,32 @@ from repro_torch.ft.trace import (
     replay_engine,
     verify_replay,
 )
-from repro_torch.launch.state import TrainState, init_state
-from repro_torch.launch.steps import make_train_step
+from repro_torch.launch.dist import destroy, init_from_env
+from repro_torch.launch.state import TrainState, full_nbytes, init_state, to_local
+from repro_torch.launch.steps import make_train_step, mesh_layout
 from repro_torch.models.model import ExecFlags
+from repro_torch.models.params import tree_leaves, tree_map
 from repro_torch.statexfer import StateTransferRegistry
-from repro_torch.utils.trees import state_nbytes
 
 _log = logging.getLogger("repro_torch.train")
 
 
 class Trainer:
-    """Fault-tolerant trainer on one device.
+    """Fault-tolerant trainer, on one process or a data-parallel mesh.
 
-    ``state`` starts the run from a given ``TrainState`` instead of the
-    seeded init; the trainer owns it from then on (its steps update params
-    and moments in place).  ``parallel`` (``configs.base.ParallelConfig``)
-    sets gradient accumulation for the step; params are replicated, so
-    recovery fetches from a peer.  With ``statexfer`` the
+    ``state`` starts the run from a given (whole) ``TrainState`` instead of
+    the seeded init; the trainer owns it from then on (its steps update
+    params and moments in place).  ``parallel`` (``configs.base.
+    ParallelConfig``, default ``fsdp=False`` as in the JAX Trainer) sets
+    gradient accumulation and FSDP; replicated params recover from a peer,
+    FSDP-sharded ones from the checkpoint.  ``mesh``
+    (``launch/mesh.py``) runs the steps data-parallel on its device, which
+    then replaces ``device``.  With ``statexfer`` the
     trainer snapshots its state every ``snapshot_every`` steps to host
     replicas and executes each resize on them; restored trees are host
-    copies kept in ``xfer.last_restored`` (in one process every rank's
-    state is the same, so they never feed the training state).
+    copies kept in ``xfer.last_restored`` (the simulated ranks of the NDB
+    plan share one state, the mesh's own rank's or its slices, so they
+    never feed the training state).
     """
 
     def __init__(
@@ -103,23 +119,29 @@ class Trainer:
         ft_policy: Optional[str] = None,
         state: Optional[TrainState] = None,
         device="cuda",
+        mesh=None,
     ):
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.cfg, self.shape, self.train_cfg = cfg, shape, train
-        self.parallel = parallel
+        self.parallel = parallel or ParallelConfig(fsdp=False, remat="ffn", scan_layers=True)
         self.flags = ExecFlags(remat="ffn")  # the JAX Trainer's remat="ffn"
         self.mecefo = mecefo
         self.source = SyntheticLM(cfg.vocab_size)
         self.seed = seed
+        self.layout = mesh_layout(cfg, mesh, self.parallel) if mesh is not None else None
+        self.writes = mesh is None or mesh.rank == 0  # rank 0 alone writes files
 
         if state is None:
             state = init_state(cfg, train, mecefo, torch.Generator().manual_seed(seed),
                                device=self.device)
+        if self.layout is not None and self.layout.sharded:
+            state = to_local(state, self.layout)
         self.state = state
 
         # -- chaos engine: replayed trace > explicit injectors > scenario ---
         self.replay_trace = None
-        recorder = TraceRecorder(trace_record) if trace_record else None
+        recorder = TraceRecorder(trace_record) if trace_record and self.writes else None
         if trace_replay is not None:
             # a path or an already-loaded Trace
             self.replay_trace = (
@@ -136,7 +158,7 @@ class Trainer:
             recorder.policy = self.policy_spec
         self.controller = FTController(
             cfg=cfg, mecefo=mecefo, n_dp=n_dp, n_stages=min(n_stages, cfg.n_layers),
-            global_batch=shape.global_batch, params_replicated=True,
+            global_batch=shape.global_batch, params_replicated=not self.parallel.fsdp,
         )
         self.controller.policy = make_policy(
             ft_policy,
@@ -162,7 +184,7 @@ class Trainer:
                 seed=seed + 1, recorder=recorder, elastic=elastic,
             )
         self.ckpt = (
-            CheckpointManager(train.checkpoint_dir)
+            CheckpointManager(train.checkpoint_dir, layout=self.layout)
             if train.checkpoint_every
             else None
         )
@@ -183,8 +205,9 @@ class Trainer:
                 replicated=self.controller.params_replicated,
             )
             # accounting basis becomes the measured state size (the JAX
-            # package's measure: the host-int step counts as its int32)
-            self.controller.state_nbytes = state_nbytes(self.state)
+            # package's measure: the host-int step counts as its int32) of
+            # the whole state, as the JAX package measures its global arrays
+            self.controller.state_nbytes = full_nbytes(self.state, self.layout)
             if self.controller.incidents is not None:
                 # rejoin incidents now close on the measured receipt,
                 # not on the planned-bytes attribution
@@ -216,7 +239,7 @@ class Trainer:
         step = make_train_step(
             self.cfg, self.train_cfg, self.mecefo, self.shape, ndb_mode=mode,
             total_steps=max(self.train_cfg.steps, 1), flags=self.flags,
-            device=self.device, parallel=self.parallel, **kwargs,
+            device=self.device, parallel=self.parallel, mesh=self.mesh, **kwargs,
         )
         self._step_cache[key] = step
         return step
@@ -236,6 +259,10 @@ class Trainer:
         """Execute any new ReshardPlan on the real state and retry gated ranks."""
         ckpt_dir = self.train_cfg.checkpoint_dir if self.ckpt else None
         rp = self.controller.last_reshard
+        if self.mesh is not None and self.ckpt and (
+                self.xfer.pending or (rp is not None and rp is not self._executed_reshard)):
+            # every rank must see the same checkpoints: rank 0's save done
+            self.ckpt.wait()
         if rp is not None and rp is not self._executed_reshard:
             self._executed_reshard = rp
             out = self.xfer.on_reshard(
@@ -259,6 +286,23 @@ class Trainer:
         # waits (SnapshotManager.blocked_s)
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
+
+    def _refresh(self):
+        """The new V1 tree.  Under a mesh rank 0 computes it from the whole
+        params and broadcasts it, so every rank holds the same bits
+        whatever the SVD's determinism."""
+        if self.mesh is None:
+            return refresh_projections(self.state.params, self.cfg, self.mecefo.rank)
+        params = self.state.params
+        if self.layout.sharded:
+            params = self.layout.gather(params, "refresh")
+        if self.mesh.rank == 0:
+            proj = refresh_projections(params, self.cfg, self.mecefo.rank)
+        else:
+            proj = tree_map(torch.empty_like, self.state.proj)
+        for v in tree_leaves(proj):  # in leaf order: the ranks' dicts may differ in key order
+            self.mesh.comm.broadcast(v, 0, tag="proj")
+        return proj
 
     # ------------------------------------------------------------------
     def run(self, steps: Optional[int] = None, log_every: int = 10):
@@ -301,11 +345,7 @@ class Trainer:
                 ):
                     self._sync()
                     t_svd = time.time()
-                    self.state = self.state._replace(
-                        proj=refresh_projections(
-                            self.state.params, self.cfg, self.mecefo.rank
-                        )
-                    )
+                    self.state = self.state._replace(proj=self._refresh())
                     self._sync()
                     self.refresh_s.append(time.time() - t_svd)
 
@@ -392,6 +432,14 @@ class Trainer:
             # recovery that never completed in-trace -> unclosed: true
             self.controller.incidents.finalize(len(self.history))
         return self.history
+
+    def replay_agreed(self) -> bool:
+        """After a replay run: whether every rank's replay verified (an
+        all-reduce under a mesh)."""
+        bad = torch.tensor([float(bool(self.verify_replay()))], device=self.device)
+        if self.mesh is not None:
+            self.mesh.comm.all_reduce(bad, op="max", tag="verdict")
+        return not bool(bad.item())
 
     def verify_replay(self) -> List[str]:
         """After a replay run: mismatches vs the recorded trace (empty = OK)."""
@@ -487,6 +535,17 @@ def main(argv: Optional[List[str]] = None) -> int:
         except ValueError as e:
             ap.error(str(e))
 
+    mesh = init_from_env(args.device)  # a torchrun rank, else None
+    try:
+        return _run_cli(ap, args, trace_mode, trace_path, mesh)
+    finally:
+        if mesh is not None:
+            destroy()
+
+
+def _run_cli(ap, args, trace_mode, trace_path, mesh) -> int:
+    if mesh is not None and mesh.rank != 0:
+        logging.getLogger("repro_torch").setLevel(logging.WARNING)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg, dtype="float32")
@@ -522,6 +581,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         snapshot_every=args.snapshot_every,
         ft_policy=args.ft_policy,
         device=args.device,
+        mesh=mesh,
     )
     run_meta = {
         "run": "train", "arch": args.arch,
@@ -530,7 +590,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         "ft_policy": trainer.policy_spec or None,
     }
     disarm = None
-    if args.obs_out or args.incidents_out:
+    if (args.obs_out or args.incidents_out) and trainer.writes:
         # flush-on-death: a crashed/killed run still emits partial dumps
         disarm = obs.install_crash_flush(
             obs_path=args.obs_out, incidents_path=args.incidents_out,
@@ -558,11 +618,13 @@ def main(argv: Optional[List[str]] = None) -> int:
             tele["n_ckpt_restores"], tele["measured_transfer_bytes"] / 1e6,
             tele["transfer_s"] * 1e3,
         )
-    if args.obs_out:
+    if trace_mode == "replay":
+        agreed = trainer.replay_agreed()  # a collective: every rank calls it
+    if args.obs_out and trainer.writes:
         dump_path = obs.dump(args.obs_out, meta={**run_meta, "steps": len(hist)})
         _log.info("obs telemetry written to %s (+ .prom)", dump_path)
         sys.stdout.write(obs.render_report_file(dump_path))
-    if args.incidents_out and trainer.controller.incidents is not None:
+    if args.incidents_out and trainer.controller.incidents is not None and trainer.writes:
         inc_path = obs.write_incident_log(
             args.incidents_out, trainer.controller.incidents.mgr,
             meta={**run_meta, "steps": len(hist)},
@@ -574,9 +636,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                   trace_path, len(trainer.process.events))
     if trace_mode == "replay":
         problems = trainer.verify_replay()
-        if problems:
+        if problems or not agreed:
             _log.error("REPLAY MISMATCH vs %s:", trace_path)
-            for p in problems:
+            for p in problems or ["another rank's replay did not verify"]:
                 _log.error("  %s", p)
             return 1
         _log.info("REPLAY OK: %d events and accounting totals match %s",

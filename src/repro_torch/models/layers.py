@@ -11,7 +11,9 @@ versions on the CPU or inside ``kernels.plain_versions()``.
 The MeCeFO hooks: ``grad_gate`` on the attention branch (technique I),
 ``lowrank_linear`` for the FFN matmuls (technique III) and
 ``ffn_recompute`` around the FFN (technique II).  The JAX package's
-sharding constraints have no counterpart on one device.
+sharding constraints have no counterpart: under a data-parallel mesh each
+rank runs these layers on its own rows, and only the cross-entropy's
+token count is summed over the ranks.
 """
 from __future__ import annotations
 
@@ -202,22 +204,23 @@ def ffn_block(
     keep=1.0,
     lowrank_mode: str = "exact",
     recompute: bool = False,
+    sync=None,
 ) -> torch.Tensor:
     """Pre-norm FFN sublayer with residual: SwiGLU, or non-gated
     (``w_up``, ``nonlin``, ``w_down``) for ``gelu`` and ``relu2``.
     ``proj`` holds the V1 of its matmuls (technique III,
-    ``lowrank_mode``); ``recompute`` keeps only the FFN input for the
-    backward (technique II)."""
+    ``lowrank_mode``, with a mesh step's ``sync``); ``recompute`` keeps
+    only the FFN input for the backward (technique II)."""
 
     def body(p, x, proj, keep):
         xn = rmsnorm(x, p["ln"], cfg.norm_eps)
-        u = _lin(xn, p["w_up"], _p(proj, "w_up"), keep, lowrank_mode)
+        u = _lin(xn, p["w_up"], _p(proj, "w_up"), keep, lowrank_mode, sync)
         if cfg.ffn_act == "swiglu":
-            g = _lin(xn, p["w_gate"], _p(proj, "w_gate"), keep, lowrank_mode)
+            g = _lin(xn, p["w_gate"], _p(proj, "w_gate"), keep, lowrank_mode, sync)
             h = swiglu(g, u)
         else:
             h = nonlin(u, cfg.ffn_act)
-        return _lin(h, p["w_down"], _p(proj, "w_down"), keep, lowrank_mode)
+        return _lin(h, p["w_down"], _p(proj, "w_down"), keep, lowrank_mode, sync)
 
     if recompute:  # technique II: keep only the FFN input
         body = ffn_recompute(body)
@@ -242,10 +245,10 @@ def _p(proj, name):
     return proj.get(name)
 
 
-def _lin(x, w, v1, keep, mode):
+def _lin(x, w, v1, keep, mode, sync=None):
     if mode == "exact" or v1 is None:
         return x @ w
-    return lowrank_linear(x, w, v1, keep, mode)
+    return lowrank_linear(x, w, v1, keep, mode, sync)
 
 
 def chunked_cross_entropy(
@@ -256,6 +259,7 @@ def chunked_cross_entropy(
     *,
     chunk: int = 512,
     vocab_size: Optional[int] = None,
+    sync=None,
 ) -> torch.Tensor:
     """Weighted mean CE without materializing the (B, S, V) logits.
 
@@ -263,6 +267,9 @@ def chunked_cross_entropy(
     (B, S).  A loop over sequence chunks, each under recompute, so only one
     chunk's f32 logits exist at a time, in the forward and in the backward.
     Logit columns >= vocab_size (padding) are masked out of the softmax.
+    With a mesh step's ``sync`` (``parallel/collectives.py:StepSync``) the
+    weights' sum is taken over every rank's rows, so the ranks' losses sum
+    to the mean over the global batch.
     """
     S = h.shape[1]
     V = unembed.shape[-1]
@@ -291,6 +298,8 @@ def chunked_cross_entropy(
         else:
             loss_c, cnt_c = chunk_loss(*args)
         tot, cnt = tot + loss_c, cnt + cnt_c
+    if sync is not None:  # this rank's share of the mean over every rank's rows
+        cnt = sync.sum(cnt, tag="loss_count")
     return tot / torch.clamp(cnt, min=1.0)
 
 

@@ -39,10 +39,12 @@ class ExecFlags:
     backward, the Trainer's default), "full" (recompute every layer) or
     "dots" (recompute each period but keep its matrix products without a
     batch dimension, the JAX package's ``checkpoint_dots_with_no_batch_dims``);
-    ce_chunk: sequence positions per cross-entropy chunk."""
+    ce_chunk: sequence positions per cross-entropy chunk; n_dp_shards: the
+    groups MoE tokens route in (``models/moe.py``)."""
 
     remat: str = "ffn"
     ce_chunk: int = 512
+    n_dp_shards: int = 1
 
 
 def _period(tree: dict, i: int) -> dict:
@@ -122,16 +124,17 @@ def run_trunk(
             else:  # technique I does not apply; II only in degraded mode
                 h, _ = ssm_block(mp, h, cfg, proj=proj_of(pos, "mixer", i), keep=keep_l,
                                  lowrank_mode=lowrank_mode, recompute=ctx.recompute_ffn(),
-                                 cache=cache)
+                                 cache=cache, sync=ctx.sync)
             pj = proj_of(pos, "ffn", i)
             fp = {k: t[i] for k, t in bp["ffn"].items()}
             if layout[pos][1]:
                 h, a = moe_block(fp, h, cfg, proj=pj, keep=keep_l,
-                                 lowrank_mode=lowrank_mode, recompute=recompute)
+                                 lowrank_mode=lowrank_mode, recompute=recompute,
+                                 n_dp_shards=flags.n_dp_shards, sync=ctx.sync)
                 aux = aux + a
             else:
                 h = ffn_block(fp, h, cfg, proj=pj, keep=keep_l,
-                              lowrank_mode=lowrank_mode, recompute=recompute)
+                              lowrank_mode=lowrank_mode, recompute=recompute, sync=ctx.sync)
         return h, aux
 
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -172,7 +175,7 @@ def forward_loss(
                           flags=flags)
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
     ce = chunked_cross_entropy(h, _unembed(params), labels, token_w, chunk=flags.ce_chunk,
-                               vocab_size=cfg.vocab_size)
+                               vocab_size=cfg.vocab_size, sync=ctx.sync)
     loss = ce + aux
     return loss, {"loss": loss, "ce": ce, "aux": aux}
 

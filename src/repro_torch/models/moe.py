@@ -1,21 +1,27 @@
 """Mixture-of-Experts FFN: top-k routing and capacity-bucketed gather
 dispatch (counterpart of ``repro.models.moe``).
 
-On one device the JAX package's data-shard dimension is 1 (``n_dp_shards``
-= 1): every token of the batch routes in one group.  The steps, with the
-reference's semantics:
+Tokens route in ``n_dp_shards`` groups, as in the JAX package, which
+aligns them with its data shards: the ``B*S`` tokens split into that many
+contiguous groups (one group when the count does not divide), and each
+group sizes its capacity, buckets and drops alone.  On one process the
+port takes ``n_dp_shards > 1`` the same way.  Under a mesh each rank's
+rows are its group: a rank routes its own tokens with ``n_dp_shards`` = 1,
+which is group r of the reference, and the load-balancing loss combines
+the ranks' routing statistics as the reference combines the groups'.  The
+steps, with the reference's semantics:
 
   1. routing in f32 over the normed input, ``top_k`` with JAX's tie order
      (the lower expert index first), a softmax over the k gates;
-  2. the capacity ``C = int(max(k, -(-T*k*cf // E)))`` with the
-     reference's Python float arithmetic; slots sorted stably by expert,
-     each slot's place in its expert's group from ``searchsorted(left)``,
-     slots past ``C`` dropped;
+  2. the capacity ``C = int(max(k, -(-T*k*cf // E)))`` of a group of T
+     tokens, with the reference's Python float arithmetic; slots sorted
+     stably by (group, expert), each slot's place in its expert's group
+     from ``searchsorted(left)``, slots past ``C`` dropped;
   3. the ``(E, C, d)`` buffer built by gather through a zero pad row (the
      slot index of an empty place), with the keep mask gathered per place;
-  4. the experts as grouped products (``lowrank_linear_grouped``,
-     technique III per expert) around kernel #4 for SwiGLU, ``nonlin``
-     otherwise;
+  4. the experts as grouped products over each expert's places of every
+     group (``lowrank_linear_grouped``, technique III per expert) around
+     kernel #4 for SwiGLU, ``nonlin`` otherwise;
   5. the combine: each slot's output gathered back (a dropped slot reads
      the pad row) and weighted by its gate;
   6. the Switch-style load-balancing loss.
@@ -74,43 +80,53 @@ def bucketize(e_flat: torch.Tensor, n_experts: int, cap: int):
 
 
 def dispatch(xn: torch.Tensor, keep_tok: torch.Tensor, router: torch.Tensor,
-             cfg: ModelConfig):
+             cfg: ModelConfig, n_groups: int = 1):
     """Routing and the gather dispatch of one MoE layer.  xn: (B, S, d)
-    normed input; keep_tok: (B,).  Returns (xbuf (E, C, d), kbuf (E, C),
-    gates (T, k), slot_dst (T*k,), logits (T, E) f32, expert ids (T, k))."""
+    normed input; keep_tok: (B,); the tokens route in ``n_groups``
+    contiguous groups (one where the count does not divide).  Returns
+    (xbuf (E, G*C, d): each expert's places of group 0, then group 1, ...;
+    kbuf (E, G*C), gates (T, k), slot_dst (T*k,): each slot's place in
+    xbuf's (E, G*C) order, -1 when dropped; logits (T, E) f32, expert ids
+    (T, k))."""
     moe = cfg.moe
     E, k = moe.n_experts, moe.top_k
     B, S, d = xn.shape
     T = B * S
+    G = n_groups if T % n_groups == 0 else 1
     xt = xn.reshape(T, d)
     kt = keep_tok[:, None].expand(B, S).reshape(T)
     logits, gates, eidx = route(xt, router, k)
-    cap = capacity(cfg, T)
-    buf_src, slot_dst = bucketize(eidx.reshape(T * k), E, cap)
+    cap = capacity(cfg, T // G)
+    # group g's experts as experts g*E..g*E+E-1: one bucketing for all groups
+    group = torch.arange(T * k, device=xt.device) // ((T // G) * k)
+    buf_src, slot_dst = bucketize(eidx.reshape(T * k) + group * E, G * E, cap)
+    if G > 1:  # a place (g, e, c) of the bucketing is (e, g, c) of xbuf
+        g, e, c = slot_dst // (E * cap), slot_dst // cap % E, slot_dst % cap
+        slot_dst = torch.where(slot_dst >= 0, (e * G + g) * cap + c, slot_dst)
     xt_pad = torch.cat([xt, xt.new_zeros((1, d))])
-    tok_of_slot = torch.clamp(buf_src // k, max=T)            # (E*C,)
-    xbuf = xt_pad[tok_of_slot].reshape(E, cap, d)
-    kbuf = torch.cat([kt, kt.new_ones((1,))])[tok_of_slot].reshape(E, cap)
-    return xbuf, kbuf, gates, slot_dst, logits, eidx
+    tok_of_slot = torch.clamp(buf_src // k, max=T)            # (G*E*C,)
+    xbuf = xt_pad[tok_of_slot].reshape(G, E, cap, d).transpose(0, 1).reshape(E, G * cap, d)
+    kbuf = torch.cat([kt, kt.new_ones((1,))])[tok_of_slot].reshape(G, E, cap)
+    return xbuf, kbuf.transpose(0, 1).reshape(E, G * cap), gates, slot_dst, logits, eidx
 
 
 def experts(p, xbuf: torch.Tensor, kbuf: torch.Tensor, cfg: ModelConfig, proj=None,
-            lowrank_mode: str = "exact") -> torch.Tensor:
+            lowrank_mode: str = "exact", sync=None) -> torch.Tensor:
     """The experts as grouped products: (E, C, d) -> (E, C, d)."""
     if cfg.ffn_act == "swiglu":
-        g = _glin(xbuf, p["w_gate"], _pp(proj, "w_gate"), kbuf, lowrank_mode)
-        u = _glin(xbuf, p["w_up"], _pp(proj, "w_up"), kbuf, lowrank_mode)
+        g = _glin(xbuf, p["w_gate"], _pp(proj, "w_gate"), kbuf, lowrank_mode, sync)
+        u = _glin(xbuf, p["w_up"], _pp(proj, "w_up"), kbuf, lowrank_mode, sync)
         h = swiglu(g, u)
     else:
-        u = _glin(xbuf, p["w_up"], _pp(proj, "w_up"), kbuf, lowrank_mode)
+        u = _glin(xbuf, p["w_up"], _pp(proj, "w_up"), kbuf, lowrank_mode, sync)
         h = nonlin(u, cfg.ffn_act)
-    return _glin(h, p["w_down"], _pp(proj, "w_down"), kbuf, lowrank_mode)
+    return _glin(h, p["w_down"], _pp(proj, "w_down"), kbuf, lowrank_mode, sync)
 
 
 def combine(ybuf: torch.Tensor, gates: torch.Tensor, slot_dst: torch.Tensor,
             shape) -> torch.Tensor:
     """Each slot's expert output gathered back (a dropped slot reads the
-    zero pad row) and weighted by its gate: (E, C, d) -> ``shape``."""
+    zero pad row) and weighted by its gate: (E, C', d) -> ``shape``."""
     E, cap, d = ybuf.shape
     T, k = gates.shape
     ybuf_pad = torch.cat([ybuf.reshape(E * cap, d), ybuf.new_zeros((1, d))])
@@ -119,15 +135,33 @@ def combine(ybuf: torch.Tensor, gates: torch.Tensor, slot_dst: torch.Tensor,
     return torch.einsum("tk,tkd->td", gates.to(yslot.dtype), yslot).reshape(shape)
 
 
-def aux_loss(logits: torch.Tensor, eidx: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """The Switch-style load-balancing loss: E * sum(fraction of slots routed
-    to each expert * its mean router probability) * weight."""
-    E = cfg.moe.n_experts
+def routing_stats(logits: torch.Tensor, eidx: torch.Tensor, n_experts: int):
+    """(fraction of slots routed to each expert, mean router probability of
+    each expert), both (E,) f32: the load-balancing loss's statistics."""
     n = eidx.numel()
-    me = torch.zeros((E,), dtype=torch.float32, device=logits.device).index_add_(
+    me = torch.zeros((n_experts,), dtype=torch.float32, device=logits.device).index_add_(
         0, eidx.reshape(-1), torch.ones((n,), dtype=torch.float32, device=logits.device)) / n
-    ce = torch.softmax(logits, dim=-1).mean(dim=0)
-    return E * torch.sum(me * ce) * cfg.moe.aux_loss_weight
+    return me, torch.softmax(logits, dim=-1).mean(dim=0)
+
+
+def aux_from_stats(me: torch.Tensor, ce: torch.Tensor, cfg: ModelConfig,
+                   sync=None) -> torch.Tensor:
+    """The Switch-style load-balancing loss: E * sum(me * ce) * weight.
+    With a mesh step's ``sync`` (``parallel/collectives.py``) each rank holds its
+    rows' statistics: the routed fractions are averaged over the ranks and
+    the rank's loss is its share ``E * sum(me_global * ce_rank) * weight /
+    W``, so the shares sum to the loss over all rows and so do their
+    gradients."""
+    E = cfg.moe.n_experts
+    if sync is None:
+        return E * torch.sum(me * ce) * cfg.moe.aux_loss_weight
+    me = sync.sum(me, tag="moe_routing") / sync.world
+    return E * torch.sum(me * ce) * cfg.moe.aux_loss_weight / sync.world
+
+
+def aux_loss(logits: torch.Tensor, eidx: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The load-balancing loss of one group of tokens."""
+    return aux_from_stats(*routing_stats(logits, eidx, cfg.moe.n_experts), cfg)
 
 
 def moe_block(
@@ -139,18 +173,25 @@ def moe_block(
     keep=1.0,
     lowrank_mode: str = "exact",
     recompute: bool = False,
+    n_dp_shards: int = 1,
+    sync=None,
 ):
     """Pre-norm MoE sublayer with residual.  x: (B, S, d); ``keep``: a (B,)
     mask or a constant, reaching each expert slot through ``kbuf`` for
-    technique III's ``mixed`` mode.  Returns (y, aux)."""
+    technique III's ``mixed`` mode; the tokens route in ``n_dp_shards``
+    groups.  Returns (y, aux); with a mesh step's ``sync``, aux is this
+    rank's share (:func:`aux_from_stats`) and ``degraded_sync`` reduces the
+    experts' low-rank factors."""
     if cfg.moe is None:
         raise ValueError(f"{cfg.name} has no MoE config")
 
     def body(p, x, proj, keep_tok):
         xn = rmsnorm(x, p["ln"], cfg.norm_eps)
-        xbuf, kbuf, gates, slot_dst, logits, eidx = dispatch(xn, keep_tok, p["router"], cfg)
-        ybuf = experts(p, xbuf, kbuf, cfg, proj, lowrank_mode)
-        return combine(ybuf, gates, slot_dst, x.shape), aux_loss(logits, eidx, cfg)
+        xbuf, kbuf, gates, slot_dst, logits, eidx = dispatch(
+            xn, keep_tok, p["router"], cfg, n_dp_shards)
+        ybuf = experts(p, xbuf, kbuf, cfg, proj, lowrank_mode, sync)
+        me, ce = routing_stats(logits, eidx, cfg.moe.n_experts)
+        return combine(ybuf, gates, slot_dst, x.shape), me, ce
 
     if recompute:  # technique II
         body = ffn_recompute(body)
@@ -158,8 +199,9 @@ def moe_block(
         keep_tok = keep.to(device=x.device, dtype=x.dtype).expand(x.shape[0])
     else:  # a fill on the device: a host scalar copied over would wait for it
         keep_tok = torch.full((x.shape[0],), float(keep), dtype=x.dtype, device=x.device)
-    y, aux = body(p, x, proj, keep_tok)
-    return x + y, aux
+    y, me, ce = body(p, x, proj, keep_tok)
+    # outside the recomputed body: its backward recompute runs no collective
+    return x + y, aux_from_stats(me, ce, cfg, sync)
 
 
 def _pp(proj, name):
@@ -168,7 +210,7 @@ def _pp(proj, name):
     return proj.get(name)
 
 
-def _glin(x, w, v1, kb, mode):
+def _glin(x, w, v1, kb, mode, sync=None):
     if mode == "exact" or v1 is None:
         return torch.bmm(x, w)
-    return lowrank_linear_grouped(x, w, v1, kb, mode)
+    return lowrank_linear_grouped(x, w, v1, kb, mode, sync)

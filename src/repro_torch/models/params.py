@@ -1,5 +1,5 @@
-"""Parameter trees: shapes and seeded init (counterpart of
-``repro.models.params``).
+"""Parameter trees: shapes, logical sharding annotations and seeded init
+(counterpart of ``repro.models.params``).
 
 Layout, the same as the JAX package's so a tree crosses the bridge leaf for
 leaf::
@@ -42,7 +42,8 @@ _FILLS = {"conv_b": 0.0, "dt_bias": 0.5, "D": 1.0}
 _DRAW = 1 << 28
 
 
-def _mixer_shapes(cfg: ModelConfig, kind: str) -> Dict[str, Tuple[int, ...]]:
+def _mixer_entries(cfg: ModelConfig, kind: str) -> Dict[str, Tuple[Tuple[int, ...], Tuple]]:
+    """{name: (shape, logical annotation)} of one (unstacked) mixer block."""
     d = cfg.d_model
     if kind == "ssm":
         ssm = cfg.ssm
@@ -50,44 +51,54 @@ def _mixer_shapes(cfg: ModelConfig, kind: str) -> Dict[str, Tuple[int, ...]]:
         nh = d_inner // ssm.head_dim
         conv_ch = d_inner + 2 * ssm.d_state  # the conv runs over [x, B, C]
         return {
-            "ln": (d,),
-            "in_proj": (d, 2 * d_inner + 2 * ssm.d_state + nh),  # z, x, B, C, dt
-            "conv_w": (ssm.d_conv, conv_ch),
-            "conv_b": (conv_ch,),
-            "A_log": (nh,),
-            "D": (nh,),
-            "dt_bias": (nh,),
-            "gate_norm": (d_inner,),
-            "out_proj": (d_inner, d),
+            "ln": ((d,), (None,)),
+            # z, x, B, C, dt
+            "in_proj": ((d, 2 * d_inner + 2 * ssm.d_state + nh), ("embed", "ssm_inner")),
+            "conv_w": ((ssm.d_conv, conv_ch), (None, "ssm_inner")),
+            "conv_b": ((conv_ch,), ("ssm_inner",)),
+            "A_log": ((nh,), (None,)),
+            "D": ((nh,), (None,)),
+            "dt_bias": ((nh,), (None,)),
+            "gate_norm": ((d_inner,), ("ssm_inner",)),
+            "out_proj": ((d_inner, d), ("ssm_inner", "embed")),
         }
     if kind != "attn":
         raise ValueError(kind)
     hd = cfg.resolved_head_dim
     out = {
-        "ln": (d,),
-        "wq": (d, cfg.n_heads * hd),
-        "wk": (d, cfg.n_kv_heads * hd),
-        "wv": (d, cfg.n_kv_heads * hd),
-        "wo": (cfg.n_heads * hd, d),
+        "ln": ((d,), (None,)),
+        "wq": ((d, cfg.n_heads * hd), ("embed", "heads")),
+        "wk": ((d, cfg.n_kv_heads * hd), ("embed", "kv_heads")),
+        "wv": ((d, cfg.n_kv_heads * hd), ("embed", "kv_heads")),
+        "wo": ((cfg.n_heads * hd, d), ("heads", "embed")),
     }
     if cfg.qk_norm:
-        out["q_norm"] = (hd,)
-        out["k_norm"] = (hd,)
+        out["q_norm"] = ((hd,), (None,))
+        out["k_norm"] = ((hd,), (None,))
     return out
 
 
-def _ffn_shapes(cfg: ModelConfig, is_moe: bool) -> Dict[str, Tuple[int, ...]]:
+def _ffn_entries(cfg: ModelConfig, is_moe: bool) -> Dict[str, Tuple[Tuple[int, ...], Tuple]]:
     d = cfg.d_model
     if is_moe:
         e, f = cfg.moe.n_experts, cfg.moe.d_ff_expert
-        out = {"ln": (d,), "router": (d, e), "w_up": (e, d, f), "w_down": (e, f, d)}
+        out = {
+            "ln": ((d,), (None,)),
+            "router": ((d, e), ("embed", None)),
+            "w_up": ((e, d, f), ("expert", "expert_embed", None)),
+            "w_down": ((e, f, d), ("expert", None, "expert_embed")),
+        }
         if cfg.ffn_act == "swiglu":
-            out["w_gate"] = (e, d, f)
+            out["w_gate"] = ((e, d, f), ("expert", "expert_embed", None))
         return out
     f = cfg.d_ff
-    out = {"ln": (d,), "w_up": (d, f), "w_down": (f, d)}
+    out = {
+        "ln": ((d,), (None,)),
+        "w_up": ((d, f), ("embed", "mlp")),
+        "w_down": ((f, d), ("mlp", "embed")),
+    }
     if cfg.ffn_act == "swiglu":
-        out["w_gate"] = (d, f)
+        out["w_gate"] = ((d, f), ("embed", "mlp"))
     return out
 
 
@@ -98,8 +109,8 @@ def block_layout(cfg: ModelConfig):
     ]
 
 
-def param_shapes(cfg: ModelConfig) -> Tree:
-    """Tree of shape tuples, stacked over periods."""
+def _entries(cfg: ModelConfig) -> Tree:
+    """Tree of (shape, annotation) pairs, stacked over periods."""
     period = cfg.block_period
     if cfg.n_layers % period != 0:
         raise ValueError(
@@ -107,20 +118,41 @@ def param_shapes(cfg: ModelConfig) -> Tree:
             f"block period {period}"
         )
     n_periods = cfg.n_layers // period
+
+    def stack(entries):
+        return {k: ((n_periods, *s), ("stacked", *a)) for k, (s, a) in entries.items()}
+
     layers = []
     for kind, is_moe in block_layout(cfg):
-        layers.append({
-            "mixer": {k: (n_periods, *s) for k, s in _mixer_shapes(cfg, kind).items()},
-            "ffn": {k: (n_periods, *s) for k, s in _ffn_shapes(cfg, is_moe).items()},
-        })
+        layers.append({"mixer": stack(_mixer_entries(cfg, kind)),
+                       "ffn": stack(_ffn_entries(cfg, is_moe))})
     tree = {
-        "embed": (cfg.padded_vocab, cfg.d_model),
-        "final_norm": (cfg.d_model,),
+        "embed": ((cfg.padded_vocab, cfg.d_model), ("vocab", "embed_tbl")),
+        "final_norm": ((cfg.d_model,), (None,)),
         "layers": tuple(layers),
     }
     if not cfg.tie_embeddings:
-        tree["unembed"] = (cfg.d_model, cfg.padded_vocab)
+        tree["unembed"] = ((cfg.d_model, cfg.padded_vocab), ("embed_tbl", "vocab"))
     return tree
+
+
+def _pick(tree: Tree, i: int) -> Tree:
+    if isinstance(tree, dict):
+        return {k: _pick(v, i) for k, v in tree.items()}
+    if isinstance(tree, tuple) and isinstance(tree[0], dict):
+        return tuple(_pick(v, i) for v in tree)
+    return tree[i]
+
+
+def param_shapes(cfg: ModelConfig) -> Tree:
+    """Tree of shape tuples, stacked over periods."""
+    return _pick(_entries(cfg), 0)
+
+
+def param_annotations(cfg: ModelConfig) -> Tree:
+    """Tree of logical annotations (``parallel/sharding.py``), one tuple of
+    axis names per leaf, the leading ``"stacked"`` period dim included."""
+    return _pick(_entries(cfg), 1)
 
 
 def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
@@ -224,5 +256,5 @@ def _sorted(tree: Tree) -> Tree:
     return tree
 
 
-__all__ = ["param_shapes", "init_params", "count_params", "block_layout", "map_leaves",
+__all__ = ["param_shapes", "param_annotations", "init_params", "count_params", "block_layout", "map_leaves",
            "tree_leaves", "tree_map"]

@@ -128,6 +128,7 @@ def ssm_block(
     lowrank_mode: str = "exact",
     recompute: bool = False,
     cache: Optional[dict] = None,
+    sync=None,
 ):
     """Pre-norm Mamba2 sublayer with residual; returns (y, cache).
 
@@ -150,7 +151,7 @@ def ssm_block(
     def lin(xv, w, v1, keep):
         if lowrank_mode == "exact" or v1 is None:
             return xv @ w
-        return lowrank_linear(xv, w, v1, keep, lowrank_mode)
+        return lowrank_linear(xv, w, v1, keep, lowrank_mode, sync)
 
     def body(p, x, proj, keep):
         xn = rmsnorm(x, p["ln"], cfg.norm_eps)

@@ -4,11 +4,12 @@ Moments are f32; bf16 params are updated in f32 arithmetic and cast back.
 :func:`apply_update` updates params and moments **in place**, where the JAX
 package builds new trees, so a step holds no second copy of the optimizer
 state.  Learning rates and bias corrections are computed on the host in
-float32, as the JAX package computes them on the device.
+float32, as the JAX package computes them on the device.  Under FSDP the
+update runs on each rank's shards of params, gradients and moments.
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Tuple
+from typing import Any, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -41,14 +42,25 @@ def init_opt_state(params: Tree, cfg: TrainConfig):
     raise ValueError(cfg.optimizer)
 
 
-def global_norm(tree: Tree) -> torch.Tensor:
-    return torch.sqrt(sum(x.float().square().sum() for x in tree_leaves(tree)))
+def global_norm(tree: Tree, comm=None, counted: Optional[Sequence[bool]] = None) -> torch.Tensor:
+    """The L2 norm over every leaf.  Over a tree of local shards
+    (``comm``, the data group's collectives): the squared norms summed in
+    leaf order, the leaves ``counted`` marks False left out (a leaf every
+    rank holds whole counts on one rank only), then one all-reduce."""
+    leaves = tree_leaves(tree)
+    if comm is None:
+        return torch.sqrt(sum(x.float().square().sum() for x in leaves))
+    counted = counted if counted is not None else [True] * len(leaves)
+    zero = torch.zeros((1,), dtype=torch.float32, device=leaves[0].device)
+    sq = sum((x.float().square().sum() for x, c in zip(leaves, counted) if c), zero)
+    return torch.sqrt(comm.all_reduce(sq.reshape(1), tag="grad_norm")[0])
 
 
-def clip_by_global_norm(grads: Tree, max_norm: float) -> Tuple[Tree, torch.Tensor]:
+def clip_by_global_norm(grads: Tree, max_norm: float, comm=None,
+                        counted: Optional[Sequence[bool]] = None) -> Tuple[Tree, torch.Tensor]:
     """f32 gradients scaled to a global norm of at most ``max_norm``, and
-    the norm before clipping."""
-    gn = global_norm(grads)
+    the norm before clipping (see :func:`global_norm`)."""
+    gn = global_norm(grads, comm, counted)
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-12), max=1.0)
     return tree_map(lambda g: g.float() * scale, grads), gn
 

@@ -717,3 +717,58 @@ def test_snapshot_staging_holds_the_state_at_its_step(monkeypatch):
         assert torch.equal(snap[k], want[k]), k
     assert not torch.equal(state["w"].cpu(), want["w"])
     assert mgr.blocked_s > 0
+
+
+def test_one_nccl_rank_step_equals_the_one_process_step(cuda, tmp_path):
+    """A one-rank NCCL mesh (``launch/dist.py``): two steps of
+    ``make_train_step(..., mesh=...)``, replicated and FSDP, in degraded mode
+    with ``lowrank_sync`` on a 2-layer f32 model, bitwise equal to the
+    one-process step from the same state, every collective reached."""
+    from repro_torch.configs.base import (
+        MeCeFOConfig, ParallelConfig, ShapeConfig, TrainConfig, get_config, reduced,
+    )
+    from repro_torch.core.lowrank import refresh_projections
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.dist import destroy, init_process_group
+    from repro_torch.launch.state import init_state, to_local
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.parallel import collectives
+
+    cfg = reduced(get_config("llama-350m"), dtype="float32")
+    mecefo = MeCeFOConfig(mode="dynamic", rank=8, lowrank_sync=True)
+    shape = ShapeConfig("t", 64, 4, "train")
+    base = init_state(cfg, TrainConfig(), mecefo, torch.Generator().manual_seed(0), device=cuda)
+    base = base._replace(proj=refresh_projections(base.params, cfg, 8))
+    batches = [SyntheticLM(cfg.vocab_size).batch(i, 4, 64) for i in range(2)]
+
+    def fresh():
+        params = tree_map(lambda t: t.clone(), base.params)
+        return base._replace(params=params, opt=type(base.opt)(*(
+            tree_map(torch.zeros_like, params) for _ in base.opt)))
+
+    def run(step, state):
+        for b in batches:
+            state, m = step(state, b)
+        return state, {k: float(v) for k, v in m.items()}
+
+    ref, ref_m = run(make_train_step(cfg, TrainConfig(), mecefo, shape, ndb_mode="degraded",
+                                     device=cuda), fresh())
+    mesh = init_process_group(0, 1, init_method=f"file://{tmp_path}/nccl", backend="nccl",
+                              device=cuda)
+    try:
+        assert mesh.comm.backend == "nccl" and mesh.comm.route == "native"
+        for fsdp in (False, True):
+            step = make_train_step(cfg, TrainConfig(), mecefo, shape, ndb_mode="degraded",
+                                   mesh=mesh, parallel=ParallelConfig(fsdp=fsdp))
+            collectives.reset_counts()
+            got, m = run(step, to_local(fresh(), step.layout))
+            assert m == ref_m
+            for a, b in zip(tree_leaves(got.params) + tree_leaves(got.opt.m),
+                            tree_leaves(ref.params) + tree_leaves(ref.opt.m)):
+                assert torch.equal(a, b)
+            counts = collectives.counts()
+            assert any(t.startswith("lowrank:") for t in counts["all_reduce"])
+            assert ("all_gather" in counts) == fsdp == ("reduce_scatter" in counts)
+    finally:
+        destroy()

@@ -16,6 +16,8 @@ is still copying (the race test); and the port's Trainer with state
 transfer matches the live JAX Trainer with state transfer over a recorded
 elastic trace.
 """
+import json
+import pathlib
 import threading
 import types
 
@@ -40,9 +42,11 @@ from repro_torch.configs import base as tbase  # noqa: E402
 from repro_torch.ft.controller import FTController as TController  # noqa: E402
 from repro_torch.launch.state import init_state  # noqa: E402
 from repro_torch.launch.train import Trainer  # noqa: E402
+from repro_torch.models.params import tree_leaves  # noqa: E402
 from repro_torch.statexfer import snapshot as tsnap  # noqa: E402
 from repro_torch.utils.trees import state_nbytes, tree_flatten, tree_nbytes  # noqa: E402
 
+DATA = pathlib.Path(__file__).parent / "data"
 GB = 8  # global batch used throughout
 TINY = dict(name="tiny-dense", n_layers=4, d_model=64, n_heads=4, n_kv_heads=2,
             d_ff=128, vocab_size=256, dtype="float32")
@@ -549,3 +553,89 @@ def test_registry_module_surface_matches_jax():
     assert tsx.__all__ == jsx.__all__
     for name in tsx.__all__:
         assert isinstance(getattr(tsx, name), (type, types.FunctionType)), name
+
+
+def test_statexfer_golden_replays_on_two_ranks(tmp_path):
+    """The statexfer golden at the CLI's settings through the Trainer on a
+    mesh of two gloo ranks with replicated state: both ranks verify the
+    replay (events and accounting, measured transfer bytes included) and
+    agree on it."""
+    from repro_torch.launch.dist import spawn
+    from tests.test_torch_dist import trainer_rank
+
+    name = "golden_trace_statexfer.jsonl"
+    steps = json.loads((DATA / name).read_text().splitlines()[-1])["total_steps"]
+    cfg = tbase.reduced(tbase.get_config("llama-350m"), dtype="float32")
+    args = (cfg, tbase.ShapeConfig("cli", 128, 8, "train"), tbase.TrainConfig(steps=steps))
+    kwargs = dict(mecefo=tbase.MeCeFOConfig(mode="dynamic", rank=16, svd_period=20),
+                  statexfer=True, trace_replay=str(DATA / name))
+    spawn(trainer_rank, 2, args, kwargs, "", str(tmp_path / "rank"), timeout=600)
+    ranks = [torch.load(tmp_path / f"rank.{r}.pt", weights_only=False) for r in range(2)]
+    assert all(r["ok"] for r in ranks)
+    assert ranks[0]["acc"] == ranks[1]["acc"] and ranks[0]["acc"]["measured_transfer_bytes"] > 0
+    assert ranks[0]["receipts"] == ranks[1]["receipts"]
+
+
+def test_fsdp_trainer_on_two_ranks_recovers_from_the_checkpoint(tmp_path):
+    """Under FSDP the registry takes the checkpoint branch through the
+    Trainer: a rank of pod 2 fails at step 4 and heals at step 9 of a trace
+    the JAX Trainer records; the port's Trainer on two ranks with
+    ``ParallelConfig(fsdp=True)`` against the JAX Trainer with the same
+    config on one device (both checkpoint every 2 steps; the JAX Trainer
+    records the trace under FSDP too): the replay verified on both sides,
+    per-step loss at LOSS_RTOL, the accounting and the controller's state
+    size (the whole state's) equal, a ``ckpt`` receipt of the whole state's
+    bytes, and the restored params equal to the checkpoint rank 0 wrote."""
+    from repro.ft.events import FAIL, NODE_HEAL, FailureEvent
+    from repro_torch.checkpoint.ckpt import restore
+    from repro_torch.launch.dist import spawn
+    from tests.conftest import TINY_DENSE
+    from tests.test_torch_dist import trainer_rank
+
+    path = tmp_path / "sx.jsonl"
+    shape, steps = ("sx", 32, GB, "train"), 12
+    mecefo = dict(mode="dynamic", rank=8, svd_period=50)
+    jpar = jbase.ParallelConfig(fsdp=True, remat="ffn", scan_layers=True)
+
+    def jax_train(tag):
+        return jbase.TrainConfig(steps=steps, learning_rate=3e-3, checkpoint_every=2,
+                                 checkpoint_dir=str(tmp_path / tag))
+
+    rec = jtrain.Trainer(TINY_DENSE, jbase.ShapeConfig(*shape), jax_train("rec"), parallel=jpar,
+                         mecefo=jbase.MeCeFOConfig(**mecefo), n_dp=4, n_stages=4,
+                         step_time_s=3600.0, injectors=[], elastic=True, statexfer=True,
+                         trace_record=str(path))
+    for s in range(4):
+        rec.process.schedule(FailureEvent(4, FAIL, (2, s), duration_steps=10**9))
+        rec.process.schedule(FailureEvent(9, NODE_HEAL, (2, s), duration_steps=2))
+    rec.run(log_every=0)
+
+    jtr = jtrain.Trainer(TINY_DENSE, jbase.ShapeConfig(*shape), jax_train("jax"),
+                         parallel=jpar, mecefo=jbase.MeCeFOConfig(**mecefo), statexfer=True,
+                         trace_replay=str(path))
+    init = tmp_path / "init.pt"
+    torch.save(state_from_numpy(jax.tree.map(np.asarray, jtr.state), tbase.ModelConfig(**TINY),
+                                device="cpu"), init)
+    jh = jtr.run(log_every=0)
+    ckpt_dir = tmp_path / "ckpt"
+    args = (tbase.ModelConfig(**TINY), tbase.ShapeConfig(*shape),
+            tbase.TrainConfig(steps=steps, learning_rate=3e-3, checkpoint_every=2,
+                              checkpoint_dir=str(ckpt_dir)))
+    kwargs = dict(parallel=tbase.ParallelConfig(fsdp=True, remat="ffn"),
+                  mecefo=tbase.MeCeFOConfig(**mecefo), statexfer=True, trace_replay=str(path))
+    spawn(trainer_rank, 2, args, kwargs, str(init), str(tmp_path / "rank"), timeout=600)
+    ranks = [torch.load(tmp_path / f"rank.{r}.pt", weights_only=False) for r in range(2)]
+    assert jtr.verify_replay() == [] and all(r["ok"] for r in ranks)
+    for r in ranks:
+        assert r["acc"] == jtr.controller.accounting.as_dict()
+        assert r["state_nbytes"] == jtr.controller.state_nbytes
+        for j, t in zip(jh, r["hist"]):
+            assert {k: t[k] for k in EXACT} == {k: j[k] for k in EXACT}
+            np.testing.assert_allclose(t["loss"], j["loss"], rtol=LOSS_RTOL, err_msg=f"{t['step']}")
+    (rank, step, source, nbytes, ckpt_step, ok), = ranks[0]["receipts"]
+    assert (rank, source, ok) == (2, "ckpt", True) and nbytes == jtr.controller.state_nbytes
+    assert ranks[1]["receipts"] == ranks[0]["receipts"]
+    assert [x.source for x in jtr.xfer.receipts] == ["ckpt"]
+    like = torch.load(init, weights_only=False)
+    saved, _ = restore(like, str(ckpt_dir), ckpt_step)
+    assert all(torch.equal(a, b) for a, b in zip(ranks[0]["restored"][2], tree_leaves(saved.params)))

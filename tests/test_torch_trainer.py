@@ -343,7 +343,7 @@ def test_trainer_with_gradient_accumulation_matches_jax(monkeypatch):
     state = state_from_numpy(jax.tree.map(np.asarray, jtr.state), tcfg, device="cpu")
     ttr = Trainer(tcfg, tbase.ShapeConfig("t", 16, 4, "train"),
                   tbase.TrainConfig(steps=6, learning_rate=1e-3),
-                  parallel=tbase.ParallelConfig(accum=2),
+                  parallel=tbase.ParallelConfig(fsdp=False, accum=2),
                   mecefo=tbase.MeCeFOConfig(mode="dynamic", rank=8), n_dp=2, n_stages=2,
                   state=state, device="cpu")
     jkeys, tkeys = _record_keys(monkeypatch, jtr), _record_keys(monkeypatch, ttr)
@@ -366,3 +366,65 @@ def test_trainer_and_cli_default_to_cuda_and_raise_without_it():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ttrain.main(["--reduced", "--mecefo", "dynamic", "--trace", "replay",
                      str(DATA / "golden_trace.jsonl")])
+
+
+def _incidents(trainer):
+    inc = trainer.controller.incidents
+    return None if inc is None else [
+        (i.kind, i.key, i.open_step, i.close_step, i.path, i.acct, i.n_events, i.unclosed)
+        for i in inc.mgr.incidents]
+
+
+def test_trainer_on_two_ranks_matches_jax_on_the_elastic_golden_trace(tmp_path):
+    """The port's Trainer on a mesh of two gloo ranks (``launch/dist.py:
+    spawn``) against the live JAX Trainer over ``golden_trace_elastic.jsonl``
+    at the CLI's settings: per-step loss and grad norm at LOSS_RTOL, the
+    step fields, accounting and incidents equal on both ranks, the replay
+    verdict agreed, and the recording and checkpoints written by rank 0
+    alone."""
+    from repro.ft import trace as jtrace
+    from repro_torch.launch.dist import spawn
+    from tests.test_torch_dist import trainer_rank
+
+    name = "golden_trace_elastic.jsonl"
+    steps = json.loads((DATA / name).read_text().splitlines()[-1])["total_steps"]
+    jcfg = jbase.reduced(jbase.get_config("llama-350m"), dtype="float32")
+    tcfg = tbase.reduced(tbase.get_config("llama-350m"), dtype="float32")
+    mecefo = dict(mode="dynamic", rank=16, svd_period=20)
+    jtr = jtrain.Trainer(jcfg, jbase.ShapeConfig("cli", 128, 8, "train"),
+                         jbase.TrainConfig(steps=steps), mecefo=jbase.MeCeFOConfig(**mecefo),
+                         trace_replay=str(DATA / name))
+    init = tmp_path / "init.pt"
+    torch.save(state_from_numpy(jax.tree.map(np.asarray, jtr.state), tcfg, device="cpu"), init)
+    jh = jtr.run(log_every=0)
+    ckpt_dir, rec = tmp_path / "ckpt", tmp_path / "replayed.jsonl"
+    args = (tcfg, tbase.ShapeConfig("cli", 128, 8, "train"),
+            tbase.TrainConfig(steps=steps, checkpoint_every=20, checkpoint_dir=str(ckpt_dir)))
+    kwargs = dict(mecefo=tbase.MeCeFOConfig(**mecefo), trace_replay=str(DATA / name),
+                  trace_record=str(rec))
+    spawn(trainer_rank, 2, args, kwargs, str(init), str(tmp_path / "rank"), timeout=600)
+    ranks = [torch.load(tmp_path / f"rank.{r}.pt", weights_only=False) for r in range(2)]
+    assert ranks[0]["hist"] and all(r["ok"] for r in ranks)
+    for r in ranks:
+        assert len(r["hist"]) == len(jh) == steps
+        for j, t in zip(jh, r["hist"]):
+            assert {k: t[k] for k in EXACT} == {k: j[k] for k in EXACT}
+            np.testing.assert_allclose(t["loss"], j["loss"], rtol=LOSS_RTOL, err_msg=f"{t['step']}")
+            np.testing.assert_allclose(t["grad_norm"], j["grad_norm"], rtol=LOSS_RTOL,
+                                       err_msg=f"{t['step']}")
+        assert r["acc"] == jtr.controller.accounting.as_dict()
+        assert r["incidents"] == _incidents(jtr)
+    assert [t["loss"] for t in ranks[1]["hist"]] == [t["loss"] for t in ranks[0]["hist"]]
+    assert [(r["writes"], r["recorder"]) for r in ranks] == [(True, True), (False, False)]
+    assert jtrace.verify_replay(jtrace.load_trace(rec), _replayed(rec)) == []
+    assert latest_step(str(ckpt_dir)) == 20
+
+
+def _replayed(path):
+    from repro.ft import trace as jtrace
+
+    trace = jtrace.load_trace(path)
+    engine = jtrace.replay_engine(trace)
+    for step in range(trace.footer.total_steps):
+        engine.step(step)
+    return engine
