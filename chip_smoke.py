@@ -110,7 +110,8 @@ each printing JSON lines:
              --require-closed 1``; its exposition parsed; its report's
              snapshot-overhead section), and ``golden_trace_policy.jsonl``
              (exit 0: every pinned decision re-derives).  (b) The Trainer
-             replays the statexfer golden at the trainer phase's cell
+             replays the statexfer golden at the trainer phase's cell, cut
+             to XFER_CELL_LAYERS layers for the script's time limit,
              without and then with state transfer (cadence 1): events and
              counts, launches per step, measured bytes = peer restores x the
              measured state size, and every restored tree's digest (on the
@@ -252,12 +253,38 @@ Then accumulation — phase 7's cell with ``accum`` 1, 2 and 4 and with
              leaf, FSDP's held bytes half plus the whole leaves; (c) the
              Trainer on those two ranks replays ``golden_trace.jsonl`` at
              the CLI's reduced config, ``REPLAY OK`` agreed by both.
+19. model axis — the ``model`` mesh axis (``parallel/collectives.py:
+             ModelAxis``) on gloo ranks sharing the card (CUDA tensors,
+             host-staged: no measure of NCCL or of TP speed): kernel rows
+             first (#2, #3, #4, #6 at the TP-local shapes, each against its
+             plain version, #2 and #6 in turns against SDPA / multi_dot);
+             (a) mesh (1, 2) on MA_LAYERS f32 layers of llama-350m at full
+             width, B 8, S 1024, MA_STEPS steps a run: TP in every NDB mode
+             and ``degraded_sync``, TP + SP in dynamic and degraded, the 2-D
+             ``sharding_mode="fsdp"`` in dynamic; (b) mesh (2, 2), TP +
+             FSDP in dynamic and ``degraded_sync``, MA4_STEPS steps; (c)
+             mesh (1, 2) on 1 f32 layer of qwen3-moe-30b-a3b at full width
+             (64 experts a rank), B 2: EP under ``tp_fsdp`` in off and
+             degraded, the experts' all-to-all under ``fsdp`` in off; each
+             run's every leaf within 1e-4 of the one-process global-batch
+             step (each rank runs the reference in turn and holds its own
+             slices against it), the leaves no axis cuts bitwise equal
+             across the ranks that share them, the model-cut leaves held at
+             exactly 1/M, every collective tag of the run reached, TP's
+             all-reduce bytes a step equal to the count from the shapes, and
+             for MoE every routing decision of the EP runs under
+             ``tp_fsdp`` the reference's own (unforced), while the
+             all-to-all run is forced onto the reference's expert ids, its
+             own top-k differing only at near-ties (MA_TIE_GAP of max
+             |logit|, the count reported); (d) the Trainer on mesh
+             (1, 2) replays ``golden_trace.jsonl`` at the CLI's reduced
+             config, ``REPLAY OK`` agreed by both ranks.
 
-Each of phases 12-18 frees the card first and fails with a clear message
+Each of phases 12-19 frees the card first and fails with a clear message
 when too little memory is free.  Then the kernels' summary line (each
 kernel's ``launches`` from the main paths of phases 3, 4, 7 and 11; the
-launches of phases 12-18 and the accumulation phase beside them in
-``launches_by_later_path``, phase 18's per rank), the card's name and
+launches of phases 12-19 and the accumulation phase beside them in
+``launches_by_later_path``, phases 18's and 19's per rank), the card's name and
 power limit, and the final ``{"ok": true, ...}`` line.  Any failed check
 raises.
 """
@@ -404,7 +431,8 @@ TRAINER_SVD_PERIOD = 20
 TRAINER_CKPT = {"n_layers": 2, "steps": 6, "every": 2, "fail_step": 5, "rtol": 1e-5}
 # the statexfer phase: the two goldens recorded with live state transfer,
 # replayed through the CLI at the reduced config (every gate of the JAX
-# package's acceptance run), the statexfer golden at the train cell without
+# package's acceptance run), the statexfer golden at the train cell cut to
+# XFER_CELL_LAYERS layers (24 take ~45 s more of the script's 1200) without
 # and with state transfer (snapshot cadence 1), and an adaptive-policy
 # record/replay round trip at full width on XFER_ADAPTIVE_LAYERS layers
 XFER_TRACE, XFER_POLICY_TRACE = "golden_trace_statexfer.jsonl", "golden_trace_policy.jsonl"
@@ -413,6 +441,7 @@ XFER_CLI = ["--reduced", "--mecefo", "dynamic", "--chaos", "elastic", "--statexf
             "--device", "cuda"]
 XFER_BUDGET = 0.05  # obs/report.py SNAPSHOT_BUDGET_FRAC: blocked share of step time
 XFER_ADAPTIVE_LAYERS, XFER_ADAPTIVE_STEPS = 4, 40
+XFER_CELL_LAYERS = 8
 DIGEST_CHUNK = 1 << 24  # elements a digest moves at a time
 
 # the serving slice's shapes (qwen3-0.6b)
@@ -2087,7 +2116,7 @@ def statexfer_phase(dev) -> None:
         for trace_name in (XFER_TRACE, XFER_POLICY_TRACE):
             statexfer_cli_row(trace_name, tmp)
         cli = {n: WRAPPERS[n].launches for n in TRAIN_KERNELS}
-        cfg = get_config(TRAIN_CONFIG)
+        cfg = dataclasses.replace(get_config(TRAIN_CONFIG), n_layers=XFER_CELL_LAYERS)
         base = init_state(cfg, TrainConfig(), MeCeFOConfig(mode="dynamic", rank=TRAIN_RANK),
                           torch.Generator().manual_seed(0), device=dev)._replace(opt=None)
         total = {n: 0 for n in TRAIN_KERNELS}
@@ -3671,6 +3700,451 @@ def multirank_phase(dev) -> dict:
     emit({"phase": "multi-rank", "run": "phase", "seconds": time.perf_counter() - t0})
     return out
 
+# Phase 19: the model axis.  Ranks share the card over gloo with CUDA
+# tensors (one card takes one NCCL rank): host-staged, so no time here is a
+# measure of NCCL or of tensor parallelism's speed.
+MA_LAYERS, MA_STEPS, MA4_STEPS = 4, 3, 2
+MA_RUNS = (("tp", "off"), ("tp", "dynamic"), ("tp+sp", "dynamic"), ("fsdp", "dynamic"),
+           ("tp", "static"), ("tp", "degraded"), ("tp+sp", "degraded"), ("tp", "degraded_sync"))
+MA4_RUNS = (("tp", "dynamic"), ("tp", "degraded_sync"))
+MA_MOE_LAYERS, MA_MOE_B, MA_MOE_STEPS = 1, 2, 2
+MA_MOE_RUNS = (("ep", "off"), ("ep", "degraded"), ("ep-a2a", "off"))
+MA_MOE_PLAN = NDBPlan(n_dp=2, n_stages=1, failed=frozenset())
+MA_TIMEOUT_S = 900
+# a routing decision of the all-to-all run may differ from the reference's
+# only where the two top-k sets tie within this share of max |logit| (f32
+# sums in other orders move a logit by ~1e-7 of it); the EP runs under
+# tp_fsdp route the reference's tokens in its order and may differ nowhere
+MA_TIE_GAP = 1e-5
+MA_FORCED_KINDS = ("ep-a2a",)
+# the tags each kind of run must reach, by collective kind
+MA_TAGS = {
+    "tp": {"all_reduce": ("tp:attn_out", "tp:ffn_out", "tp:embed", "tp:ce_in", "tp:ffn_in"),
+           "all_reduce_max": ("tp:vocab",)},
+    "tp+sp": {"all_gather": ("sp:gather", "sp:split"), "reduce_scatter": ("sp:scatter",),
+              "all_reduce": ("sp:norm", "tp:embed"), "all_reduce_max": ("tp:vocab",)},
+    "fsdp": {"all_gather": ("param:",), "reduce_scatter": ("grad:",)},
+    "ep": {"all_gather": ("ep:split", "ep:gather"), "all_reduce": ("tp:attn_out", "tp:embed"),
+           "all_reduce_max": ("tp:vocab",)},
+    "ep-a2a": {"all_to_all": ("ep:a2a", "ep:a2a_keep"), "all_gather": ("param:",)},
+}
+
+
+def ma_mode(label: str) -> tuple:
+    return ("degraded", True) if label == "degraded_sync" else (label, False)
+
+
+def ma_parallel(kind: str, data: int) -> ParallelConfig:
+    """The parallel config of a phase 19 run: TP (+ FSDP over ``data`` above
+    1), TP + SP, the pure 2-D ``fsdp`` mode; ``ep`` is TP's, ``ep-a2a``
+    the 2-D mode's."""
+    if kind in ("fsdp", "ep-a2a"):
+        return ParallelConfig(fsdp=True, sharding_mode="fsdp")
+    return ParallelConfig(fsdp=data > 1, sequence_parallel=kind == "tp+sp")
+
+
+def ma_reached(counts: dict, kind: str, mode: str, sync: bool) -> dict:
+    """Whether each collective tag of the run was reached (a tag ending in
+    ``:`` is a prefix)."""
+    want = {k: list(v) for k, v in MA_TAGS[kind].items()}
+    if kind == "tp" and mode != "degraded":  # the all-degraded program has no MHA backward
+        want["all_reduce"].append("tp:attn_in")
+    if mode == "degraded" and kind in ("tp", "tp+sp"):
+        want.setdefault("all_reduce", []).append("lowrank:" if sync else "lowrank_row:")
+    out = {}
+    for kind_, tags in want.items():
+        have = counts.get(kind_, {})
+        for t in tags:
+            out[f"{kind_} {t}"] = (any(h.startswith(t) for h in have) if t.endswith(":")
+                                   else t in have)
+    return out
+
+
+def ma_tp_bytes(cfg, rows: int, seq: int, mode: str) -> int:
+    """TP's all-reduce bytes a step (tags ``tp:``) from the shapes, for a
+    TP run without SP over ``rows`` rows: forward, the attention's and the
+    FFN's outputs a layer and the embedding; backward, the attention's
+    (none when every example is degraded) and the FFN's inputs a layer and
+    the cross-entropy's input, each (rows, S, d) f32; the cross-entropy's
+    sum of exponents and gold logit, (rows, S) f32 each, in the forward and
+    again in its recompute."""
+    act = rows * seq * cfg.d_model * 4
+    per_layer = 3 + (mode != "degraded")
+    return act * (2 + cfg.n_layers * per_layer) + 4 * rows * seq * 4
+
+
+def ma_params0(spec: dict, dev, cache: dict) -> tuple:
+    """Whole (params, V1) of a phase 19 cell on ``dev``, new tensors each
+    call: from ``init.pt`` (the dense cell, loaded once) or from the seed
+    (the MoE cell: made again each call, so no whole copy stays on the
+    card), V1 a seeded Gaussian (the parity needs no SVD)."""
+    cfg = spec["cfg"]
+    if spec["init"] is not None:
+        if "init" not in cache:
+            init = torch.load(spec["init"], weights_only=False)
+            cache["init"] = tree_map(lambda t: t.to(dev), init)
+        return (tree_map(lambda t: t.clone(), cache["init"]["params"]),
+                tree_map(lambda t: t.clone(), cache["init"]["proj"]))
+    from repro_torch.core.lowrank import init_projections
+
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(1), dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    proj = tree_map(lambda v: (torch.randn(v.shape, generator=gen, device=dev)
+                               / v.shape[-2] ** 0.5).to(v.dtype),
+                    init_projections(params, cfg, TRAIN_RANK))
+    return params, proj
+
+
+@contextlib.contextmanager
+def ma_forced_routing(ids_log: list, force: bool):
+    """Hold the mesh run's routing against the reference's expert ids (this
+    rank's rows of them, call for call; an empty log checks nothing).  With
+    ``force`` the run takes the reference's ids, as phase 14 forces its
+    plain run: in the all-to-all run a rank's GEMMs over its own rows can
+    move an f32 near-tie by an ulp, which would swap an expert and spread.
+    Yields ``[decisions its own top-k made differently, decisions, the
+    largest gap of such a decision relative to max |logit|]``: its own k-th
+    logit above the lowest reference one, 0 for a tie."""
+    if not ids_log:
+        yield [0, 0, 0.0]
+        return
+    orig = moe_mod.route
+    it = iter(ids_log)
+    count = [0, 0, 0.0]
+
+    def forced(xt, router, top_k):
+        logits, gates, own = orig(xt, router, top_k)
+        ids = next(it).to(own.device)
+        if ids.shape != own.shape:
+            raise AssertionError("the two runs routed different token counts")
+        differs = (own.sort(dim=-1).values != ids.sort(dim=-1).values).any(dim=-1)
+        count[0] += int(differs.sum())
+        count[1] += own.shape[0]
+        if bool(differs.any()):
+            gap = logits.gather(1, own).min(dim=-1).values - logits.gather(1, ids).min(dim=-1).values
+            rel = float(gap[differs].max() / logits.abs().max().clamp(min=1e-30))
+            count[2] = max(count[2], rel)
+        if not force:
+            return logits, gates, own
+        return logits, torch.softmax(logits.gather(1, ids), dim=-1), ids
+
+    moe_mod.route = forced
+    try:
+        yield count
+    finally:
+        moe_mod.route = orig
+
+
+def ma_sq_errs(local, ref, layout) -> list:
+    """Per leaf, (Σ (local - ref slice)², Σ ref slice²): the ranks' pieces
+    sum to the whole leaf's ||Δ||² and ||ref||² (a piece two ranks share
+    counts on both, in both sums)."""
+    out = []
+    for k, (a, b) in enumerate(zip(tree_leaves(local), tree_leaves(ref))):
+        b = layout.cut(b, k)
+        out.append((float((a.float() - b.float()).square().sum()),
+                    float(b.float().square().sum())))
+    return out
+
+
+def ma_rank(mesh, tmp: str, spec: dict) -> None:
+    """One rank of a phase 19 mesh: per run, the one-process reference on
+    every rank (each keeps its own; in turn with ``spec["stagger"]``), then
+    the mesh step from the same state; writes ``<tag>.rank<r>.pt`` (rows,
+    launches)."""
+    from repro_torch.parallel import collectives
+
+    _opt = init_opt_state
+    dev = mesh.device
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, B, S, steps = spec["cfg"], spec["batch"], spec["seq"], spec["steps"]
+    D, M = mesh.sizes
+    train = TrainConfig()
+    shape = ShapeConfig("model-axis", S, B, "train")
+    keep, w = plan_to_masks(spec["plan"], cfg, B)
+    src = SyntheticLM(cfg.vocab_size)
+    batches = [src.batch(i, B, S) for i in range(steps)]
+    cache, refs, rows = {}, {}, []
+    launches = {n: 0 for n in TRAIN_KERNELS}
+    world = D * M
+    for kind, label in spec["runs"]:
+        mode, sync = ma_mode(label)
+        mecefo = MeCeFOConfig(mode="dynamic", rank=TRAIN_RANK, lowrank_sync=sync)
+        kw = dict(ndb_mode=mode, static_ndb=(keep, w) if mode == "static" else None,
+                  total_steps=train.steps)
+        ndb = ({"keep": keep, "example_weight": w},) if mode == "dynamic" else ()
+        parallel = ma_parallel(kind, D)
+        groups = D * M if parallel.sharding_mode == "fsdp" else D
+        key = (mode, sync, groups if cfg.moe is not None else 1)
+        if key not in refs:
+            refs.clear()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+            # with spec["stagger"] the ranks run it in turn, so a rank that
+            # waits holds no reference run's peak
+            for r in range(world) if spec.get("stagger") else (mesh.rank,):
+                if r == mesh.rank:
+                    params, proj = ma_params0(spec, dev, cache)
+                    st = TrainState(step=0, params=params, opt=_opt(params, train), proj=proj)
+                    flags = dataclasses.replace(TRAIN_FLAGS, n_dp_shards=key[2])
+                    with routing_log() as rlog:
+                        ref, ref_m, ref_ms = mr_steps(
+                            make_train_step(cfg, train, mecefo, shape, device=dev, flags=flags,
+                                            **kw), st, batches, ndb, dev)
+                    refs[key] = (ref, ref_m, ref_ms, rlog)
+                    del st, params
+                    if dev.type == "cuda":
+                        torch.cuda.empty_cache()
+                if spec.get("stagger"):
+                    mesh.world_comm.barrier()
+        ref, ref_m, ref_ms, rlog = refs[key]
+        step = make_train_step(cfg, train, mecefo, shape, mesh=mesh, parallel=parallel,
+                               flags=TRAIN_FLAGS, **kw)
+        lay = step.layout
+        params, proj = ma_params0(spec, dev, cache)
+        local = lay.map(lay.cut, params)
+        del params
+        state = TrainState(step=0, params=local, opt=_opt(local, train), proj=lay.cut_proj(proj))
+        collectives.reset_counts()
+        reset_launches()
+        tok = slice(step.rows.start * S, step.rows.stop * S)
+        with ma_forced_routing([x[tok] for x in rlog], kind in MA_FORCED_KINDS) as forced:
+            state, metrics, ms = mr_steps(step, state, batches, ndb, dev)
+        run_launches = {n: WRAPPERS[n].launches for n in TRAIN_KERNELS}
+        for n in TRAIN_KERNELS:
+            launches[n] += run_launches[n]
+        counts = collectives.counts()
+        shared = [k for k in range(len(lay.dims))
+                  if lay.mdims[k] is None and lay.groups[k] != "world"]
+        trees = {"params": state.params, "m": state.opt.m, "v": state.opt.v}
+        ref_trees = {"params": ref.params, "m": ref.opt.m, "v": ref.opt.v}
+        held = [(x.numel(), lay.pieces(k), int(np.prod(lay.shapes[k])))
+                for k, x in enumerate(tree_leaves(state.params))]
+        row = {"kind": kind, "mode": label, "metrics": metrics, "ref_metrics": ref_m,
+               "step_ms": ms, "ref_step_ms": ref_ms, "counts": counts,
+               "launches": run_launches, "coords": mesh.coords, "rows": [step.rows.start,
+                                                                          step.rows.stop],
+               "errs": {t: ma_sq_errs(trees[t], ref_trees[t], lay) for t in trees},
+               "digest": tree_digest([x for k, x in enumerate(tree_leaves(state.params))
+                                      if k in shared], dev),
+               "held": held, "model_cut": [lay.paths[k] for k in range(len(lay.dims))
+                                           if lay.mdims[k] is not None],
+               "route": mesh.model_comm.route, "backend": mesh.model_comm.backend}
+        if cfg.moe is not None:
+            row["routing_differs"] = forced
+        rows.append(row)
+        del state, local, step, trees, ref_trees, ref, rlog
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    refs.clear()
+    cache.clear()
+    out = {"rows": rows, "launches": launches}
+    if spec.get("trainer_cfg") is not None:  # (d): the Trainer replays the golden trace
+        trace = load_trace(os.path.join(TRAINER_DATA, MR_TRACE))
+        reset_launches()
+        t0 = time.perf_counter()
+        trainer = Trainer(spec["trainer_cfg"], ShapeConfig("cli", 128, 8, "train"),
+                          TrainConfig(steps=trace.footer.total_steps),
+                          mecefo=MeCeFOConfig(mode="dynamic", rank=16, svd_period=20),
+                          trace_replay=trace, mesh=mesh)
+        hist = trainer.run(log_every=0)
+        out["trainer"] = {"agreed": trainer.replay_agreed(), "own_verify": trainer.verify_replay(),
+                          "steps": len(hist), "losses": [r["loss"] for r in hist],
+                          "wall_s": time.perf_counter() - t0,
+                          "model_cut": sum(d is not None for d in trainer.layout.mdims),
+                          "launches": {n: WRAPPERS[n].launches for n in TRAIN_KERNELS}}
+        for n in TRAIN_KERNELS:
+            out["launches"][n] += out["trainer"]["launches"][n]
+    torch.save(out, os.path.join(tmp, f"{spec['tag']}.rank{mesh.rank}.pt"))
+
+
+def ma_gate(spec: dict, ranks: list, fails: list, on_card: bool) -> None:
+    """Emit and gate each run of a phase 19 mesh from its ranks' results
+    (``on_card``: each kernel of the run's path launched on every rank)."""
+    cfg, D, M = spec["cfg"], spec["mesh"][0], spec["mesh"][1]
+    tol = TRAIN_PARITY_TOL["float32"][0]
+    for i, r0 in enumerate(ranks[0]["rows"]):
+        runs = [r["rows"][i] for r in ranks]
+        kind, label = r0["kind"], r0["mode"]
+        mode, sync = ma_mode(label)
+        errs = {}
+        for t in ("params", "m", "v"):
+            per_leaf = [(sum(r["errs"][t][k][0] for r in runs), sum(r["errs"][t][k][1] for r in runs))
+                        for k in range(len(r0["errs"][t]))]
+            errs[t] = max((d / max(n, 1e-30)) ** 0.5 for d, n in per_leaf)
+        loss_err = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                       for a, b in zip(r0["metrics"], r0["ref_metrics"]))
+        by_d = {}
+        for r in runs:
+            by_d.setdefault(r["coords"][0], []).append(r["digest"])
+        bitwise = all(all(x == g[0] for x in g) for g in by_d.values())
+        metrics_equal = all(r["metrics"] == r0["metrics"] for r in runs)
+        held_ok = all(n * p == whole for r in runs for n, p, whole in r["held"])
+        reached = ma_reached(r0["counts"], kind, mode, sync)
+        ar = r0["counts"].get("all_reduce", {})
+        tp_bytes = sum(c["bytes"] for t, c in ar.items() if t.startswith("tp:")) / spec["steps"]
+        row = {"phase": "model-axis", "row": spec["row"], "mesh": list(spec["mesh"]),
+               "config": cfg.name, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+               "batch": spec["batch"], "seq_len": spec["seq"], "kind": kind, "mode": label,
+               "backend": r0["backend"], "route": r0["route"],
+               "losses": [m["loss"] for m in r0["metrics"]], "loss_rel_err": loss_err,
+               "max_leaf_rel_err": errs, "limit_rel": tol,
+               "shared_leaves_bitwise": bitwise, "metrics_equal_on_ranks": metrics_equal,
+               "model_cut_leaves": len(r0["model_cut"]), "held_exact": held_ok,
+               "reached": reached, "tp_allreduce_bytes_per_step": tp_bytes,
+               "step_ms_by_rank": [r["step_ms"] for r in runs],
+               "step_ms_one_process": r0["ref_step_ms"],
+               "collectives": {k: {"calls": sum(c["calls"] for c in t.values()),
+                                   "bytes": sum(c["bytes"] for c in t.values())}
+                               for k, t in r0["counts"].items()}}
+        ok = (max(errs.values()) <= tol and loss_err <= tol and bitwise and metrics_equal
+              and held_ok and all(reached.values()) and (kind == "fsdp" or row["model_cut_leaves"]))
+        if on_card:  # every kernel of the run's path launched on every rank
+            need = ["rmsnorm", "swiglu", "flash_attention"]
+            if cfg.moe is None and mode != "off":
+                need.append("lowrank_wgrad")
+            row["launches_by_rank"] = [r["launches"] for r in runs]
+            ok = ok and all(r["launches"][n] > 0 for r in runs for n in need)
+        if kind == "tp":
+            want = ma_tp_bytes(cfg, spec["batch"] // D, spec["seq"], mode)
+            row["tp_allreduce_bytes_want"] = want
+            ok = ok and tp_bytes == want
+        if cfg.moe is not None:  # only the all-to-all's decisions may differ, at a near-tie
+            gap = max(r["routing_differs"][2] for r in runs)
+            differ = sum(r["routing_differs"][0] for r in runs)
+            forced = kind in MA_FORCED_KINDS
+            row["routing"] = {"differ": differ,
+                              "decisions": sum(r["routing_differs"][1] for r in runs),
+                              "forced_onto_reference": forced, "max_rel_gap": gap,
+                              "limit_rel_gap": MA_TIE_GAP if forced else 0.0}
+            ok = ok and (gap <= MA_TIE_GAP if forced else differ == 0)
+        row["ok"] = bool(ok)
+        emit(row)
+        if not ok:
+            fails.append(f"({spec['row']}) {kind} {label}")
+
+
+def ma_spawn(dev, tmp: str, spec: dict) -> list:
+    """Spawn one phase 19 mesh; its ranks' results."""
+    from repro_torch.launch.dist import spawn
+
+    D, M = spec["mesh"]
+    t0 = time.perf_counter()
+    spawn(ma_rank, D * M, tmp, spec, backend="gloo", device=dev.type, model=M,
+          timeout=MA_TIMEOUT_S)
+    ranks = [torch.load(os.path.join(tmp, f"{spec['tag']}.rank{r}.pt"), weights_only=False)
+             for r in range(D * M)]
+    emit({"phase": "model-axis", "row": f"{spec['row']} spawn", "mesh": list(spec["mesh"]),
+          "seconds": time.perf_counter() - t0,
+          "launches_by_rank": [r["launches"] for r in ranks]})
+    return ranks
+
+
+def ma_kernel_rows(dev, timer) -> None:
+    """#2, #3, #4 and #6 at the TP-local shapes phase 19 launches (llama-350m
+    at M = 2: 8 of 16 heads, S/2 rows under SP, 1368 of 2736 FFN columns,
+    w_down's partial factor over 1368 rows), each against its plain
+    version in bf16 and f32 with its cold time, bound and library call;
+    #2 and #6 in turns against SDPA and ``multi_dot`` in bf16."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    B, S, H, hd, D, FF, r = TRAIN_B, TRAIN_S, 8, 64, 1024, 1368, TRAIN_RANK
+    T = B * S
+    pairs = B * H * S * (S + 1) // 2
+    for dt in (torch.bfloat16, torch.float32):
+        es = torch.finfo(dt).bits // 8
+
+        def randn(*shape):
+            return torch.randn(*shape, generator=gen, device=dev).to(dt)
+
+        q, k, v = (randn(B, S, H, hd) for _ in range(3))
+        compare("flash_attention", dt, [B, S, H, H, hd], flash_attention(q, k, v),
+                flash_attention_plain(q, k, v), timer, lambda: flash_attention(q, k, v),
+                lambda: flash_attention_plain(q, k, v), 4 * nbytes(q), 4.0 * hd * pairs,
+                sdpa_call(q, k, v))
+        if dt == torch.bfloat16:
+            turns("flash_attention", [B, S, H, H, hd], timer, lambda: flash_attention(q, k, v),
+                  sdpa_call(q, k, v), path="model axis")
+        del q, k, v
+        x, sc = randn(T // 2, D), randn(D)
+        compare("rmsnorm", dt, [T // 2, D], rmsnorm(x, sc, 1e-5), rmsnorm_plain(x, sc, 1e-5),
+                timer, lambda: rmsnorm(x, sc, 1e-5), lambda: rmsnorm_plain(x, sc, 1e-5),
+                2 * x.numel() * es + D * es, 4.0 * x.numel(),
+                lambda: F.rms_norm(x, (D,), sc, 1e-5))
+        g, u = randn(T, FF), randn(T, FF)
+        compare("swiglu", dt, [T, FF], swiglu(g, u), swiglu_plain(g, u), timer,
+                lambda: swiglu(g, u), lambda: swiglu_plain(g, u), 3 * g.numel() * es,
+                5.0 * g.numel())
+        del g, u, x
+        for n, m in ((D, FF), (FF, D)):
+            xx, dy, v1 = randn(T, n), randn(T, m), randn(n, r)
+            compare_rel("lowrank_wgrad", dt, [T, n, m, r], lowrank_wgrad_project(xx, dy, v1),
+                        lowrank_wgrad_project_plain(xx, dy, v1), timer,
+                        lambda: lowrank_wgrad_project(xx, dy, v1),
+                        lambda: lowrank_wgrad_project_plain(xx, dy, v1),
+                        nbytes(xx, dy, v1) + r * m * 4, 2.0 * T * r * (n + m),
+                        lambda: torch.linalg.multi_dot([v1.T, xx.T, dy]))
+            if dt == torch.bfloat16:
+                turns("lowrank_wgrad", [T, n, m, r], timer,
+                      lambda: lowrank_wgrad_project(xx, dy, v1),
+                      lambda: torch.linalg.multi_dot([v1.T, xx.T, dy]), path="model axis")
+            del xx, dy, v1
+
+
+def model_axis_phase(dev, timer) -> dict:
+    """Phase 19.  Returns the launches of each rank of its paths."""
+    t0 = time.perf_counter()
+    free_card("model-axis", 60)
+    ma_kernel_rows(dev, timer)
+    free_card("model-axis", 60)
+    full = get_config(TRAIN_CONFIG)
+    dense = dataclasses.replace(full, n_layers=MA_LAYERS, dtype="float32")
+    moe_full = get_config(MOE_CONFIG)
+    moe = dataclasses.replace(moe_full, n_layers=MA_MOE_LAYERS, dtype="float32")
+    fails, out = [], {}
+    with tempfile.TemporaryDirectory() as tmp:
+        params = init_params(dense, torch.Generator(device=dev).manual_seed(1), dev)
+        proj = refresh_projections(params, dense, TRAIN_RANK)
+        init = os.path.join(tmp, "init.pt")
+        torch.save(tree_map(lambda t: t.cpu(), {"params": params, "proj": proj}), init)
+        del params, proj
+        torch.cuda.empty_cache()
+        specs = [
+            dict(tag="a", row="a: tp (1, 2)", mesh=(1, 2), cfg=dense, batch=TRAIN_B, seq=TRAIN_S,
+                 steps=MA_STEPS, runs=MA_RUNS, plan=TRAIN_PLAN, init=init,
+                 trainer_cfg=reduced(full, dtype="float32")),
+            dict(tag="b", row="b: tp + fsdp (2, 2)", mesh=(2, 2), cfg=dense, batch=TRAIN_B,
+                 seq=TRAIN_S, steps=MA4_STEPS, runs=MA4_RUNS, plan=TRAIN_PLAN, init=init),
+            dict(tag="c", row="c: ep (1, 2)", mesh=(1, 2), cfg=moe, batch=MA_MOE_B, seq=TRAIN_S,
+                 steps=MA_MOE_STEPS, runs=MA_MOE_RUNS, plan=MA_MOE_PLAN, init=None,
+                 stagger=True),
+        ]
+        for spec in specs:
+            ranks = ma_spawn(dev, tmp, spec)
+            ma_gate(spec, ranks, fails, dev.type == "cuda")
+            for r, res in enumerate(ranks):
+                out[f"model-axis {spec['mesh']} {spec['tag']} rank {r}"] = res["launches"]
+            if "trainer" in ranks[0]:
+                tr = [x["trainer"] for x in ranks]
+                ok = (all(t["agreed"] and not t["own_verify"] for t in tr)
+                      and tr[0]["losses"] == tr[1]["losses"] and tr[0]["model_cut"] > 0)
+                emit({"phase": "model-axis", "row": "d: trainer (1, 2)", "trace": MR_TRACE,
+                      "config": f"reduced {full.name} float32", "steps": tr[0]["steps"],
+                      "replay": "REPLAY OK" if ok else "REPLAY MISMATCH",
+                      "agreed": [t["agreed"] for t in tr], "final_loss": tr[0]["losses"][-1],
+                      "model_cut_leaves": tr[0]["model_cut"],
+                      "wall_s": [t["wall_s"] for t in tr],
+                      "launches": [t["launches"] for t in tr], "ok": ok})
+                if not ok:
+                    fails.append("(d) trainer replay")
+            del ranks
+    emit({"phase": "model-axis", "run": "phase", "seconds": time.perf_counter() - t0})
+    if fails:
+        raise AssertionError(f"model-axis: {fails}")
+    return out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3712,6 +4186,7 @@ def main() -> int:
     later["hybrid"] = hybrid_phase(dev)
     later["accumulation"] = accum_phase(dev)
     later.update(multirank_phase(dev))
+    later.update(model_axis_phase(dev, timer))
 
     emit({"kernels": [
         {"name": n, "route": "cuda", "source": f"src/repro_torch/csrc/{n}.cu",

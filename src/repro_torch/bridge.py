@@ -73,11 +73,13 @@ def params_to_numpy(params: Tree) -> Tree:
     return map_leaves(lambda _name, t: tensor_to_numpy(t), params)
 
 
-def state_from_numpy(state, cfg: ModelConfig, device="cuda") -> TrainState:
+def state_from_numpy(state, cfg: ModelConfig, device="cuda", layout=None) -> TrainState:
     """A JAX ``TrainState`` with numpy leaves (``jax.tree.map(np.asarray,
     state)``) as the port's: params, the optimizer moments (AdamW ``m``/``v``
     or SGDM ``m``), the V1 tree ``proj`` and ``step``.  Read by attribute,
-    so any object with those fields will do."""
+    so any object with those fields will do.  With a mesh's ``layout``
+    (``launch/state.py:ShardLayout``) each rank gets its slices on both
+    axes."""
     dev = resolve_device(device)
     params = params_from_numpy(state.params, cfg, dev)
     opt = state.opt
@@ -100,7 +102,12 @@ def state_from_numpy(state, cfg: ModelConfig, device="cuda") -> TrainState:
                     out[part][k] = tensor_from_numpy(a, dev)
             layers.append(out)
         proj = {"layers": tuple(layers)}
-    return TrainState(step=int(np.asarray(state.step)), params=params, opt=opt, proj=proj)
+    out = TrainState(step=int(np.asarray(state.step)), params=params, opt=opt, proj=proj)
+    if layout is not None:
+        from repro_torch.launch.state import to_local
+
+        out = to_local(out, layout)
+    return out
 
 
 def state_to_numpy(state: TrainState) -> TrainState:

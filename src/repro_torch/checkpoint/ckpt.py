@@ -8,11 +8,12 @@ marker makes a partly written checkpoint invisible to restore.  Saves run
 on a background thread whose errors surface on the next ``wait()``;
 ``keep`` bounds disk use but never prunes the newest complete step.
 
-Under a mesh whose FSDP layout (``launch/state.py:ShardLayout``) cuts the
-params and moments, a save gathers the whole state on every rank and rank
-0 alone writes the files one process writes; a restore reads them on
-every rank and keeps each rank's slices.  A checkpoint written at one
-mesh size restores at any other, one process included.
+Under a mesh whose layout (``launch/state.py:ShardLayout``) cuts the
+params and moments (FSDP over ``data``, TP and EP over ``model``), a save
+gathers the whole state on every rank, over both axes, and rank 0 alone
+writes the files one process writes; a restore reads them on every rank
+and keeps each rank's slices.  A checkpoint written at one mesh shape
+restores at any other, one process included.
 """
 from __future__ import annotations
 
@@ -50,7 +51,7 @@ def save(state: Tree, directory: str, step: int, layout=None) -> str:
     if _writes(layout):
         _write(state, directory, step)
     if layout is not None:
-        layout.mesh.comm.barrier()
+        layout.mesh.world_comm.barrier()
     return final
 
 
@@ -158,7 +159,7 @@ class CheckpointManager:
             err, self._error = self._error, None
             raise err
         if self.layout is not None:
-            self.layout.mesh.comm.barrier()
+            self.layout.mesh.world_comm.barrier()
 
     def _gc(self) -> None:
         if len(self.saved_steps) <= self.keep:

@@ -86,21 +86,21 @@ class ParallelConfig:
     # ``lowrank_sync``)
     grad_compression: str = "none"
 
-    def check(self, mesh_shape: dict) -> None:
+    def check(self, mesh_shape: dict, cfg: Optional["ModelConfig"] = None) -> None:
         """Raise for what the port does not run yet on a mesh of
-        ``mesh_shape`` ({axis: size})."""
+        ``mesh_shape`` ({axis: size}) for ``cfg``'s model family."""
         later = "runs in a later slice of the port"
-        if mesh_shape.get(self.tp_axis, 1) > 1:
-            raise NotImplementedError(f"a {self.tp_axis!r} axis above 1 (TP, EP, SP) {later}")
         if self.sharding_mode not in ("tp_fsdp", "fsdp"):
             raise ValueError(f"sharding_mode {self.sharding_mode!r}")
-        if self.sharding_mode == "fsdp":
+        if (mesh_shape.get(self.tp_axis, 1) > 1 and cfg is not None
+                and cfg.family in ("ssm", "hybrid")):
             raise NotImplementedError(
-                f"sharding_mode 'fsdp' shards weights over the {self.tp_axis!r} axis: it {later}")
-        if self.sequence_parallel:
-            raise NotImplementedError(f"sequence_parallel {later}")
+                f"a {self.tp_axis!r} axis above 1 for the {cfg.family!r} family (the SSM "
+                f"mixer's ssm_inner cut) {later}")
         if tuple(self.dp_axes) != ("data",):
             raise NotImplementedError(f"dp_axes {self.dp_axes}: only ('data',) {later}")
+        if self.tp_axis != "model":
+            raise NotImplementedError(f"tp_axis {self.tp_axis!r}: only 'model' {later}")
 
 
 @dataclass(frozen=True)

@@ -13,7 +13,14 @@ inside the backward of :func:`lowrank_linear`.  In ``degraded_sync`` mode
 (MeCeFO's ``lowrank_sync``) the step's data group all-reduces that (r, m)
 factor instead of the (n, m) gradient: the backward sums it over the
 ranks before ``V1 @ A``, and marks the weight's gradient as global so the
-step does not reduce it again (``parallel/collectives.py:StepSync``).  The MoE experts' grouped
+step does not reduce it again (``parallel/collectives.py:StepSync``).
+Under a ``model`` axis a row-parallel weight (``w_down``, whose input
+columns and V1 rows are this rank's ``mlp`` shard) has A = Σ_m (x_m
+V1_m)ᵀ dy: kernel #6 on the local shard gives a partial (r, m) factor,
+all-reduced over the model group before dW_m = V1_m A (in ``degraded``
+and in ``mixed``'s low-rank part), or over the world (data and model at
+once) in ``degraded_sync``.  A column-parallel weight's factor is whole
+on its rank and crosses no model collective.  The MoE experts' grouped
 form, :func:`lowrank_linear_grouped`, takes batched matrix products, as the
 JAX package's ``einsum`` outside any Pallas kernel.  ``dx`` is always
 exact.
@@ -108,14 +115,18 @@ def projection_annotations(cfg: ModelConfig) -> Tree:
     return {"layers": tuple(layers)}
 
 
-def _synced(ctx):
-    """The all-reduce of the (r, m) factor of the weight ``ctx`` saw in its
-    forward, which marks that weight's gradient as global."""
-    sync, leaf = ctx.sync, ctx.leaf
+def _reducer(sync, w, comm, kind: str):
+    """The all-reduce over ``comm`` of the (r, m) factor of weight ``w``:
+    ``kind`` "lowrank" is the batch's sum (``degraded_sync``), which marks
+    the weight's gradient as global; "lowrank_row" a row-parallel weight's
+    sum over the model group."""
+    leaf = collectives.leaf_id(w)
+    tag = f"{kind}:{sync.paths.get(leaf, '?')}"
 
     def reduce(a: torch.Tensor) -> torch.Tensor:
-        sync.comm.all_reduce(a, tag="lowrank:" + sync.paths.get(leaf, "?"))
-        sync.mark(leaf)
+        comm.all_reduce(a, tag=tag)
+        if kind == "lowrank":
+            sync.mark(leaf)
         return a
 
     return reduce
@@ -125,12 +136,19 @@ class LowRankLinear(torch.autograd.Function):
     """``y = x @ w`` with a MeCeFO backward for dW (``_ll_bwd``)."""
 
     @staticmethod
-    def forward(ctx, x, w, v1, keep, mode, sync):
+    def forward(ctx, x, w, v1, keep, mode, sync, row):
         if mode not in MODES:
             raise ValueError(mode)
         ctx.mode = mode
-        ctx.sync = sync if mode == "degraded_sync" else None
-        ctx.leaf = None if ctx.sync is None else collectives.leaf_id(w)
+        row = row and sync is not None and sync.tp is not None
+        # without a step sync over the batch (one process, or ranks that
+        # each compute the whole batch) "degraded_sync" is "degraded"
+        synced = mode == "degraded_sync" and sync is not None and sync.comm is not None
+        # mixed's low-rank part sums over the model group only
+        ctx.reduce_row = _reducer(sync, w, sync.tp.comm, "lowrank_row") if row else None
+        # degraded_sync's over the batch's group, and the model group with it
+        ctx.reduce = (_reducer(sync, w, sync.world_comm if row else sync.comm, "lowrank")
+                      if synced else ctx.reduce_row)
         ctx.keep_const = None if torch.is_tensor(keep) else float(keep)
         ctx.save_for_backward(x, w, v1, *((keep,) if torch.is_tensor(keep) else ()))
         return x @ w
@@ -140,39 +158,38 @@ class LowRankLinear(torch.autograd.Function):
         x, w, v1, *rest = ctx.saved_tensors
         dx = dy @ w.T if ctx.needs_input_grad[0] else None
         if not ctx.needs_input_grad[1]:
-            return dx, None, None, None, None, None
+            return dx, None, None, None, None, None, None
         # flatten, not reshape(-1, n): a zero-width FFN's (B, S, 0) has no -1
         xf = x.flatten(0, -2)
         dyf = dy.flatten(0, -2).contiguous()
         if ctx.mode == "exact":
             dw = xf.T @ dyf
         elif ctx.mode in ("degraded", "degraded_sync"):
-            # without a step sync (one process, or ranks that each compute
-            # the whole batch) "degraded_sync" is "degraded"
-            dw = lowrank_wgrad(xf, dyf, v1,
-                               reduce=None if ctx.sync is None else _synced(ctx))
+            dw = lowrank_wgrad(xf, dyf, v1, reduce=ctx.reduce)
         else:  # mixed: kept examples exact, skipped ones low-rank
             keep = rest[0] if rest else torch.tensor(ctx.keep_const, device=dy.device)
             k = keep.to(dy.dtype)
             k = k.reshape(k.shape + (1,) * (dy.dim() - k.dim())) if k.dim() else k
             dy_keep = (dy * k).flatten(0, -2)
             dy_skip = (dy * (1 - k)).flatten(0, -2)
-            dw = xf.T @ dy_keep + lowrank_wgrad(xf, dy_skip, v1)
-        return dx, dw.to(w.dtype), None, None, None, None
+            dw = xf.T @ dy_keep + lowrank_wgrad(xf, dy_skip, v1, reduce=ctx.reduce_row)
+        return dx, dw.to(w.dtype), None, None, None, None, None
 
 
 def lowrank_linear(x: torch.Tensor, w: torch.Tensor, v1: torch.Tensor, keep,
-                   mode: str = "exact", sync=None) -> torch.Tensor:
+                   mode: str = "exact", sync=None, row: bool = False) -> torch.Tensor:
     """``y = x @ w`` with a MeCeFO backward for dW.
 
     x: (..., n) activations (batch on dim 0); w: (n, m); v1: (n, r)
     (unused in ``exact`` mode); keep: (B,) per-example keep mask (1 =
     exact), used by ``mixed`` only; mode: "exact" | "degraded" |
     "degraded_sync" | "mixed"; sync: the rank's ``StepSync`` under a mesh,
-    whose data group ``degraded_sync`` all-reduces the factor over (without
-    one it is ``degraded``).
+    whose batch group ``degraded_sync`` all-reduces the factor over (without
+    one it is ``degraded``); row: ``w`` is this rank's rows of a
+    row-parallel weight (``v1`` its matching rows), whose factor sums over
+    the model group.
     """
-    return LowRankLinear.apply(x, w, v1, keep, mode, sync)
+    return LowRankLinear.apply(x, w, v1, keep, mode, sync, row)
 
 
 class LowRankLinearGrouped(torch.autograd.Function):
@@ -184,8 +201,9 @@ class LowRankLinearGrouped(torch.autograd.Function):
         if mode not in MODES:
             raise ValueError(mode)
         ctx.mode = mode
-        ctx.sync = sync if mode == "degraded_sync" else None
-        ctx.leaf = None if ctx.sync is None else collectives.leaf_id(w)
+        # the experts' gradient shares sum over sync.expert_comm
+        synced = mode == "degraded_sync" and sync is not None and sync.expert_comm is not None
+        ctx.reduce = _reducer(sync, w, sync.expert_comm, "lowrank") if synced else None
         ctx.save_for_backward(x, w, v1, keep)
         return torch.bmm(x, w)
 
@@ -201,8 +219,8 @@ class LowRankLinearGrouped(torch.autograd.Function):
             dw = torch.bmm(xt, dy)
         elif ctx.mode in ("degraded", "degraded_sync"):
             a = torch.bmm(torch.bmm(x, v1).transpose(1, 2), dy)     # (E, r, m)
-            if ctx.sync is not None:
-                a = _synced(ctx)(a)
+            if ctx.reduce is not None:
+                a = ctx.reduce(a)
             dw = torch.bmm(v1, a)
         else:  # mixed: slots of kept examples exact, skipped ones low-rank
             k = keep.to(dy.dtype)[..., None]

@@ -1,12 +1,16 @@
 """Mesh construction (the counterpart of ``repro.launch.mesh``).
 
 A :class:`Mesh` is the port's own small object: the axis names ``("data",
-"model")``, their sizes, the device this process computes on, and the data
-group's collectives (``parallel/collectives.py:Comm``).  It is built over
-the initialized process group (``launch/dist.py`` starts one); without a
-group it is the 1×1 mesh of one process, as the JAX package's is on one
-device.  The port runs the ``model`` axis at 1: TP, EP and SP, and the
-production meshes (16×16, 2×16×16) with their dry run, are later slices.
+"model")``, their sizes, this process's coordinates ``(d, m)``, the device
+it computes on, and its groups' collectives
+(``parallel/collectives.py:Comm``): ``comm`` the data group (the ranks of
+one model coordinate), ``model_comm`` the model group (the ranks of one
+data coordinate) and ``world_comm`` every rank.  Ranks are placed as
+``jax.make_mesh`` places devices, ``model`` fastest: rank ``d·M + m``.
+It is built over the initialized process group (``launch/dist.py`` starts
+one); without a group it is the 1×1 mesh of one process, as the JAX
+package's is on one device.  The production meshes (16×16, 2×16×16) and
+their dry run are a later slice.
 
 The mesh holds its device explicitly: an NCCL group computes on CUDA and a
 gloo group on the device its caller names; a mesh asked for CUDA where
@@ -28,7 +32,9 @@ AXES = ("data", "model")
 @dataclass(frozen=True, eq=False)
 class Mesh:
     sizes: Tuple[int, int]  # (data, model)
-    comm: Comm
+    comm: Comm              # the data group
+    model_comm: Optional[Comm] = None
+    world_comm: Optional[Comm] = None
 
     axis_names = AXES
 
@@ -42,27 +48,37 @@ class Mesh:
 
     @property
     def rank(self) -> int:
-        return self.comm.rank
+        """This process's rank in the world, ``d·M + m``."""
+        return self.world_comm.rank if self.world_comm is not None else self.comm.rank
+
+    @property
+    def coords(self) -> Tuple[int, int]:
+        """(d, m): this rank's data and model coordinates."""
+        return divmod(self.rank, self.sizes[1])
+
+    def comm_of(self, group: str) -> Comm:
+        """The ``"data"``, ``"model"`` or ``"world"`` group's collectives."""
+        return {"data": self.comm, "model": self.model_comm, "world": self.world_comm}[group]
 
     def __repr__(self) -> str:
-        return f"Mesh({self.shape}, {self.comm!r})"
+        return f"Mesh({self.shape}, rank {self.rank}, data {self.comm!r})"
 
 
 def make_host_mesh(data: Optional[int] = None, model: int = 1, device=None) -> Mesh:
     """The (data, model) mesh over the initialized process group, or the 1×1
     mesh of one process without one.  ``data`` defaults to the group's
-    size; as in the JAX package, a mesh larger than the group shrinks to
-    ``(group size, 1)``.  ``device`` defaults to the current CUDA device of
-    an NCCL group, else the CPU (a gloo group computes on CUDA only where
-    the caller names it)."""
+    size over ``model``; as in the JAX package, a mesh larger than the
+    group shrinks to ``(group size, 1)``.  ``device`` defaults to the
+    current CUDA device of an NCCL group, else the CPU (a gloo group
+    computes on CUDA only where the caller names it).  Every rank makes
+    every group, in the same order: the data groups, then the model
+    groups."""
     import torch.distributed as dist
 
-    if model > 1:
-        raise NotImplementedError("a 'model' axis above 1 runs in a later slice of the port")
     group = dist.group.WORLD if dist.is_available() and dist.is_initialized() else None
     world = dist.get_world_size() if group is not None else 1
     rank = dist.get_rank() if group is not None else 0
-    data = world if data is None else data
+    data = max(world // model, 1) if data is None else data
     if data * model > world:
         data, model = world, 1
     if data * model != world:
@@ -75,7 +91,14 @@ def make_host_mesh(data: Optional[int] = None, model: int = 1, device=None) -> M
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    return Mesh((data, model), Comm(group, dev, rank, world))
+    d, m = divmod(rank, model)
+    world_comm = Comm(group, dev, rank, world)
+    if model == 1:
+        return Mesh((data, model), world_comm, Comm(None, dev, 0, 1), world_comm)
+    data_groups = [dist.new_group([i * model + j for i in range(data)]) for j in range(model)]
+    model_groups = [dist.new_group([i * model + j for j in range(model)]) for i in range(data)]
+    return Mesh((data, model), Comm(data_groups[m], dev, d, data),
+                Comm(model_groups[d], dev, m, model), world_comm)
 
 
 def mesh_shape_dict(mesh) -> dict:

@@ -61,15 +61,18 @@ def ndb_specs(cfg: ModelConfig, B: int, bax) -> Tuple[Dict[str, Any], Dict[str, 
 
 def rows_of(B: int, bax: Optional[tuple], mesh) -> slice:
     """The contiguous rows of a global batch of ``B`` this rank holds: all
-    of them when the batch is not sharded (``bax`` None)."""
+    of them when the batch is not sharded (``bax`` None).  The batch axes
+    index the rows in their order, the last fastest: ``d`` over
+    ``("data",)``, ``d·M + m`` over ``("data", "model")``."""
     if bax is None:
         return slice(0, B)
     shape = mesh.shape
-    n = 1
+    coord = dict(zip(("data", "model"), divmod(mesh.rank, shape.get("model", 1))))
+    n, r = 1, 0
     for ax in bax:
         n *= shape.get(ax, 1)
+        r = r * shape.get(ax, 1) + coord.get(ax, 0)
     b = B // n
-    r = mesh.rank % n  # the 'model' axis is 1: the data coordinate is the rank
     return slice(r * b, (r + 1) * b)
 
 

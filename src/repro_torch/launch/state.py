@@ -1,14 +1,20 @@
 """TrainState, its initialisation and its sharding over a mesh (the
 counterpart of ``repro.launch.state``).
 
-Under FSDP (``ParallelConfig.fsdp``) each rank holds the slice of every
-param leaf and of its AdamW moments along the dim the sharding rules give
-the ``data`` axis (``embed``, ``embed_tbl``, ``expert_embed``): the
-counterpart of ``to_shardings``.  A leaf whose dim the mesh's size does not
-divide stays whole on every rank, where the JAX package's GSPMD pads it;
-the numbers are the same, and :attr:`ShardLayout.whole` names those
-leaves.  V1 (``proj``) stays whole on every rank: the step gathers the
-params it multiplies anyway.
+A leaf may be cut along two dims.  Its ``model`` dim (``heads``,
+``kv_heads``, ``mlp``, ``vocab``, ``expert``) is the tensor- or
+expert-parallel cut: rank ``m`` holds and computes with its slice, and the
+step never gathers it.  Its FSDP dim (``ParallelConfig.fsdp``: ``embed``,
+``embed_tbl``, ``expert_embed``) is cut over the ``data`` group, or over
+every rank (``d·M + m``) where the rules give it ``("data", "model")``
+(``sharding_mode="fsdp"``); the step gathers it at its start.  AdamW's
+moments follow their params: the counterpart of ``to_shardings``.  A dim
+the mesh does not divide stays whole, where the JAX package's GSPMD pads
+it; the numbers are the same, and :attr:`ShardLayout.whole` names those
+leaves.  A ``model`` dim is cut only where the model's layers cut it
+(``parallel/collectives.py:ModelAxis``: a head count the axis divides, for
+one).  V1 (``proj``) is whole over ``data`` and cut over ``model`` as its
+weight's input dim is (``w_down``'s rows, the experts).
 """
 from __future__ import annotations
 
@@ -21,7 +27,9 @@ from repro_torch.configs.base import MeCeFOConfig, ModelConfig, TrainConfig
 from repro_torch.core.lowrank import init_projections, projection_annotations
 from repro_torch.models.params import init_params, param_annotations, param_shapes, tree_leaves
 from repro_torch.optim.optimizers import AdamWState, SGDMState, init_opt_state
-from repro_torch.parallel.sharding import ShardingRules, Spec, spec_leaves, spec_tree
+from repro_torch.parallel.sharding import (
+    ShardingRules, Spec, is_annotation, map_tree, spec_leaves, spec_tree,
+)
 from repro_torch.utils.trees import state_nbytes, tree_flatten
 
 Tree = Any
@@ -68,74 +76,187 @@ def leaf_paths(tree: Tree, prefix: str = "") -> list:
 
 @dataclass(frozen=True)
 class ShardLayout:
-    """Where a mesh's ranks cut each param leaf (and its moments): ``dims``
-    per leaf in leaf order, the dim cut ``mesh.shape["data"]`` ways or None
-    for a leaf every rank holds whole."""
+    """Where a mesh's ranks cut each param leaf (and its moments), in leaf
+    order: ``mdims`` the dim cut over ``model`` (never gathered), ``dims``
+    the FSDP dim, cut over ``groups`` (``"data"`` or ``"world"``), None
+    for a leaf held whole along that axis; ``proj_mdims`` V1's ``model``
+    dims in the V1 tree's leaf order."""
 
     mesh: Any
     dims: Tuple[Optional[int], ...]
     paths: Tuple[str, ...]
     shapes: Tuple[Tuple[int, ...], ...]  # each leaf's whole shape
-    whole: Tuple[str, ...]  # leaves the rules shard but the mesh does not divide
-
-    @property
-    def world(self) -> int:
-        return self.mesh.shape["data"]
+    whole: Tuple[str, ...]  # leaves the rules shard along a dim the mesh leaves whole
+    mdims: Tuple[Optional[int], ...] = ()
+    groups: Tuple[Optional[str], ...] = ()
+    proj_mdims: Tuple[Optional[int], ...] = ()
 
     @property
     def sharded(self) -> bool:
+        """Whether a rank holds a slice of some leaf."""
+        return any(d is not None for d in self.dims + self.mdims)
+
+    @property
+    def fsdp_sharded(self) -> bool:
         return any(d is not None for d in self.dims)
 
-    def local(self, t: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
-        """This rank's slice of a whole leaf (a copy)."""
-        if dim is None:
-            return t
-        return t.chunk(self.world, dim=dim)[self.mesh.rank].clone()
+    def pieces(self, k: int) -> int:
+        """How many ranks' slices make leaf ``k`` whole."""
+        D, M = self.mesh.sizes
+        n = M if self.mdims[k] is not None else 1
+        if self.dims[k] is not None:
+            n *= D if self.groups[k] == "data" else D * M
+        return n
+
+    def cut(self, t: torch.Tensor, k: int) -> torch.Tensor:
+        """This rank's slice of the whole leaf ``k`` (a copy where cut):
+        along its model dim, then its FSDP dim."""
+        if self.mdims[k] is None:
+            return self.cut_fsdp(t, k)
+        M, m = self.mesh.sizes[1], self.mesh.coords[1]
+        return self.cut_fsdp(t.chunk(M, dim=self.mdims[k])[m], k, copy=True)
+
+    def cut_fsdp(self, t: torch.Tensor, k: int, copy: bool = False) -> torch.Tensor:
+        """This rank's FSDP slice of leaf ``k`` already cut over ``model``."""
+        if self.dims[k] is None:
+            return t.clone() if copy else t
+        D, M = self.mesh.sizes
+        n, i = (D, self.mesh.coords[0]) if self.groups[k] == "data" else (D * M, self.mesh.rank)
+        return t.chunk(n, dim=self.dims[k])[i].clone()
 
     def map(self, fn, tree: Tree) -> Tree:
-        """``fn(leaf, dim, path)`` over a params-shaped tree."""
+        """``fn(leaf, k)`` over a params-shaped tree, ``k`` the leaf index."""
         leaves, unflatten = tree_flatten(tree)
         if len(leaves) != len(self.dims):
             raise ValueError(f"{len(leaves)} leaves, the layout has {len(self.dims)}")
-        return unflatten([fn(x, d, p) for x, d, p in zip(leaves, self.dims, self.paths)])
+        return unflatten([fn(x, k) for k, x in enumerate(leaves)])
 
     def gather(self, tree: Tree, tag: str = "gather") -> Tree:
-        """The whole leaves of a params-shaped tree of local slices."""
-        comm = self.mesh.comm
-        return self.map(lambda x, d, p: x if d is None else comm.all_gather(x, d, f"{tag}:{p}"),
-                        tree)
+        """The leaves of a tree of local slices whole along their FSDP dims
+        (still cut over ``model``)."""
+        def one(x, k):
+            d = self.dims[k]
+            if d is None:
+                return x
+            return self.mesh.comm_of(self.groups[k]).all_gather(x, d, f"{tag}:{self.paths[k]}")
+
+        return self.map(one, tree)
+
+    def gather_whole(self, tree: Tree, tag: str = "gather") -> Tree:
+        """The whole leaves of a tree of local slices (both axes)."""
+        tree = self.gather(tree, tag)
+
+        def one(x, k):
+            md = self.mdims[k]
+            return x if md is None else self.mesh.model_comm.all_gather(x, md,
+                                                                        f"{tag}:{self.paths[k]}")
+
+        return self.map(one, tree)
+
+    def cut_proj(self, proj: Tree) -> Tree:
+        """This rank's slices of a whole V1 tree."""
+        if not proj or not any(d is not None for d in self.proj_mdims):
+            return proj
+        leaves, unflatten = tree_flatten(proj)
+        M, m = self.mesh.sizes[1], self.mesh.coords[1]
+        return unflatten([x if d is None else x.chunk(M, dim=d)[m].clone()
+                          for x, d in zip(leaves, self.proj_mdims)])
+
+    def empty_whole_proj(self, proj: Tree) -> Tree:
+        """Uninitialized whole V1 leaves for a tree of this rank's slices."""
+        leaves, unflatten = tree_flatten(proj)
+        dims = self.proj_mdims or (None,) * len(leaves)
+        M = self.mesh.sizes[1]
+
+        def one(x, d):
+            shape = list(x.shape)
+            if d is not None:
+                shape[d] *= M
+            return torch.empty(shape, dtype=x.dtype, device=x.device)
+
+        return unflatten([one(x, d) for x, d in zip(leaves, dims)])
+
+    def gather_proj(self, proj: Tree, tag: str = "gather_state") -> Tree:
+        """The whole V1 tree from every rank's slices (a collective)."""
+        if not proj or not any(d is not None for d in self.proj_mdims):
+            return proj
+        leaves, unflatten = tree_flatten(proj)
+        comm = self.mesh.model_comm
+        return unflatten([x if d is None else comm.all_gather(x, d, tag)
+                          for x, d in zip(leaves, self.proj_mdims)])
 
 
-def shard_layout(cfg: ModelConfig, rules: ShardingRules, mesh, fsdp: bool) -> ShardLayout:
-    """The layout of ``cfg``'s params over ``mesh``: FSDP cuts each leaf
-    along its ``data`` dim; without FSDP every leaf is whole."""
+# the logical names a model axis cuts, by ModelAxis flag
+MODEL_CUTS = {"heads": "heads", "kv_heads": "kv", "mlp": "mlp", "vocab": "vocab",
+              "expert": "expert"}
+
+
+def _ann_leaves(anns: Tree) -> list:
+    """A tree of logical annotations' leaves, in the params' leaf order."""
+    return spec_leaves(map_tree(lambda a: Spec(*a), anns, is_annotation))
+
+
+def _model_dim(ann, spec, cuts) -> Optional[int]:
+    """The dim of a leaf the model axis cuts: the one ``spec`` gives
+    ``"model"`` alone, if its logical name is among ``cuts``."""
+    for i, (name, e) in enumerate(zip(ann, spec)):
+        if e == "model" and name in cuts:
+            return i
+    return None
+
+
+def shard_layout(cfg: ModelConfig, rules: ShardingRules, mesh, fsdp: bool,
+                 cuts=frozenset()) -> ShardLayout:
+    """The layout of ``cfg``'s params over ``mesh``: ``cuts`` names the
+    logical dims the model's layers cut over ``model`` (``heads``,
+    ``kv_heads``, ``mlp``, ``vocab``, ``expert``); FSDP cuts each leaf
+    along its ``data`` dim (over ``data``, or over every rank where the
+    rules give it both axes); without FSDP a leaf is whole over ``data``."""
     paths = leaf_paths(param_shapes(cfg))
+    anns = _ann_leaves(param_annotations(cfg))
     specs = spec_leaves(spec_tree(rules, param_annotations(cfg)))
-    world = mesh.shape["data"]
-    dims, whole = [], []
+    D, M = mesh.sizes
+    dims, mdims, groups, whole = [], [], [], []
     shapes = tree_leaves(param_shapes(cfg))
-    for shape, spec, path in zip(shapes, specs, paths):
-        d = spec.dim_of("data") if fsdp else None
-        if d is not None and shape[d] % world:
+    for shape, ann, spec, path in zip(shapes, anns, specs, paths):
+        md = _model_dim(ann, spec, cuts)
+        if M > 1 and md is None and "model" in spec:  # the rules cut it, the layers do not
             whole.append(path)
-            d = None
+        d = spec.dim_of("data") if fsdp else None
+        g = None
+        if d is not None:
+            e = spec[d]
+            g = "world" if isinstance(e, tuple) and "model" in e else "data"
+            if shape[d] % (D * M if g == "world" else D):
+                whole.append(path)
+                d, g = None, None
         dims.append(d)
-    return ShardLayout(mesh, tuple(dims), tuple(paths), tuple(shapes), tuple(whole))
+        mdims.append(md)
+        groups.append(g)
+    proj_mdims = ()
+    if cuts:
+        pann = projection_annotations(cfg)
+        proj_mdims = tuple(_model_dim(a, s, cuts) for a, s in zip(
+            _ann_leaves(pann), spec_leaves(spec_tree(rules, pann))))
+    return ShardLayout(mesh, tuple(dims), tuple(paths), tuple(shapes), tuple(whole),
+                       tuple(mdims), tuple(groups), proj_mdims)
 
 
 def to_local(state: TrainState, layout: ShardLayout) -> TrainState:
-    """Each rank's slice of a whole state's params and moments."""
+    """Each rank's slice of a whole state's params, moments and V1."""
     def cut(tree):
-        return layout.map(lambda x, d, p: layout.local(x, d), tree)
+        return layout.map(layout.cut, tree)
 
-    return state._replace(params=cut(state.params), opt=type(state.opt)(*map(cut, state.opt)))
+    return state._replace(params=cut(state.params), opt=type(state.opt)(*map(cut, state.opt)),
+                          proj=layout.cut_proj(state.proj))
 
 
 def gather_state(state: TrainState, layout: ShardLayout) -> TrainState:
     """The whole state from every rank's slices (a collective)."""
     return state._replace(
-        params=layout.gather(state.params, "gather_state"),
-        opt=type(state.opt)(*(layout.gather(t, "gather_state") for t in state.opt)))
+        params=layout.gather_whole(state.params, "gather_state"),
+        opt=type(state.opt)(*(layout.gather_whole(t, "gather_state") for t in state.opt)),
+        proj=layout.gather_proj(state.proj))
 
 
 def full_nbytes(state: TrainState, layout: Optional[ShardLayout]) -> int:
@@ -144,7 +265,11 @@ def full_nbytes(state: TrainState, layout: Optional[ShardLayout]) -> int:
     if layout is None:
         return n
     for tree in (state.params, *state.opt):
-        for x, d in zip(tree_flatten(tree)[0], layout.dims):
+        for k, x in enumerate(tree_flatten(tree)[0]):
+            n += (layout.pieces(k) - 1) * x.numel() * x.element_size()
+    if state.proj and layout.proj_mdims:
+        M = layout.mesh.sizes[1]
+        for x, d in zip(tree_flatten(state.proj)[0], layout.proj_mdims):
             if d is not None:
-                n += (layout.world - 1) * x.numel() * x.element_size()
+                n += (M - 1) * x.numel() * x.element_size()
     return n

@@ -1,5 +1,5 @@
 """The training step (the counterpart of ``repro.launch.steps``'s
-``make_train_step``), on one process or under a data-parallel mesh.
+``make_train_step``), on one process or over a (data, model) mesh.
 
 A step computes the forward loss, the MeCeFO backward (technique I skips
 the MHA backward, II recomputes the FFN, III takes the low-rank Wgrad
@@ -13,22 +13,30 @@ on one data shard), sums their gradients in f32, each optionally rounded
 to bf16 first (``parallel.grad_compression == "bf16"``), divides by
 ``accum``, and applies eq. (1), clipping and the update to the mean.
 
-Under a mesh (``launch/mesh.py``, ``data`` axis of size W) every rank gets
-the same global batch and NDB masks and computes on its contiguous rows
-(``launch/specs.py``): its loss is its share of the global mean (the
-token-weight sum and the MoE routing fractions are all-reduced in the
-forward, ``parallel/collectives.py:StepSync``), so the ranks' gradients
-sum to the global gradient.  They are all-reduced, or reduce-scattered
-under FSDP, except the low-rank leaves ``degraded_sync`` already reduced
-as their (r, m) factors.  Eq. (1) rescales with the global masks,
-clipping takes the global norm, and AdamW updates each rank's shard.
-Under FSDP the step gathers the whole params at its start and frees them
-at its end.  Accumulation splits each rank's rows (the JAX package's
-per-shard interleave); with bf16 compression each micro-gradient is
-reduced in f32 and rounded to bf16, the rounding the JAX program applies
-to the global micro-gradient.  A batch the mesh does not divide is not
-sharded: every rank computes all of it, with the MoE grouping of W data
-shards, and nothing is reduced.
+Under a mesh (``launch/mesh.py``, axes ``data`` × ``model``) every rank
+gets the same global batch and NDB masks and computes on the rows its
+batch axes give it (``launch/specs.py``: ``d`` of D under
+``sharding_mode="tp_fsdp"``, ``d·M + m`` of D·M under ``"fsdp"``): its
+loss is its share of the global mean (the token-weight sum and the MoE
+routing fractions are all-reduced in the forward,
+``parallel/collectives.py:StepSync``).  A ``model`` axis above 1 cuts the
+layers (``model_axis``: tensor parallelism over heads, FFN and vocab,
+sequence parallelism, the experts) as ``models/layers.py`` and
+``models/moe.py`` describe; the model ranks of one data row then hold the
+same rows and the same loss.  A leaf's gradient shares are summed over
+the batch's groups except ``model`` where the leaf is cut over it
+(all-reduced, or reduce-scattered along its FSDP dim), except the
+low-rank leaves ``degraded_sync`` already reduced as their (r, m)
+factors.  Eq. (1) rescales with the global masks, clipping takes the
+global norm (each distinct slice counted once), and AdamW updates each
+rank's slices.  The step gathers the FSDP dims of the params at its start
+and frees them at its end; it never gathers a ``model`` dim.
+Accumulation splits each rank's rows (the JAX package's per-shard
+interleave); with bf16 compression each micro-gradient is reduced in f32
+and rounded to bf16, the rounding the JAX program applies to the global
+micro-gradient.  A batch the mesh does not divide is not sharded: every
+rank computes all of it, with the MoE grouping of the mesh's shards, and
+nothing is reduced over the batch.
 """
 from __future__ import annotations
 
@@ -50,7 +58,7 @@ from repro_torch.launch.state import ShardLayout, TrainState, shard_layout
 from repro_torch.models.model import ExecFlags, forward_loss
 from repro_torch.models.params import tree_leaves, tree_map
 from repro_torch.optim.optimizers import apply_update, clip_by_global_norm, lr_schedule
-from repro_torch.parallel.collectives import StepSync
+from repro_torch.parallel.collectives import ModelAxis, StepSync
 from repro_torch.parallel.sharding import ShardingRules, default_rules
 
 Tree = Any
@@ -135,24 +143,82 @@ def accumulated_loss_and_grads(params: Tree, proj: Optional[Tree], batch: Dict,
 
 
 def build_rules(cfg: ModelConfig, mesh, parallel: ParallelConfig) -> ShardingRules:
-    """The sharding rules of ``cfg`` on ``mesh`` (the JAX package's, for the
-    ``"tp_fsdp"`` mode the port runs)."""
+    """The sharding rules of ``cfg`` on ``mesh`` (the JAX package's, the
+    pure 2-D ``"fsdp"`` mode included: the batch over every axis, the
+    weights' ``embed`` dim over both, ``expert`` left on ``model``)."""
     rules = default_rules(mesh, fsdp=parallel.fsdp, sequence_parallel=parallel.sequence_parallel,
                           n_kv_heads=cfg.n_kv_heads if cfg.family != "ssm" else 0)
-    model_n = mesh_shape_dict(mesh).get("model", 1)
+    msd = mesh_shape_dict(mesh)
+    model_n = msd.get("model", 1)
     hd = cfg.resolved_head_dim
     if (cfg.n_heads * hd) % model_n != 0:
         rules = dataclasses.replace(rules, heads=None)
     if (cfg.n_kv_heads * hd) % model_n != 0:
         rules = dataclasses.replace(rules, kv_heads=None)
+    if parallel.sharding_mode == "fsdp":
+        both = tuple(a for a in ("data", "model") if a in msd)
+        rules = dataclasses.replace(
+            rules, batch=tuple(a for a in ("pod", "data", "model") if a in msd),
+            dispatch=tuple(a for a in ("pod", "data") if a in msd),
+            heads=None, kv_heads=None, kv_cache=None, mlp=None, ssm_inner=None, vocab=None,
+            embed=both if parallel.fsdp else None)
     return rules
 
 
-def mesh_layout(cfg: ModelConfig, mesh, parallel: Optional[ParallelConfig] = None) -> ShardLayout:
-    """Where ``mesh``'s ranks cut ``cfg``'s params (whole without FSDP)."""
+def batch_axes(cfg: ModelConfig, mesh, parallel: ParallelConfig, B: int):
+    """The mesh axes a global batch of ``B`` is cut over: ``("data",)``,
+    ``("data", "model")`` (``sharding_mode="fsdp"``), or None where the
+    mesh does not divide it (every rank then computes every row)."""
+    bax = batch_axes_for(B, build_rules(cfg, mesh, parallel), mesh_shape_dict(mesh))
+    return bax if bax in (("data",), ("data", "model")) else None
+
+
+def model_cuts(cfg: ModelConfig, mesh, parallel: ParallelConfig) -> frozenset:
+    """The logical dims ``cfg``'s layers cut over a ``model`` axis above 1
+    (``launch/state.py:shard_layout``): the rules' cuts where the axis
+    divides the head counts, ``d_ff``, the padded vocab and the experts.
+    Query heads the axis does not divide keep the attention whole on
+    every rank (GSPMD splits the fused head dim); KV heads it does not
+    divide keep ``wk``/``wv`` whole."""
+    M = mesh.sizes[1]
+    if M == 1:
+        return frozenset()
+    rules = build_rules(cfg, mesh, parallel)
+    heads = rules.heads == "model" and cfg.n_heads % M == 0
+    cut = {"heads": heads,
+           "kv_heads": heads and rules.kv_heads == "model" and cfg.n_kv_heads % M == 0,
+           "mlp": rules.mlp == "model" and cfg.d_ff > 0 and cfg.d_ff % M == 0,
+           "vocab": rules.vocab == "model" and cfg.padded_vocab % M == 0,
+           "expert": (cfg.moe is not None and rules.expert == "model"
+                      and cfg.moe.n_experts % M == 0)}
+    return frozenset(n for n, on in cut.items() if on)
+
+
+def model_axis(cfg: ModelConfig, mesh, parallel: ParallelConfig, shape: ShapeConfig
+               ) -> Optional[ModelAxis]:
+    """The step's :class:`ModelAxis` (None at a model axis of 1): the cuts
+    of :func:`model_cuts`, sequence parallelism where the axis divides the
+    sequence, and the experts run ``"a2a"`` where the model ranks hold
+    different rows, ``"gather"`` where they hold the same."""
+    if mesh.sizes[1] == 1:
+        return None
+    cuts = model_cuts(cfg, mesh, parallel)
+    bax = batch_axes(cfg, mesh, parallel, shape.global_batch) or ()
+    return ModelAxis(
+        mesh.model_comm,
+        sp=(parallel.sequence_parallel and parallel.sharding_mode == "tp_fsdp"
+            and shape.seq_len % mesh.sizes[1] == 0),
+        heads="heads" in cuts, kv="kv_heads" in cuts, mlp="mlp" in cuts, vocab="vocab" in cuts,
+        expert=("a2a" if "model" in bax else "gather") if "expert" in cuts else None)
+
+
+def mesh_layout(cfg: ModelConfig, mesh, parallel: Optional[ParallelConfig] = None
+                ) -> ShardLayout:
+    """Where ``mesh``'s ranks cut ``cfg``'s params."""
     parallel = parallel or ParallelConfig()
-    parallel.check(mesh_shape_dict(mesh))
-    return shard_layout(cfg, build_rules(cfg, mesh, parallel), mesh, parallel.fsdp)
+    parallel.check(mesh_shape_dict(mesh), cfg)
+    return shard_layout(cfg, build_rules(cfg, mesh, parallel), mesh, parallel.fsdp,
+                        model_cuts(cfg, mesh, parallel))
 
 
 def make_train_step(
@@ -186,32 +252,37 @@ def make_train_step(
     ``metrics`` then carry the mean loss and the last micro-batch's
     ``ce`` and ``aux``, as in the JAX package.
 
-    ``mesh`` (``launch/mesh.py``) runs the step data-parallel on the mesh's
+    ``mesh`` (``launch/mesh.py``) runs the step over the mesh on its
     device (``device`` is then unused; ``parallel`` defaults to
     ``ParallelConfig()``, FSDP on, as the JAX package's): ``state`` holds
-    this rank's slices (``launch/state.py:to_local``, the whole state
-    without FSDP), ``batch`` and ``ndb`` the global batch and masks.  The
-    step carries ``layout`` (the :class:`ShardLayout`), ``rows`` (this
-    rank's rows) and ``accum``.
+    this rank's slices (``launch/state.py:to_local``: over ``model`` where
+    the layers cut a leaf, over ``data`` under FSDP), ``batch`` and ``ndb``
+    the global batch and masks.  The step carries ``layout`` (the
+    :class:`ShardLayout`), ``rows`` (this rank's rows), ``accum`` and
+    ``model_axis`` (its ``ModelAxis``, None at a model axis of 1).
     """
     if ndb_mode not in NDB_MODES:
         raise ValueError(f"ndb_mode {ndb_mode!r} not in {NDB_MODES}")
     B = shape.global_batch
     flags = flags or ExecFlags()
-    layout = rows = None
+    layout = rows = bax = tp = None
     nds, sharded = 1, False
     if mesh is None:
         dev = resolve_device(device)
     else:
         parallel = parallel or ParallelConfig()
         layout = mesh_layout(cfg, mesh, parallel)
+        tp = model_axis(cfg, mesh, parallel, shape)
         dev = mesh.device
-        nds = n_dp_shards(mesh)
-        bax = batch_axes_for(B, build_rules(cfg, mesh, parallel), mesh_shape_dict(mesh))
+        nds = n_dp_shards(mesh) * (mesh.sizes[1] if parallel.sharding_mode == "fsdp" else 1)
+        bax = batch_axes(cfg, mesh, parallel, B)
         rows = rows_of(B, bax, mesh)
         sharded = bax is not None  # the ranks' shares combine in the forward and backward
-        # a rank's rows are its MoE group; a whole batch routes in W groups
-        flags = dataclasses.replace(flags, n_dp_shards=1 if sharded else nds)
+        n_shards = B // (rows.stop - rows.start)
+        # a rank's rows route in its share of the groups; a whole batch in all
+        flags = dataclasses.replace(flags, n_dp_shards=max(nds // n_shards, 1))
+        batch_comm = None if bax is None else mesh.comm_of("data" if bax == ("data",) else
+                                                          "world")
     accum = max(getattr(parallel, "accum", 1), 1)
     if B % (nds * accum):
         accum = 1
@@ -238,21 +309,26 @@ def make_train_step(
 
     def reduce_grads(grads: Tree, sync: Optional[StepSync]) -> Tree:
         """A rank's gradient shares as this rank's slices of the global
-        gradient: all-reduced, or reduce-scattered under FSDP; a leaf the
-        backward already reduced (or every leaf, when each rank computed
-        the whole batch) is only cut."""
-        comm = mesh.comm
-        synced = sync.synced if sync is not None else [True] * len(layout.dims)
+        gradient.  A leaf sums over the batch's groups except ``model``
+        where it cuts that axis (its experts' exchange already summed the
+        model ranks' rows): all-reduced, or reduce-scattered along its FSDP
+        dim.  A leaf the backward already reduced (or every leaf, when each
+        rank computed the whole batch) is only cut."""
+        synced = sync.synced if sharded else [True] * len(layout.dims)
 
-        def one(g, d, path, done):
+        def one(g, k, done):
             if done:
-                return layout.local(g, d)
+                return layout.cut_fsdp(g, k)
+            over = "data" if bax == ("data",) or layout.mdims[k] is not None else "world"
+            comm, d, tag = mesh.comm_of(over), layout.dims[k], "grad:" + layout.paths[k]
             if d is None:
-                return comm.all_reduce(g, tag="grad:" + path)
-            return comm.reduce_scatter(g, d, tag="grad:" + path)
+                return comm.all_reduce(g, tag=tag)
+            if layout.groups[k] == over:
+                return comm.reduce_scatter(g, d, tag=tag)
+            return layout.cut_fsdp(comm.all_reduce(g, tag=tag), k)
 
         leaves = tree_leaves(grads)
-        out = [one(*a) for a in zip(leaves, layout.dims, layout.paths, synced)]
+        out = [one(g, k, done) for k, (g, done) in enumerate(zip(leaves, synced))]
         by_id = dict(zip(map(id, leaves), out))
         return tree_map(lambda g: by_id[id(g)], grads)
 
@@ -263,8 +339,11 @@ def make_train_step(
         if ctx.keep is not None:
             ctx = dataclasses.replace(ctx, keep=ctx.keep[:, rows],
                                       example_weight=ctx.example_weight[rows])
-        params = layout.gather(state.params, "param") if layout.sharded else state.params
-        sync = StepSync(mesh.comm, layout.paths) if sharded else None
+        params = layout.gather(state.params, "param") if layout.fsdp_sharded else state.params
+        sync = None
+        if sharded or tp is not None:
+            sync = StepSync(batch_comm, layout.paths, tp, mesh.world_comm,
+                            mesh.comm if tp is not None and tp.expert == "a2a" else batch_comm)
         if accum == 1:
             _loss, metrics, grads = loss_and_grads(params, proj, batch, cfg, ctx, flags, sync)
             grads = reduce_grads(grads, sync)
@@ -272,10 +351,21 @@ def make_train_step(
             _loss, metrics, grads = accumulated_loss_and_grads(
                 params, proj, batch, cfg, ctx, flags, accum, compress,
                 reduce=lambda g: reduce_grads(g, sync), sync=sync)
-        if sync is not None:  # the shares' sums: the global batch's metrics
-            metrics = {k: mesh.comm.all_reduce(v.detach().clone().reshape(1),
-                                               tag="metrics")[0] for k, v in metrics.items()}
+        if sharded:  # the shares' sums: the global batch's metrics
+            metrics = {k: batch_comm.all_reduce(v.detach().clone().reshape(1),
+                                                tag="metrics")[0] for k, v in metrics.items()}
         return metrics, grads
+
+    def counted() -> list:
+        """Per leaf, whether this rank's slice counts in the global norm: on
+        coordinate 0 of every axis that does not cut the leaf."""
+        d0, m0 = mesh.coords
+
+        def one(k):
+            cuts_model = layout.mdims[k] is not None or layout.groups[k] == "world"
+            return (cuts_model or m0 == 0) and (layout.dims[k] is not None or d0 == 0)
+
+        return [one(k) for k in range(len(layout.dims))]
 
     def step(state: TrainState, batch: Dict, ndb: Optional[Dict] = None):
         if ndb is not None and ndb_mode != "dynamic":
@@ -298,9 +388,9 @@ def make_train_step(
             # examples only (an FSDP shard is cut off dim 0, the period dim
             # the rescale runs along)
             grads = rescale_skipped_grads(grads, ctx.keep, cfg, ctx.example_weight)
-        if layout is not None and layout.sharded:  # a whole leaf counts on rank 0 only
-            counted = [d is not None or mesh.rank == 0 for d in layout.dims]
-            grads, gnorm = clip_by_global_norm(grads, train.grad_clip, mesh.comm, counted)
+        if layout is not None and layout.sharded:  # each distinct slice counts once
+            grads, gnorm = clip_by_global_norm(grads, train.grad_clip, mesh.world_comm,
+                                               counted())
         else:
             grads, gnorm = clip_by_global_norm(grads, train.grad_clip)
         lr = schedule(state.step)
@@ -308,5 +398,5 @@ def make_train_step(
         new_state = TrainState(step=state.step + 1, params=params, opt=opt, proj=state.proj)
         return new_state, dict(metrics, grad_norm=gnorm, lr=lr)
 
-    step.layout, step.rows, step.accum = layout, rows, accum
+    step.layout, step.rows, step.accum, step.model_axis = layout, rows, accum, tp
     return step

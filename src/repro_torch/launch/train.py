@@ -74,7 +74,7 @@ from repro_torch.launch.dist import destroy, init_from_env
 from repro_torch.launch.state import TrainState, full_nbytes, init_state, to_local
 from repro_torch.launch.steps import make_train_step, mesh_layout
 from repro_torch.models.model import ExecFlags
-from repro_torch.models.params import tree_leaves, tree_map
+from repro_torch.models.params import tree_leaves
 from repro_torch.statexfer import StateTransferRegistry
 
 _log = logging.getLogger("repro_torch.train")
@@ -289,20 +289,22 @@ class Trainer:
 
     def _refresh(self):
         """The new V1 tree.  Under a mesh rank 0 computes it from the whole
-        params and broadcasts it, so every rank holds the same bits
-        whatever the SVD's determinism."""
+        params (gathered over both axes: the SVD is of each whole weight)
+        and broadcasts it, so every rank holds the same bits whatever the
+        SVD's determinism; each rank keeps the rows of V1 that match its
+        input shard (``w_down``'s ``mlp`` rows, its experts)."""
         if self.mesh is None:
             return refresh_projections(self.state.params, self.cfg, self.mecefo.rank)
         params = self.state.params
         if self.layout.sharded:
-            params = self.layout.gather(params, "refresh")
+            params = self.layout.gather_whole(params, "refresh")
         if self.mesh.rank == 0:
             proj = refresh_projections(params, self.cfg, self.mecefo.rank)
         else:
-            proj = tree_map(torch.empty_like, self.state.proj)
+            proj = self.layout.empty_whole_proj(self.state.proj)
         for v in tree_leaves(proj):  # in leaf order: the ranks' dicts may differ in key order
-            self.mesh.comm.broadcast(v, 0, tag="proj")
-        return proj
+            self.mesh.world_comm.broadcast(v, 0, tag="proj")
+        return self.layout.cut_proj(proj)
 
     # ------------------------------------------------------------------
     def run(self, steps: Optional[int] = None, log_every: int = 10):
@@ -438,7 +440,7 @@ class Trainer:
         all-reduce under a mesh)."""
         bad = torch.tensor([float(bool(self.verify_replay()))], device=self.device)
         if self.mesh is not None:
-            self.mesh.comm.all_reduce(bad, op="max", tag="verdict")
+            self.mesh.world_comm.all_reduce(bad, op="max", tag="verdict")
         return not bool(bad.item())
 
     def verify_replay(self) -> List[str]:

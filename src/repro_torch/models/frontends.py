@@ -18,24 +18,37 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.parallel.collectives import reduce_from_model
 
 
-def _embed(params, tokens: torch.Tensor) -> torch.Tensor:
+def _embed(params, tokens: torch.Tensor, tp=None) -> torch.Tensor:
     # F.embedding, not params["embed"][tokens]: the index backward sums a
     # token's gradients across threads in no fixed order on the CPU, the
     # embedding backward in a fixed one
-    return F.embedding(tokens.long(), params["embed"])
+    if tp is None or not tp.vocab:
+        return F.embedding(tokens.long(), params["embed"])
+    # this rank's V/M rows: ids outside them look up zeros, and the ranks'
+    # lookups sum to the whole table's
+    table = params["embed"]
+    n = table.shape[0]
+    local = tokens.long() - tp.rank * n
+    mine = ((local >= 0) & (local < n))[..., None]
+    e = F.embedding(local.clamp(0, n - 1), table)
+    return reduce_from_model(torch.where(mine, e, torch.zeros_like(e)), tp, "tp:embed")
 
 
-def embed_inputs(params, batch, cfg: ModelConfig):
-    """Returns (h0 (B, S, d), token_weight (B, S) f32) for any frontend."""
+def embed_inputs(params, batch, cfg: ModelConfig, tp=None):
+    """Returns (h0 (B, S, d), token_weight (B, S) f32) for any frontend;
+    under a model axis that cuts the vocabulary (``tp``, a
+    ``parallel/collectives.py:ModelAxis``) the lookup sums the ranks'
+    rows."""
     dt = params["embed"].dtype
     if cfg.frontend == "audio":
         h = batch["embeddings"].to(dt)
         return h, torch.ones(h.shape[:2], dtype=torch.float32, device=h.device)
     if cfg.frontend == "vision":
         patches = batch["patch_embeds"].to(dt)
-        h = torch.cat([patches, _embed(params, batch["tokens"])], dim=1)
+        h = torch.cat([patches, _embed(params, batch["tokens"], tp)], dim=1)
         w = torch.cat([
             torch.zeros(patches.shape[:2], dtype=torch.float32, device=h.device),
             torch.ones(batch["tokens"].shape, dtype=torch.float32, device=h.device),
@@ -43,7 +56,7 @@ def embed_inputs(params, batch, cfg: ModelConfig):
         return h, w
     if cfg.frontend is not None:
         raise ValueError(f"unknown frontend {cfg.frontend!r}")
-    h = _embed(params, batch["tokens"])
+    h = _embed(params, batch["tokens"], tp)
     return h, torch.ones(h.shape[:2], dtype=torch.float32, device=h.device)
 
 

@@ -10,10 +10,29 @@ versions on the CPU or inside ``kernels.plain_versions()``.
 
 The MeCeFO hooks: ``grad_gate`` on the attention branch (technique I),
 ``lowrank_linear`` for the FFN matmuls (technique III) and
-``ffn_recompute`` around the FFN (technique II).  The JAX package's
-sharding constraints have no counterpart: under a data-parallel mesh each
-rank runs these layers on its own rows, and only the cross-entropy's
-token count is summed over the ranks.
+``ffn_recompute`` around the FFN (technique II).  Under a data-parallel
+mesh each rank runs these layers on its own rows, and only the
+cross-entropy's token count is summed over the ranks.
+
+Under a ``model`` axis above 1 (``sync.tp``, a
+``parallel/collectives.py:ModelAxis``) the layers take the places of the
+JAX package's sharding constraints: the attention runs on its H/M query
+heads (``wq`` by columns, ``wo`` by rows), the FFN on its d_ff/M columns
+(``w_gate``/``w_up`` by columns, ``w_down`` by rows), the cross-entropy
+on its V/M vocabulary columns.  A sublayer's input enters through
+``copy_to_model`` (all-reduce backward) and its output leaves through
+``reduce_from_model`` (all-reduce forward); under sequence parallelism
+the activations between sublayers hold S/M positions, a sublayer's input
+is gathered along the sequence (reduce-scatter backward) and its output
+reduce-scattered (all-gather backward), and the norms' scales take
+``copy_to_model``, their gradients being the ranks' partial sums.  A
+sublayer the axis does not cut runs whole on every rank (under sequence
+parallelism gathered in, sliced out).  ``wk``/``wv`` stay whole where the
+axis does not divide the KV heads: each rank computes every KV head and
+attends with its query heads' groups, and their gradients are all-reduced
+over the model group, as are those of ``q_norm``/``k_norm``, whose one
+scale every head shares.  The FFN's output all-reduce sits outside the
+recomputed body (technique II), so the backward does not run it again.
 """
 from __future__ import annotations
 
@@ -34,6 +53,39 @@ from repro_torch.kernels.paged_decode import paged_decode
 from repro_torch.kernels.paged_decode_q8 import paged_decode_q8
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.swiglu import swiglu
+from repro_torch.parallel.collectives import (
+    copy_to_model, gather_along, reduce_from_model, scatter_along, split_along,
+)
+
+
+def model_axis_of(sync):
+    """The step's ``ModelAxis`` (None outside a ``model`` axis above 1)."""
+    return getattr(sync, "tp", None) if sync is not None else None
+
+
+def norm_scale(scale: torch.Tensor, tp) -> torch.Tensor:
+    """A norm's scale: under sequence parallelism each rank norms its own
+    positions, so the scale's gradient is the ranks' partial sums."""
+    return copy_to_model(scale, tp, "sp:norm") if tp is not None and tp.sp else scale
+
+
+def enter_region(x: torch.Tensor, tp, cut: bool, name: str) -> torch.Tensor:
+    """A sublayer's normed input under the model axis: gathered along the
+    sequence under SP (its gradient reduce-scattered where the sublayer is
+    cut, sliced where it runs whole), else ``copy_to_model`` where cut."""
+    if tp.sp:
+        return gather_along(x, tp, 1, "sp:gather", reduce_grad=cut)
+    return copy_to_model(x, tp, f"tp:{name}_in") if cut else x
+
+
+def leave_region(y: torch.Tensor, tp, cut: bool, name: str) -> torch.Tensor:
+    """A sublayer's output under the model axis: the ranks' partial sums
+    reduced (scattered along the sequence under SP) where cut; a whole
+    sublayer's output sliced to this rank's positions under SP."""
+    if cut:
+        return scatter_along(y, tp, 1, "sp:scatter") if tp.sp else \
+            reduce_from_model(y, tp, f"tp:{name}_out")
+    return split_along(y, tp, 1, "sp:split") if tp.sp else y
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
@@ -98,6 +150,7 @@ def attention_block(
     history: bool = False,
     page_tables: Optional[torch.Tensor] = None,
     page_size: Optional[int] = None,
+    sync=None,
 ):
     """Pre-norm GQA sublayer with residual; returns (y, cache).
 
@@ -129,9 +182,11 @@ def attention_block(
     examples propagate gradients through the residual only.  A constant 0
     (the all-degraded program) is the JAX package's ``stop_gradient``: the
     branch runs under ``torch.no_grad()``, so autograd saves nothing of it
-    and there is no MHA backward at all.
+    and there is no MHA backward at all.  A training step's ``sync`` carries
+    the model axis (the module docstring).
     """
-    args = (p, x, cfg, positions, cache, cur_len, history, page_tables, page_size)
+    args = (p, x, cfg, positions, cache, cur_len, history, page_tables, page_size,
+            model_axis_of(sync))
     if not torch.is_tensor(keep) and keep == 0.0:
         with torch.no_grad():
             y = _attention(*args)
@@ -142,16 +197,31 @@ def attention_block(
     return cast_grad(x + y), cache
 
 
-def _attention(p, x, cfg, positions, cache, cur_len, history, page_tables, page_size):
-    xn = rmsnorm(x, p["ln"], cfg.norm_eps)
-    B, S, _ = x.shape
+def _attention(p, x, cfg, positions, cache, cur_len, history, page_tables, page_size, tp):
+    """The sublayer's branch.  Under the model axis (training only) it runs
+    this rank's query heads, or every head where the axis does not divide
+    them."""
+    cut = tp is not None and tp.heads
+    xn = rmsnorm(x, norm_scale(p["ln"], tp), cfg.norm_eps)
+    if tp is not None:
+        xn = enter_region(xn, tp, cut, "attn")
+    B, S, _ = xn.shape
     hd = cfg.resolved_head_dim
-    q = (xn @ p["wq"]).reshape(B, S, cfg.n_heads, hd)
-    k = (xn @ p["wk"]).reshape(B, S, cfg.n_kv_heads, hd)
-    v = (xn @ p["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
-    if cfg.qk_norm:
-        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
-        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    wk, wv = p["wk"], p["wv"]
+    whole_kv = cut and not tp.kv
+    if whole_kv:  # every KV head here, read by the local query heads only
+        wk, wv = copy_to_model(wk, tp, "tp:kv"), copy_to_model(wv, tp, "tp:kv")
+    q = (xn @ p["wq"]).reshape(B, S, -1, hd)
+    k = (xn @ wk).reshape(B, S, -1, hd)
+    v = (xn @ wv).reshape(B, S, -1, hd)
+    if whole_kv:
+        k, v = local_kv(k, v, cfg.n_heads, tp)
+    if cfg.qk_norm:  # scales shared by every head: each rank's heads give part of their gradient
+        qs, ks = p["q_norm"], p["k_norm"]
+        if cut:
+            qs, ks = copy_to_model(qs, tp, "tp:qk_norm"), copy_to_model(ks, tp, "tp:qk_norm")
+        q = rmsnorm(q, qs, cfg.norm_eps)
+        k = rmsnorm(k, ks, cfg.norm_eps)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
 
@@ -192,7 +262,26 @@ def _attention(p, x, cfg, positions, cache, cur_len, history, page_tables, page_
     else:
         o = flash_attention(q, k, v)
 
-    return o.reshape(B, S, cfg.n_heads * hd) @ p["wo"]
+    y = o.reshape(B, S, -1) @ p["wo"]
+    return leave_region(y, tp, cut, "attn") if tp is not None else y
+
+
+def local_kv(k: torch.Tensor, v: torch.Tensor, n_heads: int, tp):
+    """The KV heads this rank's H/M query heads read, from every KV head
+    (B, S, KV, hd), with the local group size: a contiguous run of KV heads
+    where the local heads hold whole groups, the one KV head of a group the
+    local heads share, else one KV head per query head."""
+    KV = k.shape[2]
+    g, hl = n_heads // KV, n_heads // tp.size
+    h0 = tp.rank * hl
+    if hl % g == 0:
+        sl = slice(h0 // g, h0 // g + hl // g)
+        return k[:, :, sl].contiguous(), v[:, :, sl].contiguous()
+    if g % hl == 0:
+        sl = slice(h0 // g, h0 // g + 1)
+        return k[:, :, sl].contiguous(), v[:, :, sl].contiguous()
+    idx = torch.arange(h0, h0 + hl, device=k.device) // g
+    return k.index_select(2, idx), v.index_select(2, idx)
 
 
 def ffn_block(
@@ -210,21 +299,30 @@ def ffn_block(
     (``w_up``, ``nonlin``, ``w_down``) for ``gelu`` and ``relu2``.
     ``proj`` holds the V1 of its matmuls (technique III,
     ``lowrank_mode``, with a mesh step's ``sync``); ``recompute`` keeps
-    only the FFN input for the backward (technique II)."""
+    only the FFN input for the backward (technique II).  Under the model
+    axis the FFN runs on this rank's d_ff/M columns (the module
+    docstring)."""
+    tp = model_axis_of(sync)
+    cut = tp is not None and tp.mlp
 
     def body(p, x, proj, keep):
-        xn = rmsnorm(x, p["ln"], cfg.norm_eps)
+        xn = rmsnorm(x, norm_scale(p["ln"], tp), cfg.norm_eps)
+        if tp is not None:
+            xn = enter_region(xn, tp, cut, "ffn")
         u = _lin(xn, p["w_up"], _p(proj, "w_up"), keep, lowrank_mode, sync)
         if cfg.ffn_act == "swiglu":
             g = _lin(xn, p["w_gate"], _p(proj, "w_gate"), keep, lowrank_mode, sync)
             h = swiglu(g, u)
         else:
             h = nonlin(u, cfg.ffn_act)
-        return _lin(h, p["w_down"], _p(proj, "w_down"), keep, lowrank_mode, sync)
+        return _lin(h, p["w_down"], _p(proj, "w_down"), keep, lowrank_mode, sync, row=cut)
 
     if recompute:  # technique II: keep only the FFN input
         body = ffn_recompute(body)
-    return cast_grad(x + body(p, x, proj, keep))
+    y = body(p, x, proj, keep)
+    if tp is not None:
+        y = leave_region(y, tp, cut, "ffn")
+    return cast_grad(x + y)
 
 
 def nonlin(u: torch.Tensor, act: str) -> torch.Tensor:
@@ -245,10 +343,10 @@ def _p(proj, name):
     return proj.get(name)
 
 
-def _lin(x, w, v1, keep, mode, sync=None):
+def _lin(x, w, v1, keep, mode, sync=None, row=False):
     if mode == "exact" or v1 is None:
         return x @ w
-    return lowrank_linear(x, w, v1, keep, mode, sync)
+    return lowrank_linear(x, w, v1, keep, mode, sync, row=row)
 
 
 def chunked_cross_entropy(
@@ -269,13 +367,28 @@ def chunked_cross_entropy(
     Logit columns >= vocab_size (padding) are masked out of the softmax.
     With a mesh step's ``sync`` (``parallel/collectives.py:StepSync``) the
     weights' sum is taken over every rank's rows, so the ranks' losses sum
-    to the mean over the global batch.
+    to the mean over the global batch.  Under a model axis that cuts the
+    vocabulary, ``unembed`` holds this rank's V/M columns: each chunk's
+    row max is all-reduced (max), then the sum of exponents and the gold
+    logit (from the rank whose columns hold it) are all-reduced (sum), so
+    every rank holds the loss and its backward gives ``softmax - onehot``
+    on its own columns.  Under sequence parallelism ``h`` holds this rank's
+    positions and is gathered first.
     """
+    tp = model_axis_of(sync)
+    if tp is not None:
+        if tp.sp:
+            h = gather_along(h, tp, 1, "sp:gather", reduce_grad=tp.vocab)
+        elif tp.vocab:
+            h = copy_to_model(h, tp, "tp:ce_in")
+    vocab_cut = tp is not None and tp.vocab
     S = h.shape[1]
     V = unembed.shape[-1]
+    lo = tp.rank * V if vocab_cut else 0
     pad_mask = None
-    if vocab_size is not None and vocab_size < V:
-        pad_mask = torch.where(torch.arange(V, device=h.device) < vocab_size, 0.0, -1e30)
+    if vocab_size is not None and vocab_size < lo + V:
+        cols = lo + torch.arange(V, device=h.device)
+        pad_mask = torch.where(cols < vocab_size, 0.0, -1e30)
     chunk = min(chunk, S)
     while S % chunk:
         chunk //= 2
@@ -284,8 +397,17 @@ def chunked_cross_entropy(
         logits = (hc @ unembed).float()
         if pad_mask is not None:
             logits = logits + pad_mask
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, yc.long()[..., None])[..., 0]
+        if vocab_cut:
+            mx = tp.comm.all_reduce(logits.detach().amax(dim=-1), op="max", tag="tp:vocab")
+            se = reduce_from_model(torch.exp(logits - mx[..., None]).sum(dim=-1), tp, "tp:vocab")
+            lse = mx + torch.log(se)
+            local = yc.long() - lo
+            mine = (local >= 0) & (local < V)
+            gl = torch.gather(logits, -1, local.clamp(0, V - 1)[..., None])[..., 0]
+            gold = reduce_from_model(torch.where(mine, gl, torch.zeros_like(gl)), tp, "tp:vocab")
+        else:
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, yc.long()[..., None])[..., 0]
         return ((lse - gold) * wc).sum(), wc.sum()
 
     tot = torch.zeros((), dtype=torch.float32, device=h.device)

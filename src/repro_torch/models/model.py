@@ -25,10 +25,13 @@ from repro_torch.models.layers import (
     chunked_cross_entropy,
     ffn_block,
     logits_for_position,
+    model_axis_of,
+    norm_scale,
 )
 from repro_torch.models.moe import moe_block
 from repro_torch.models.params import block_layout
 from repro_torch.models.ssm import ssm_block
+from repro_torch.parallel.collectives import split_along
 
 Tree = Any
 
@@ -119,7 +122,7 @@ def run_trunk(
                     mp, h, cfg, positions,
                     keep=keep_l if ctx.mecefo.skip_mha_backward else 1.0,
                     cache=cache, cur_len=cur_len, history=prefill_history,
-                    page_tables=page_tables, page_size=page_size,
+                    page_tables=page_tables, page_size=page_size, sync=ctx.sync,
                 )
             else:  # technique I does not apply; II only in degraded mode
                 h, _ = ssm_block(mp, h, cfg, proj=proj_of(pos, "mixer", i), keep=keep_l,
@@ -165,15 +168,20 @@ def forward_loss(
     flags: ExecFlags,
 ):
     """Training loss and its metrics dict.  ``batch`` holds ``tokens`` and
-    ``labels`` (B, S) tensors on the params' device."""
-    h, token_w = frontends.embed_inputs(params, batch, cfg)
+    ``labels`` (B, S) tensors on the params' device.  Under sequence
+    parallelism (``ctx.sync.tp``) the trunk runs on this rank's S/M
+    positions, cut after the embedding."""
+    tp = model_axis_of(ctx.sync)
+    h, token_w = frontends.embed_inputs(params, batch, cfg, tp)
     labels = frontends.full_labels(batch, cfg)
     positions = torch.arange(h.shape[1], device=h.device)
     if ctx.example_weight is not None:
         token_w = token_w * ctx.example_weight[:, None]
+    if tp is not None and tp.sp:
+        h = split_along(h, tp, 1, "sp:split")
     h, _, aux = run_trunk(params, h, cfg, positions=positions, proj=proj, ctx=ctx,
                           flags=flags)
-    h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    h = rmsnorm(h, norm_scale(params["final_norm"], tp), cfg.norm_eps)
     ce = chunked_cross_entropy(h, _unembed(params), labels, token_w, chunk=flags.ce_chunk,
                                vocab_size=cfg.vocab_size, sync=ctx.sync)
     loss = ce + aux

@@ -28,6 +28,21 @@ steps, with the reference's semantics:
 
 Pad tokens of a prefill bucket route and take capacity as real ones, as in
 the reference.
+
+Expert parallelism (a step's ``sync.tp`` with ``expert`` set) runs each
+model rank's E/M experts.  Where the model ranks hold the same tokens
+(``"gather"``, ``sharding_mode="tp_fsdp"``) every rank routes them all and
+builds the whole buffer, takes its experts' places (``split_along``, whose
+backward all-gathers the buffer's gradient) and gathers the experts'
+outputs back along E (``gather_along``, the reference's ``constrain`` of
+``ybuf``) before the combine, so the combine sums in the one-process order.
+Where they hold different tokens (``"a2a"``, ``sharding_mode="fsdp"``) a
+rank sends each model peer its experts' places of this rank's group, runs
+its experts over the M groups it receives (in model-rank order, as the
+groups of one process) and sends the outputs back: the all-to-all of
+GSPMD's EP dispatch, whose backward is the reverse exchange.  Under
+sequence parallelism the block gathers the normed input along the
+sequence and keeps its rows of the output.
 """
 from __future__ import annotations
 
@@ -40,7 +55,8 @@ from repro_torch.core.lowrank import lowrank_linear_grouped
 from repro_torch.core.recompute import ffn_recompute
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.swiglu import swiglu
-from repro_torch.models.layers import nonlin
+from repro_torch.models.layers import model_axis_of, nonlin, norm_scale
+from repro_torch.parallel.collectives import all_to_all, gather_along, split_along
 
 
 def capacity(cfg: ModelConfig, tokens: int) -> int:
@@ -184,14 +200,18 @@ def moe_block(
     experts' low-rank factors."""
     if cfg.moe is None:
         raise ValueError(f"{cfg.name} has no MoE config")
+    tp = model_axis_of(sync)
+    sp = tp is not None and tp.sp
 
     def body(p, x, proj, keep_tok):
-        xn = rmsnorm(x, p["ln"], cfg.norm_eps)
+        xn = rmsnorm(x, norm_scale(p["ln"], tp), cfg.norm_eps)
+        if sp:
+            xn = gather_along(xn, tp, 1, "sp:gather")
         xbuf, kbuf, gates, slot_dst, logits, eidx = dispatch(
             xn, keep_tok, p["router"], cfg, n_dp_shards)
-        ybuf = experts(p, xbuf, kbuf, cfg, proj, lowrank_mode, sync)
+        ybuf = expert_parallel(p, xbuf, kbuf, cfg, proj, lowrank_mode, sync, tp)
         me, ce = routing_stats(logits, eidx, cfg.moe.n_experts)
-        return combine(ybuf, gates, slot_dst, x.shape), me, ce
+        return combine(ybuf, gates, slot_dst, xn.shape), me, ce
 
     if recompute:  # technique II
         body = ffn_recompute(body)
@@ -200,8 +220,34 @@ def moe_block(
     else:  # a fill on the device: a host scalar copied over would wait for it
         keep_tok = torch.full((x.shape[0],), float(keep), dtype=x.dtype, device=x.device)
     y, me, ce = body(p, x, proj, keep_tok)
+    if sp:
+        y = split_along(y, tp, 1, "sp:split")
     # outside the recomputed body: its backward recompute runs no collective
     return x + y, aux_from_stats(me, ce, cfg, sync)
+
+
+def expert_parallel(p, xbuf: torch.Tensor, kbuf: torch.Tensor, cfg: ModelConfig, proj,
+                    lowrank_mode: str, sync, tp) -> torch.Tensor:
+    """:func:`experts` over the whole (E, C, d) buffer, each model rank
+    running its E/M experts (the module docstring); ``p`` and ``proj``
+    hold this rank's experts."""
+    if tp is None or tp.expert is None:
+        return experts(p, xbuf, kbuf, cfg, proj, lowrank_mode, sync)
+    E, C, d = xbuf.shape
+    M = tp.size
+    if tp.expert == "gather":
+        xl = split_along(xbuf, tp, 0, "ep:split")
+        yl = experts(p, xl, kbuf[tp.piece(E)], cfg, proj, lowrank_mode, sync)
+        return gather_along(yl, tp, 0, "ep:gather")
+    # "a2a": chunk j of dim 0 (expert group j's places of this rank's
+    # group) to model rank j; received: the M groups' places of my experts
+    xr = all_to_all(xbuf.reshape(M, E // M, C, d), tp, "ep:a2a")
+    kr = tp.comm.all_to_all(kbuf.reshape(M, E // M, C), tag="ep:a2a_keep")
+    xl = xr.transpose(0, 1).reshape(E // M, M * C, d)
+    kl = kr.transpose(0, 1).reshape(E // M, M * C)
+    yl = experts(p, xl, kl, cfg, proj, lowrank_mode, sync)
+    back = all_to_all(yl.reshape(E // M, M, C, d).transpose(0, 1).contiguous(), tp, "ep:a2a")
+    return back.reshape(E, C, d)
 
 
 def _pp(proj, name):

@@ -1,34 +1,53 @@
 """The port's collectives: the one module that calls ``torch.distributed``.
 
-A :class:`Comm` binds the data group of a mesh (``launch/mesh.py``): its
-backend, device, rank and size.  It offers what the data axis needs:
-all-reduce (sum, max), the all-gather of a shard along a dim, the
-reduce-scatter (sum) along a dim, and broadcast.  A ``Comm`` without a
-group (the 1×1 mesh of one process) runs each call as the identity.
+A :class:`Comm` binds one group of a mesh (``launch/mesh.py``: the data
+group, the model group or the world): its backend, device, rank and size.
+It offers all-reduce (sum, max), the all-gather of a shard along a dim,
+the reduce-scatter (sum) along a dim, the all-to-all of equal chunks of
+dim 0, and broadcast.  A ``Comm`` without a group (the 1×1 mesh of one
+process) runs each call as the identity.
 
 The route is chosen once, where the group is made, by backend: ``native``
 (NCCL, or gloo on CPU tensors) calls the gather and scatter collectives;
 ``all_reduce`` (gloo on CUDA tensors, which offers only all-reduce and
 broadcast) gathers by all-reducing a zero buffer that holds each rank's
-shard at its place, and reduce-scatters by all-reducing the whole tensor
-and keeping the rank's slice.
+shard at its place, reduce-scatters by all-reducing the whole tensor and
+keeping the rank's slice, and exchanges all-to-all by all-reducing a zero
+``(world, world, chunk)`` buffer that holds this rank's chunks in its row
+and keeping its column.
+
+The ``model`` axis's autograd collectives, Megatron's conjugate pairs
+(:func:`copy_to_model` / :func:`reduce_from_model`, :func:`gather_along` /
+:func:`scatter_along` and :func:`split_along`, :func:`all_to_all`), run on
+a :class:`ModelAxis`: the model group and what the model's layers cut over
+it (``launch/steps.py`` builds it from the sharding rules).  None of them
+uses ``torch.distributed.nn.functional``, whose all-reduce backward
+all-reduces the gradient again.
 
 Every call adds to a counter by kind and tag: its calls and the bytes a
 rank hands it (the tensor all-reduced or broadcast, the shard gathered,
-the whole tensor reduce-scattered), read by the tests and ``chip_smoke.py``
-through :func:`counts`.
+the whole tensor reduce-scattered or exchanged), read by the tests and
+``chip_smoke.py`` through :func:`counts`.  The model axis's tags:
+``tp:attn_in`` / ``tp:attn_out``, ``tp:ffn_in`` / ``tp:ffn_out``,
+``tp:embed``, ``tp:vocab`` (the cross-entropy's max, sum and gold logit),
+``tp:kv`` (whole K/V weights' partial gradients), ``sp:gather`` /
+``sp:scatter`` / ``sp:norm`` under sequence parallelism, ``ep:gather`` /
+``ep:a2a`` for the experts and ``lowrank_row:<leaf>`` for a row-parallel
+low-rank factor.
 
 :class:`StepSync` is what one training step reduces across the data group
 while it runs its forward and backward: the global token count of the
 loss, the MoE layers' routing statistics and, under MeCeFO's
-``lowrank_sync``, the factored low-rank gradients (``core/lowrank.py``).
-The step creates one and passes it down in the NDB context
+``lowrank_sync``, the factored low-rank gradients (``core/lowrank.py``),
+with the step's :class:`ModelAxis` under a ``model`` axis above 1.  The
+step creates one and passes it down in the NDB context
 (``core/ndb.py:NDBContext.sync``).
 """
 from __future__ import annotations
 
 from collections import defaultdict
-from typing import Dict
+from dataclasses import dataclass
+from typing import Dict, Optional
 
 import torch
 
@@ -51,7 +70,7 @@ def _count(kind: str, tag: str, t: torch.Tensor) -> None:
 
 
 class Comm:
-    """The data group's collectives (see the module docstring)."""
+    """One group's collectives (see the module docstring)."""
 
     def __init__(self, group, device: torch.device, rank: int = 0, world: int = 1):
         import torch.distributed as dist
@@ -126,6 +145,27 @@ class Comm:
         dist.reduce_scatter_tensor(out, torch.cat(pieces, dim=0), group=self.group)
         return out
 
+    def all_to_all(self, t: torch.Tensor, tag: str = "") -> torch.Tensor:
+        """Chunk j of ``t``'s dim 0 (``world`` equal chunks) sent to rank j;
+        chunk j of the result is what rank j sent this rank."""
+        _count("all_to_all", tag, t)
+        if t.shape[0] % self.world:
+            raise ValueError(f"dim 0 of {tuple(t.shape)} does not split {self.world} ways")
+        t = t.contiguous()
+        if self.group is None:
+            return t.clone()
+        import torch.distributed as dist
+
+        if self.route == "all_reduce":
+            buf = t.new_zeros((self.world, *t.shape))
+            buf[self.rank].copy_(t)
+            dist.all_reduce(buf, group=self.group)
+            w = self.world
+            return buf.reshape(w, w, -1)[:, self.rank].reshape(t.shape).contiguous()
+        out = torch.empty_like(t)
+        dist.all_to_all_single(out, t, group=self.group)
+        return out
+
     def barrier(self) -> None:
         if self.group is not None:
             import torch.distributed as dist
@@ -133,27 +173,179 @@ class Comm:
             dist.barrier(group=self.group)
 
 
+@dataclass(frozen=True, eq=False)
+class ModelAxis:
+    """The ``model`` group of a step and what its layers cut over it:
+    ``heads`` (``wq`` by columns, ``wo`` by rows, H/M query heads a rank),
+    ``kv`` (``wk``/``wv`` by columns; whole on every rank otherwise),
+    ``mlp`` (``w_gate``/``w_up`` by columns, ``w_down`` by rows),
+    ``vocab`` (the embedding's rows, the unembedding's columns), ``expert``
+    (``"gather"``: the model ranks hold the same tokens and each runs its
+    E/M experts; ``"a2a"``: they hold different tokens, exchanged
+    all-to-all) and ``sp`` (the activations between sublayers cut along
+    the sequence)."""
+
+    comm: Comm
+    sp: bool = False
+    heads: bool = False
+    kv: bool = False
+    mlp: bool = False
+    vocab: bool = False
+    expert: Optional[str] = None
+
+    @property
+    def size(self) -> int:
+        return self.comm.world
+
+    @property
+    def rank(self) -> int:
+        return self.comm.rank
+
+    def piece(self, n: int) -> slice:
+        """This rank's contiguous share of ``n`` items."""
+        k = n // self.size
+        return slice(self.rank * k, (self.rank + 1) * k)
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, tag):
+        ctx.comm, ctx.tag = comm, tag
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.all_reduce(g.contiguous().clone(), tag=ctx.tag), None, None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, tag):
+        return comm.all_reduce(x.contiguous().clone(), tag=tag)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, dim, reduce_grad, tag):
+        ctx.comm, ctx.dim, ctx.reduce_grad, ctx.tag = comm, dim, reduce_grad, tag
+        return comm.all_gather(x, dim, tag=tag)
+
+    @staticmethod
+    def backward(ctx, g):
+        c = ctx.comm
+        if ctx.reduce_grad:
+            return c.reduce_scatter(g.contiguous(), ctx.dim, tag=ctx.tag), None, None, None, None
+        return g.chunk(c.world, dim=ctx.dim)[c.rank].contiguous(), None, None, None, None
+
+
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, dim, tag):
+        ctx.comm, ctx.dim, ctx.tag = comm, dim, tag
+        return comm.reduce_scatter(x.contiguous(), dim, tag=tag)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.all_gather(g, ctx.dim, tag=ctx.tag), None, None, None
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, dim, tag):
+        ctx.comm, ctx.dim, ctx.tag = comm, dim, tag
+        return x.chunk(comm.world, dim=dim)[comm.rank].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.all_gather(g, ctx.dim, tag=ctx.tag), None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, tag):
+        ctx.comm, ctx.tag = comm, tag
+        return comm.all_to_all(x, tag=tag)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.all_to_all(g, tag=ctx.tag), None, None
+
+
+def copy_to_model(x: torch.Tensor, axis: ModelAxis, tag: str) -> torch.Tensor:
+    """Identity forward, all-reduce over the model group backward: the
+    input of a region whose ranks each give part of its gradient."""
+    return _Copy.apply(x, axis.comm, tag)
+
+
+def reduce_from_model(x: torch.Tensor, axis: ModelAxis, tag: str) -> torch.Tensor:
+    """All-reduce forward, identity backward: the ranks' partial sums of a
+    region's output."""
+    return _Reduce.apply(x, axis.comm, tag)
+
+
+def gather_along(x: torch.Tensor, axis: ModelAxis, dim: int, tag: str,
+                 reduce_grad: bool = False) -> torch.Tensor:
+    """The ranks' pieces concatenated along ``dim``.  Backward: this rank's
+    slice of the gradient, or with ``reduce_grad`` (the ranks' gradients
+    are partial sums, as before column-parallel products) the
+    reduce-scatter of it."""
+    return _Gather.apply(x, axis.comm, dim, reduce_grad, tag)
+
+
+def scatter_along(x: torch.Tensor, axis: ModelAxis, dim: int, tag: str) -> torch.Tensor:
+    """Reduce-scatter along ``dim`` forward, all-gather backward (sequence
+    parallelism's exit from a row-parallel product)."""
+    return _Scatter.apply(x, axis.comm, dim, tag)
+
+
+def split_along(x: torch.Tensor, axis: ModelAxis, dim: int, tag: str) -> torch.Tensor:
+    """This rank's slice along ``dim`` of a tensor every rank holds whole;
+    all-gather backward."""
+    return _Split.apply(x, axis.comm, dim, tag)
+
+
+def all_to_all(x: torch.Tensor, axis: ModelAxis, tag: str) -> torch.Tensor:
+    """Chunk j of dim 0 to model rank j; backward the reverse exchange."""
+    return _AllToAll.apply(x, axis.comm, tag)
+
+
 class StepSync:
     """One training step's reductions inside its forward and backward (see
-    the module docstring).  ``paths`` maps ``id`` of a live parameter leaf to
-    its path (``launch/steps.py:loss_and_grads`` fills it from
-    ``leaf_paths``); :meth:`mark` records a leaf (by :func:`leaf_id`) whose gradient
-    its backward has already reduced, so the step does not reduce it again."""
+    the module docstring).  ``comm`` is the group the batch is cut over (the
+    data group, or the world under ``sharding_mode="fsdp"``), None where
+    every rank computes the whole batch; ``tp`` the step's
+    :class:`ModelAxis` (None at a model axis of 1); ``world_comm`` the
+    world's group and ``expert_comm`` the group whose ranks' expert
+    gradients are shares of one sum (the batch group, or the data group
+    where the experts' all-to-all already summed over the model group).
+    ``paths`` maps ``id`` of a live parameter leaf to its path
+    (``launch/steps.py:loss_and_grads`` fills it from ``leaf_paths``);
+    :meth:`mark` records a leaf (by :func:`leaf_id`) whose gradient its
+    backward has already reduced, so the step does not reduce it again."""
 
-    def __init__(self, comm: Comm, leaf_paths=()):
-        self.comm = comm
+    def __init__(self, comm: Optional[Comm], leaf_paths=(), tp: Optional[ModelAxis] = None,
+                 world_comm: Optional[Comm] = None, expert_comm: Optional[Comm] = None):
+        self.comm, self.tp = comm, tp
+        self.world_comm = world_comm
+        self.expert_comm = expert_comm if expert_comm is not None else comm
         self.leaf_paths = tuple(leaf_paths)  # the params' leaf paths, in leaf order
         self.paths: Dict[int, str] = {}
         self.reduced: Dict[int, str] = {}
 
     @property
     def world(self) -> int:
-        return self.comm.world
+        """The number of batch shards."""
+        return self.comm.world if self.comm is not None else 1
 
     def sum(self, t: torch.Tensor, tag: str) -> torch.Tensor:
-        """The sum over ranks of a tensor autograd does not track, as a new
-        tensor."""
-        return self.comm.all_reduce(t.detach().clone(), tag=tag)
+        """The sum over the batch shards of a tensor autograd does not
+        track, as a new tensor."""
+        t = t.detach().clone()
+        return self.comm.all_reduce(t, tag=tag) if self.comm is not None else t
 
     def mark(self, leaf: int) -> None:
         self.reduced[leaf] = self.paths.get(leaf, "?")
@@ -165,4 +357,6 @@ def leaf_id(w: torch.Tensor) -> int:
     return id(w._base if w._base is not None else w)
 
 
-__all__ = ["Comm", "StepSync", "counts", "leaf_id", "reset_counts"]
+__all__ = ["Comm", "ModelAxis", "StepSync", "all_to_all", "copy_to_model", "counts",
+           "gather_along", "leaf_id", "reduce_from_model", "reset_counts", "scatter_along",
+           "split_along"]

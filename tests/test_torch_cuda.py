@@ -772,3 +772,72 @@ def test_one_nccl_rank_step_equals_the_one_process_step(cuda, tmp_path):
             assert ("all_gather" in counts) == fsdp == ("reduce_scatter" in counts)
     finally:
         destroy()
+
+
+def test_two_gloo_ranks_tensor_parallel_step_matches_one_process(cuda, tmp_path):
+    """Two gloo ranks sharing the card on mesh (1, 2) (CUDA tensors, the
+    ``all_reduce`` route): two steps of ``make_train_step(..., mesh=...)``
+    with the attention, FFN and vocabulary cut over ``model`` in degraded
+    mode with ``lowrank_sync``, every leaf gathered whole within 1e-4 of the
+    one-process step's, the kernels launched at their TP-local shapes."""
+    from repro_torch.launch.dist import spawn
+
+    spawn(_tp_card_rank, 2, str(tmp_path), backend="gloo", device="cuda", model=2, timeout=600)
+    got = [torch.load(tmp_path / f"tp.{r}.pt", weights_only=False) for r in range(2)]
+    assert got[0]["losses"] == got[1]["losses"]
+    assert got[0]["route"] == "all_reduce"
+    assert max(got[0]["rel"]) <= 1e-4, max(got[0]["rel"])
+    assert all(got[0]["launches"].values()), got[0]["launches"]
+
+
+def _tp_card_rank(mesh, out):
+    from repro_torch.configs.base import (
+        MeCeFOConfig, ParallelConfig, ShapeConfig, TrainConfig, get_config, reduced,
+    )
+    from repro_torch.core.lowrank import refresh_projections
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.state import gather_state, init_state, to_local
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.params import tree_leaves, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = mesh.device
+    cfg = reduced(get_config("llama-350m"), dtype="float32")
+    mecefo = MeCeFOConfig(mode="dynamic", rank=8, lowrank_sync=True)
+    shape = ShapeConfig("t", 64, 4, "train")
+    base = init_state(cfg, TrainConfig(), mecefo, torch.Generator().manual_seed(0), device=dev)
+    base = base._replace(proj=refresh_projections(base.params, cfg, 8))
+    batches = [SyntheticLM(cfg.vocab_size).batch(i, 4, 64) for i in range(2)]
+
+    def fresh():
+        params = tree_map(lambda t: t.clone(), base.params)
+        return base._replace(params=params, opt=type(base.opt)(*(
+            tree_map(torch.zeros_like, params) for _ in base.opt)))
+
+    def run(step, state):
+        losses = []
+        for b in batches:
+            state, m = step(state, b)
+            losses.append(float(m["loss"]))
+        return state, losses
+
+    ref, _ = run(make_train_step(cfg, TrainConfig(), mecefo, shape, ndb_mode="degraded",
+                                 device=dev), fresh())
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.lowrank_wgrad import lowrank_wgrad_project
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.swiglu import swiglu
+
+    wrappers = {"flash_attention": flash_attention, "swiglu": swiglu, "rmsnorm": rmsnorm,
+                "lowrank_wgrad": lowrank_wgrad_project}
+    for w in wrappers.values():
+        w.launches = 0
+    step = make_train_step(cfg, TrainConfig(), mecefo, shape, ndb_mode="degraded", mesh=mesh,
+                           parallel=ParallelConfig(fsdp=False))
+    got, losses = run(step, to_local(fresh(), step.layout))
+    whole = gather_state(got, step.layout)
+    rel = [float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+           for a, b in zip(tree_leaves(whole.params), tree_leaves(ref.params))]
+    torch.save({"losses": losses, "rel": rel, "route": mesh.model_comm.route,
+                "launches": {n: w.launches for n, w in wrappers.items()}},
+               f"{out}/tp.{mesh.rank}.pt")

@@ -397,18 +397,31 @@ def _failing_rank(mesh):
 
 
 def test_mesh_refuses_what_it_does_not_run():
+    """The attention-mixer families take a model axis, SP and the 2-D
+    ``fsdp`` mode; the SSM mixer's ``ssm_inner`` cut and other data axes
+    stay refused as later slices."""
+    import dataclasses
+
     from repro_torch.launch.mesh import make_host_mesh
 
     mesh = make_host_mesh()
     assert mesh.shape == {"data": 1, "model": 1} and mesh.device.type == "cpu"
+    # as the JAX package's, a mesh larger than the group shrinks to (group, 1)
+    assert make_host_mesh(1, 2).shape == {"data": 1, "model": 1}
     cfg = _cfg(tbase, "dense")
+    two = {"data": 1, "model": 2}
     for par in (tbase.ParallelConfig(sharding_mode="fsdp"),
-                tbase.ParallelConfig(sequence_parallel=True)):
+                tbase.ParallelConfig(sequence_parallel=True), tbase.ParallelConfig()):
+        par.check(two, cfg)
+        par.check(two, _cfg(tbase, "moe"))
+        make_train_step(cfg, tbase.TrainConfig(), tbase.MeCeFOConfig(),
+                        tbase.ShapeConfig("t", S, 8, "train"), mesh=mesh, parallel=par)
+    for family in ("ssm", "hybrid"):
         with pytest.raises(NotImplementedError, match="later slice"):
-            make_train_step(cfg, tbase.TrainConfig(), tbase.MeCeFOConfig(),
-                            tbase.ShapeConfig("t", S, 8, "train"), mesh=mesh, parallel=par)
+            tbase.ParallelConfig().check(two, dataclasses.replace(cfg, family=family))
+        tbase.ParallelConfig().check({"data": 2, "model": 1}, dataclasses.replace(cfg, family=family))
     with pytest.raises(NotImplementedError, match="later slice"):
-        make_host_mesh(1, 2)
+        tbase.ParallelConfig(dp_axes=("pod", "data")).check(two, cfg)
 
 
 def test_collective_routes_agree():
