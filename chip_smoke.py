@@ -19,7 +19,8 @@ each printing JSON lines:
              decode shapes beside the floor, after a clean L2 flush at the
              prefill's (2048, 1024), and batch invariant (rows alone equal
              to the same rows among 2048 or 32768); SwiGLU at the decode
-             round's (8, 3072), cold and warm; the
+             round's (8, 3072), cold and warm, and over the MoE expert
+             buffers (1024, 768) and (5120, 768), cold and warm; the
              paged decode also bitwise-invariant to the physical page
              layout, with exact zeros on length-0 lanes; the dense flash
              decode (kernel #5) with exact zeros on length-0 lanes, right
@@ -245,8 +246,9 @@ Then accumulation — phase 7's cell with ``accum`` 1, 2 and 4 and with
              ``lowrank_sync``, replicated and FSDP, params, moments and
              metrics bitwise equal to the one-process step, every
              collective reached; (b) two gloo ranks sharing the card with
-             CUDA tensors (the host-staged ``all_reduce`` route) on a
-             4-layer f32 llama-350m at full width, B 8 (4 a rank), each
+             CUDA tensors (the host-staged ``all_reduce`` route) on
+             MESH_CELL_LAYERS f32 layers of llama-350m at full width under
+             MESH_PLAN, B 8 (4 a rank), each
              leaf within 1e-4 of the one-process global-batch step, the
              replicas bitwise equal, ``degraded_sync``'s factored bytes
              exactly r/n of ``degraded``'s gradient bytes per low-rank
@@ -259,7 +261,8 @@ Then accumulation — phase 7's cell with ``accum`` 1, 2 and 4 and with
              first (#2, #3, #4, #6 at the TP-local shapes, each against its
              plain version, #2 and #6 in turns against SDPA / multi_dot);
              (a) mesh (1, 2) on MA_LAYERS f32 layers of llama-350m at full
-             width, B 8, S 1024, MA_STEPS steps a run: TP in every NDB mode
+             width under MESH_PLAN, B 8, S 1024, MA_STEPS steps a run: TP
+             in every NDB mode
              and ``degraded_sync``, TP + SP in dynamic and degraded, the 2-D
              ``sharding_mode="fsdp"`` in dynamic; (b) mesh (2, 2), TP +
              FSDP in dynamic and ``degraded_sync``, MA4_STEPS steps; (c)
@@ -279,13 +282,40 @@ Then accumulation — phase 7's cell with ``accum`` 1, 2 and 4 and with
              |logit|, the count reported); (d) the Trainer on mesh
              (1, 2) replays ``golden_trace.jsonl`` at the CLI's reduced
              config, ``REPLAY OK`` agreed by both ranks.
+20. mesh serve — ``launch/steps.py``'s ``make_prefill_step`` and
+             ``make_decode_step`` over a (data, model) mesh, MS_B prompts
+             of MS_PROMPT tokens into caches of MS_PROMPT + MS_NEW, then MS_NEW
+             decode steps: kernel rows first (#2 and #5 at the ranks' head
+             shapes MS_HEADS, each against its plain version with its cold
+             time, bound and SDPA call); (a) one NCCL rank at (1, 1) on
+             full-width, full-depth qwen3-0.6b in bf16, greedy: ids, logits
+             and every cache leaf bitwise those of ``forward_prefill`` /
+             ``forward_decode`` called directly, every serve kernel
+             launched; (b) gloo ranks sharing the card at (1, 2) and (2, 2)
+             on the same model in f32, and at (1, 2) qwen3-moe-30b-a3b at
+             full width on MS_MOE_LAYERS f32 layer (EP ``"gather"``): each
+             rank builds its slices leaf by leaf from the seed and runs
+             teacher-forced with the one-process run's ids; its logits and
+             cache heads within MS_F32_TOL of that run's rows, vocabulary
+             columns and KV heads, its own greedy ids equal but at near-ties
+             (the reference's top-2 gap within MS_TIE_GAP, printed), its
+             held param bytes exactly the count from the shapes, TP's
+             all-reduce bytes of the prefill and of a decode step equal to
+             the count from the shapes, and for MoE every routing decision
+             the reference's own (near-ties within MA_TIE_GAP aside); (c)
+             gloo ranks at (1, 4) on full-width, full-depth glm4-9b in
+             bf16 (2 KV heads: each rank's 8 query heads share one, held
+             whole), each rank's slices built leaf by leaf, its logits
+             against the one-process bf16 run within 2^-3 of max |logit|
+             and, on the mean, 2^-5 of mean |logit|.
 
-Each of phases 12-19 frees the card first and fails with a clear message
+Each of phases 12-20 frees the card first and fails with a clear message
 when too little memory is free.  Then the kernels' summary line (each
 kernel's ``launches`` from the main paths of phases 3, 4, 7 and 11; the
-launches of phases 12-19 and the accumulation phase beside them in
-``launches_by_later_path``, phases 18's and 19's per rank), the card's name and
-power limit, and the final ``{"ok": true, ...}`` line.  Any failed check
+launches of phases 12-20 and the accumulation phase beside them in
+``launches_by_later_path``, phases 18's, 19's and 20's per rank; phase
+20's NCCL run as ``"mesh serve"``), the card's name and power limit, and
+the final ``{"ok": true, ...}`` line.  Any failed check
 raises.
 """
 from __future__ import annotations
@@ -1000,7 +1030,8 @@ def warm_row(name, shape, row, floor, warm, call_k, call_lib=None, pdl=False) ->
           "floor_cold_ms": floor[key + "cold_ms"], "floor_warm_ms": floor[key + "warm_ms"],
           "cold_over_floor": row["ms"] / floor[key + "cold_ms"],
           "warm_over_floor": k_warm / floor[key + "warm_ms"],
-          "warm_over_plain_floor": k_warm / floor["warm_ms"]})
+          "warm_over_plain_floor": k_warm / floor["warm_ms"],
+          "bound_share_warm": row["bound_ms"] / k_warm})
 
 
 def clean_flush_row(dev, floor, randn) -> None:
@@ -1126,6 +1157,13 @@ def kernel_phase(dev, timer) -> dict:
                         lambda: swiglu(g, u), lambda: swiglu_plain(g, u), 3 * g.numel() * es,
                         5.0 * g.numel())
             warm_row("swiglu", [B_DEC, DFF], r, floor, warm, lambda: swiglu(g, u))
+            # the MoE expert buffers of a decode round and of a 512-token prefill
+            for rows_ in NEW_SWIGLU_ROWS:
+                g, u = randn(rows_, 768, dtype=dtype), randn(rows_, 768, dtype=dtype)
+                r = compare("swiglu", dtype, [rows_, 768], swiglu(g, u), swiglu_plain(g, u),
+                            timer, lambda: swiglu(g, u), lambda: swiglu_plain(g, u),
+                            3 * g.numel() * es, 5.0 * g.numel())
+                warm_row("swiglu", [rows_, 768], r, floor, warm, lambda: swiglu(g, u))
         # swiglu over the FFN hidden
         g, u = randn(B_PRE * S_PRE, DFF, dtype=dtype), randn(B_PRE * S_PRE, DFF, dtype=dtype)
         rows[("swiglu", dtype)] = compare(
@@ -3403,14 +3441,21 @@ def accum_phase(dev) -> dict:
 
 # phase 18, multi-rank: (a) one NCCL rank at full width and depth on phase
 # 7's cell, MR_STEPS steps a run, bitwise against the one-process step; (b)
-# two gloo ranks sharing the card with CUDA tensors, 4-layer f32 llama-350m
-# at full width, MR_GLOO_STEPS steps a run, each leaf within
+# two gloo ranks sharing the card with CUDA tensors, MESH_CELL_LAYERS f32
+# layers of llama-350m at full width, MR_GLOO_STEPS steps a run, each leaf within
 # TRAIN_PARITY_TOL["float32"] of the one-process global-batch step; (c) the
 # Trainer on those two ranks replaying golden_trace.jsonl at the CLI's
 # reduced config
 MR_MODES = (("off", False), ("dynamic", False), ("static", False), ("degraded", False),
             ("degraded", True))
-MR_STEPS, MR_GLOO_STEPS, MR_GLOO_LAYERS = 2, 3, 4
+# the gloo cells of phases 18 and 19 (llama-350m at full width in f32) run 2
+# of its 24 layers since phase 20 came, for the script's time limit (their
+# gates do not depend on depth); their plan fails the stage that lands on
+# the second layer, so one layer keeps every example and one skips a
+# quarter, as the train plan does on 4 layers
+MESH_CELL_LAYERS = 2
+MESH_PLAN = NDBPlan(n_dp=4, n_stages=8, failed=frozenset({(1, 2)}))
+MR_STEPS, MR_GLOO_STEPS, MR_GLOO_LAYERS = 2, 3, MESH_CELL_LAYERS
 MR_TRACE = "golden_trace.jsonl"
 MR_TIMEOUT_S = 600
 
@@ -3528,7 +3573,7 @@ def mr_gloo_rank(mesh, tmp: str, cfg, seq_len: int, trainer_cfg) -> None:
     init = tree_map(lambda t: t.to(dev), init)
     train = TrainConfig()
     shape = ShapeConfig("multi-rank", seq_len, TRAIN_B, "train")
-    keep, w = plan_to_masks(TRAIN_PLAN, cfg, TRAIN_B)
+    keep, w = plan_to_masks(MESH_PLAN, cfg, TRAIN_B)
     src = SyntheticLM(cfg.vocab_size)
     batches = [src.batch(i, TRAIN_B, seq_len) for i in range(MR_GLOO_STEPS)]
     tol = TRAIN_PARITY_TOL["float32"][0]
@@ -3703,7 +3748,7 @@ def multirank_phase(dev) -> dict:
 # Phase 19: the model axis.  Ranks share the card over gloo with CUDA
 # tensors (one card takes one NCCL rank): host-staged, so no time here is a
 # measure of NCCL or of tensor parallelism's speed.
-MA_LAYERS, MA_STEPS, MA4_STEPS = 4, 3, 2
+MA_LAYERS, MA_STEPS, MA4_STEPS = MESH_CELL_LAYERS, 3, 2
 MA_RUNS = (("tp", "off"), ("tp", "dynamic"), ("tp+sp", "dynamic"), ("fsdp", "dynamic"),
            ("tp", "static"), ("tp", "degraded"), ("tp+sp", "degraded"), ("tp", "degraded_sync"))
 MA4_RUNS = (("tp", "dynamic"), ("tp", "degraded_sync"))
@@ -4113,10 +4158,10 @@ def model_axis_phase(dev, timer) -> dict:
         torch.cuda.empty_cache()
         specs = [
             dict(tag="a", row="a: tp (1, 2)", mesh=(1, 2), cfg=dense, batch=TRAIN_B, seq=TRAIN_S,
-                 steps=MA_STEPS, runs=MA_RUNS, plan=TRAIN_PLAN, init=init,
+                 steps=MA_STEPS, runs=MA_RUNS, plan=MESH_PLAN, init=init,
                  trainer_cfg=reduced(full, dtype="float32")),
             dict(tag="b", row="b: tp + fsdp (2, 2)", mesh=(2, 2), cfg=dense, batch=TRAIN_B,
-                 seq=TRAIN_S, steps=MA4_STEPS, runs=MA4_RUNS, plan=TRAIN_PLAN, init=init),
+                 seq=TRAIN_S, steps=MA4_STEPS, runs=MA4_RUNS, plan=MESH_PLAN, init=init),
             dict(tag="c", row="c: ep (1, 2)", mesh=(1, 2), cfg=moe, batch=MA_MOE_B, seq=TRAIN_S,
                  steps=MA_MOE_STEPS, runs=MA_MOE_RUNS, plan=MA_MOE_PLAN, init=None,
                  stagger=True),
@@ -4143,6 +4188,398 @@ def model_axis_phase(dev, timer) -> dict:
     emit({"phase": "model-axis", "run": "phase", "seconds": time.perf_counter() - t0})
     if fails:
         raise AssertionError(f"model-axis: {fails}")
+    return out
+
+
+# Phase 20: the prefill and decode steps under a (data, model) mesh.  Gloo
+# ranks share the card with CUDA tensors (host-staged), so no time here is a
+# measure of NCCL or of tensor parallelism's speed.
+MS_CONFIG, MS_BIG = "qwen3-0.6b", "glm4-9b"
+MS_B, MS_PROMPT, MS_NEW = 4, 256, 16
+MS_F32_TOL = 1e-4  # logits and cache rows, max |Δ| against the one-process f32 run
+# a greedy id of the mesh may differ from the reference's only where the
+# reference's top-2 logits lie within this of each other (a near-tie)
+MS_TIE_GAP = 1e-4
+MS_BF16_MAX, MS_BF16_MEAN = 2.0 ** -3, 2.0 ** -5  # of max |logit| / mean |logit|
+MS_MOE_LAYERS = 1
+MS_TIMEOUT_S = 600
+MS_SEED = 1
+# (H, KV) of a rank's attention: qwen3-0.6b at M = 2; glm4-9b's (one shared
+# KV head) and qwen3-moe-30b-a3b's at M = 4; head_dim 128
+MS_HEADS = ((8, 4), (8, 1))
+
+
+def ms_prompts(cfg, prompt: int) -> np.ndarray:
+    return np.random.default_rng(20).integers(0, cfg.vocab_size, (MS_B, prompt), dtype=np.int32)
+
+
+def ms_steps(cfg, mesh, parallel, prompt: int, new: int):
+    """The prefill and decode steps of the phase's cell on ``mesh``: MS_B
+    prompts of ``prompt`` tokens into caches of ``prompt + new``."""
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+
+    pstep, _ = make_prefill_step(cfg, parallel, mesh, ShapeConfig("ms", prompt, MS_B, "prefill"),
+                                 max_len=prompt + new)
+    dstep, _ = make_decode_step(cfg, parallel, mesh, ShapeConfig("ms", prompt + new, MS_B,
+                                                                 "decode"))
+    return pstep, dstep
+
+
+def ms_run(pstep, dstep, params, cfg, toks, new: int, forced=None, counts=None) -> dict:
+    """A prefill of ``toks`` then ``new`` decode steps, fed the given ids
+    (``forced``: the reference's, teacher-forced) or their own greedy ids.
+    Returns per step the logits and own greedy ids, the caches, and with
+    ``counts`` the collectives' counts of the prefill and of decode step 0."""
+    from repro_torch.parallel import collectives
+
+    tp = pstep.model_axis
+    collectives.reset_counts()
+    caches, logits = pstep(params, {"tokens": toks})
+    out = {"logits": [logits], "own": [greedy_token(logits, cfg, tp)]}
+    if counts is not None:
+        counts["prefill"] = collectives.counts()
+    for i in range(new):
+        tok = out["own"][-1] if forced is None else forced[i]
+        collectives.reset_counts()
+        caches, logits = dstep(params, caches, tok, toks.shape[1] + i)
+        if counts is not None and i == 0:
+            counts["decode"] = collectives.counts()
+        out["logits"].append(logits)
+        out["own"].append(greedy_token(logits, cfg, dstep.model_axis))
+    out["caches"] = caches
+    return out
+
+
+def ms_reference(dev, cfg, tmp: str, tag: str, caches: bool, routing: bool = False) -> dict:
+    """The one-process run (``make_prefill_step`` / ``make_decode_step``
+    without a mesh: ``forward_prefill`` / ``forward_decode``) from the
+    phase's seed, greedy; saved to ``<tag>.ref.pt`` for the ranks: logits,
+    ids, each step's top-2 gap, the caches (with ``caches``) and the MoE
+    layers' expert ids (with ``routing``)."""
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(MS_SEED), dev)
+    pstep, dstep = ms_steps(cfg, None, None, MS_PROMPT, MS_NEW)
+    t0 = time.perf_counter()
+    with routing_log() as rlog:
+        run = ms_run(pstep, dstep, params, cfg,
+                     torch.from_numpy(ms_prompts(cfg, MS_PROMPT)).to(dev), MS_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    top2 = [lg[:, :cfg.vocab_size].topk(2, dim=-1).values for lg in run["logits"]]
+    ref = {"logits": [lg.cpu() for lg in run["logits"]], "own": [t.cpu() for t in run["own"]],
+           "gap": [(t[:, 0] - t[:, 1]).cpu() for t in top2], "wall_s": wall,
+           "routing": [x.cpu() for x in rlog] if routing else None,
+           "caches": tree_map(lambda t: t.cpu(), run["caches"]) if caches else None}
+    path = os.path.join(tmp, f"{tag}.ref.pt")
+    torch.save(ref, path)
+    del params, run, pstep, dstep
+    torch.cuda.empty_cache()
+    return {"path": path, "wall_s": wall}
+
+
+def ms_tp_bytes(cfg, rows: int, seq: int, es: int) -> int:
+    """The model axis's all-reduce bytes (tags ``tp:``) of one forward over
+    ``rows`` x ``seq`` positions with heads, FFN and vocab cut: the
+    embedding's lookup, each layer's attention and FFN outputs, (rows, seq,
+    d) each."""
+    return (2 * cfg.n_layers + 1) * rows * seq * cfg.d_model * es
+
+
+def ms_kv_index(cfg, tp) -> list:
+    """The KV heads a rank's cache holds, by index (``local_kv``'s rule)."""
+    KV, H = cfg.n_kv_heads, cfg.n_heads
+    if tp is None or not tp.heads:
+        return list(range(KV))
+    if tp.kv:
+        n = KV // tp.size
+        return list(range(tp.rank * n, (tp.rank + 1) * n))
+    g, hl = H // KV, H // tp.size
+    h0 = tp.rank * hl
+    if hl % g == 0:
+        return list(range(h0 // g, h0 // g + hl // g))
+    if g % hl == 0:
+        return [h0 // g]
+    return [(h0 + i) // g for i in range(hl)]
+
+
+def ms_rank_cell(mesh, dev, cell: dict) -> dict:
+    """One cell of a phase 20 spawn on this rank: its slices built leaf by
+    leaf from the seed, the steps teacher-forced with the reference's ids;
+    its logits, own ids and caches held against the reference's rows,
+    vocabulary columns and KV heads."""
+    cfg, prompt, new = cell["cfg"], cell["prompt"], cell["new"]
+    parallel = ParallelConfig(fsdp=mesh.sizes[0] > 1)
+    pstep, dstep = ms_steps(cfg, mesh, parallel, prompt, new)
+    lay, tp, rows = pstep.layout, pstep.model_axis, pstep.rows
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(MS_SEED), dev, layout=lay)
+    held = [(x.numel(), lay.pieces(k), int(np.prod(lay.shapes[k])))
+            for k, x in enumerate(tree_leaves(params))]
+    ref = torch.load(cell["ref"], weights_only=False)
+    forced = [t[rows].to(dev) for t in ref["own"][:new]]
+    toks = torch.from_numpy(ms_prompts(cfg, prompt)).to(dev)
+    counts = {}
+    reset_launches()
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    # the reference's expert ids of this rank's tokens: the prefill's MoE
+    # layers first (rows x prompt tokens), then each decode step's (rows)
+    n_moe = sum(cfg.layer_is_moe(i) for i in range(cfg.n_layers)) if cfg.moe else 0
+    ids = [x[rows.start * prompt:rows.stop * prompt] if i < n_moe else x[rows]
+           for i, x in enumerate(ref["routing"] or [])]
+    with ma_forced_routing([x.to(dev) for x in ids], False) as routed:
+        run = ms_run(pstep, dstep, params, cfg, toks, new, forced=forced, counts=counts)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = {n: WRAPPERS[n].launches for n in SERVE_KERNELS}
+    V = run["logits"][0].shape[-1]
+    cols = slice(tp.rank * V, (tp.rank + 1) * V) if tp is not None and tp.vocab else slice(None)
+    err = {"max": 0.0, "sum": 0.0, "ref_sum": 0.0, "ref_max": 0.0, "n": 0}
+    own_differ, near_ties = 0, []
+    for i, lg in enumerate(run["logits"]):
+        r = ref["logits"][i][rows, cols].to(dev)
+        real = (torch.arange(V, device=dev) + (cols.start or 0)) < cfg.vocab_size
+        d = (lg - r)[:, real].abs()
+        err["max"] = max(err["max"], float(d.max()))
+        err["sum"] += float(d.double().sum())
+        err["ref_sum"] += float(r[:, real].abs().double().sum())
+        err["ref_max"] = max(err["ref_max"], float(r[:, real].abs().max()))
+        err["n"] += d.numel()
+        want = ref["own"][i][rows].to(dev)
+        got = run["own"][i]
+        for b in torch.nonzero(got != want).flatten().tolist():
+            own_differ += 1
+            near_ties.append([i, rows.start + b, float(ref["gap"][i][rows.start + b])])
+    cache_err = None
+    if ref["caches"] is not None:
+        heads = ms_kv_index(cfg, tp)
+        cache_err = 0.0
+        for got_e, want_e in zip(run["caches"], ref["caches"]):
+            for k in got_e:
+                w = want_e[k][:, rows][:, :, :, heads].to(dev)
+                cache_err = max(cache_err, float((got_e[k].float() - w.float()).abs().max()))
+    es = torch.finfo(getattr(torch, cfg.dtype)).bits // 8
+    tp_bytes = {p: sum(c["bytes"] for t, c in counts[p].get("all_reduce", {}).items()
+                       if t.startswith("tp:")) for p in ("prefill", "decode")}
+    n_rows = rows.stop - rows.start
+    cut_all = tp is not None and tp.heads and tp.mlp and tp.vocab
+    out = {"config": cfg.name, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+           "coords": mesh.coords, "rows": [rows.start, rows.stop],
+           "model_axis": None if tp is None else {
+               "heads": tp.heads, "kv": tp.kv, "mlp": tp.mlp, "vocab": tp.vocab,
+               "expert": tp.expert, "kv_heads_held": len(ms_kv_index(cfg, tp))},
+           "held": held, "logit_err": err, "cache_max_abs_err": cache_err,
+           "own_ids_differ": own_differ, "differ_at": near_ties,
+           "tp_allreduce_bytes": tp_bytes, "launches": launches, "wall_s": wall,
+           "route": mesh.model_comm.route, "backend": mesh.model_comm.backend,
+           "routing_differs": routed if ref["routing"] else None}
+    if cut_all and cfg.moe is None:
+        out["tp_allreduce_bytes_want"] = {"prefill": ms_tp_bytes(cfg, n_rows, prompt, es),
+                                          "decode": ms_tp_bytes(cfg, n_rows, 1, es)}
+    del params, run, ref
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def ms_rank(mesh, tmp: str, spec: dict) -> None:
+    """One rank of a phase 20 spawn: each cell of ``spec`` in turn; writes
+    ``<tag>.rank<r>.pt``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = [ms_rank_cell(mesh, mesh.device, cell) for cell in spec["cells"]]
+    torch.save(out, os.path.join(tmp, f"{spec['tag']}.rank{mesh.rank}.pt"))
+
+
+def ms_gate(spec: dict, ranks: list, fails: list, on_card: bool) -> None:
+    """Emit and gate each cell of a phase 20 spawn from its ranks'
+    results."""
+    for i, cell in enumerate(spec["cells"]):
+        runs = [r[i] for r in ranks]
+        r0 = runs[0]
+        cfg = cell["cfg"]
+        err = {"max": max(r["logit_err"]["max"] for r in runs),
+               "mean": sum(r["logit_err"]["sum"] for r in runs) / sum(r["logit_err"]["n"]
+                                                                     for r in runs),
+               "ref_max": max(r["logit_err"]["ref_max"] for r in runs),
+               "ref_mean": sum(r["logit_err"]["ref_sum"] for r in runs) / sum(
+                   r["logit_err"]["n"] for r in runs)}
+        # the model ranks of a data row hold the same rows and ids: count one
+        differ_at = [x for r in runs if r["coords"][1] == 0 for x in r["differ_at"]]
+        held_ok = all(n * p == whole for r in runs for n, p, whole in r["held"])
+        row = {"phase": "mesh-serve", "row": spec["row"], "mesh": list(spec["mesh"]),
+               "config": cfg.name, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+               "batch": MS_B, "prompt": cell["prompt"], "new_tokens": cell["new"],
+               "backend": r0["backend"], "route": r0["route"], "model_axis": r0["model_axis"],
+               "logits_max_abs_err": err["max"], "logits_mean_abs_err": err["mean"],
+               "ref_max_abs_logit": err["ref_max"], "ref_mean_abs_logit": err["ref_mean"],
+               "cache_max_abs_err": max((r["cache_max_abs_err"] or 0.0) for r in runs),
+               "own_ids_differ": len(differ_at), "differ_at_step_row_ref_gap": differ_at,
+               "held_exact": held_ok, "wall_s_by_rank": [r["wall_s"] for r in runs],
+               "tp_allreduce_bytes_by_rank": [r["tp_allreduce_bytes"] for r in runs]}
+        ok = held_ok
+        routed_apart = cfg.moe is not None and sum(r["routing_differs"][0] for r in runs) > 0
+        if cfg.dtype == "float32":  # ids differ only at near-ties; bf16's are reported
+            row["limit"], row["limit_ref_gap"] = MS_F32_TOL, MS_TIE_GAP
+            ok = ok and all(gap <= MS_TIE_GAP for _, _, gap in differ_at)
+            if not routed_apart:  # a near-tie routed apart moves that token's logits
+                ok = ok and err["max"] <= MS_F32_TOL and row["cache_max_abs_err"] <= MS_F32_TOL
+        else:
+            row["limits"] = {"max": MS_BF16_MAX * err["ref_max"],
+                             "mean": MS_BF16_MEAN * err["ref_mean"]}
+            ok = ok and err["max"] <= row["limits"]["max"] and err["mean"] <= row["limits"]["mean"]
+        if "tp_allreduce_bytes_want" in r0:
+            row["tp_allreduce_bytes_want"] = [r["tp_allreduce_bytes_want"] for r in runs]
+            ok = ok and all(r["tp_allreduce_bytes"] == r["tp_allreduce_bytes_want"] for r in runs)
+        if cfg.moe is not None:  # EP under tp_fsdp routes the reference's tokens in its order
+            differ = sum(r["routing_differs"][0] for r in runs)
+            gap = max(r["routing_differs"][2] for r in runs)
+            row["routing"] = {"differ": differ,
+                              "decisions": sum(r["routing_differs"][1] for r in runs),
+                              "max_rel_gap": gap, "limit_rel_gap": MA_TIE_GAP}
+            ok = ok and (differ == 0 or gap <= MA_TIE_GAP)
+        if on_card:  # every kernel of the path launched on every rank
+            row["launches_by_rank"] = [r["launches"] for r in runs]
+            ok = ok and all(r["launches"][n] > 0 for r in runs
+                            for n in ("rmsnorm", "swiglu", "flash_attention", "flash_decode"))
+        row["ok"] = bool(ok)
+        emit(row)
+        if not ok:
+            fails.append(f"({spec['row']}) {cfg.name}")
+
+
+def ms_spawn(dev, tmp: str, spec: dict) -> list:
+    """Spawn one phase 20 mesh; its ranks' results."""
+    from repro_torch.launch.dist import spawn
+
+    D, M = spec["mesh"]
+    t0 = time.perf_counter()
+    spawn(ms_rank, D * M, tmp, spec, backend="gloo", device=dev.type, model=M,
+          timeout=MS_TIMEOUT_S)
+    ranks = [torch.load(os.path.join(tmp, f"{spec['tag']}.rank{r}.pt"), weights_only=False)
+             for r in range(D * M)]
+    emit({"phase": "mesh-serve", "row": f"{spec['row']} spawn", "mesh": list(spec["mesh"]),
+          "seconds": time.perf_counter() - t0})
+    return ranks
+
+
+def ms_nccl_row(dev, tmp: str) -> dict:
+    """(a): one NCCL rank at (1, 1): the steps on full-width, full-depth
+    qwen3-0.6b in bf16, greedy, against ``forward_prefill`` /
+    ``forward_decode`` called directly: ids, logits and every cache leaf
+    bitwise.  Returns the mesh run's launches."""
+    from repro_torch.launch.dist import destroy, init_process_group
+
+    cfg = get_config(MS_CONFIG)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(MS_SEED), dev)
+    toks = torch.from_numpy(ms_prompts(cfg, MS_PROMPT)).to(dev)
+    with torch.no_grad():
+        caches, logits = forward_prefill(params, {"tokens": toks}, cfg,
+                                         cache_structs(cfg, MS_B, MS_PROMPT + MS_NEW))
+        ref = {"logits": [logits], "own": [greedy_token(logits, cfg)]}
+        for i in range(MS_NEW):
+            caches, logits = forward_decode(params, caches, ref["own"][-1], MS_PROMPT + i, cfg)
+            ref["logits"].append(logits)
+            ref["own"].append(greedy_token(logits, cfg))
+    mesh = init_process_group(0, 1, init_method="file://" + os.path.join(tmp, "nccl"),
+                              backend="nccl", device=dev)
+    try:
+        pstep, dstep = ms_steps(cfg, mesh, ParallelConfig(), MS_PROMPT, MS_NEW)
+        reset_launches()
+        run = ms_run(pstep, dstep, params, cfg, toks, MS_NEW)
+        launches = {n: WRAPPERS[n].launches for n in SERVE_KERNELS}
+        backend = mesh.comm.backend
+    finally:
+        destroy()
+    ids = all(torch.equal(a, b) for a, b in zip(run["own"], ref["own"]))
+    lg = all(torch.equal(a, b) for a, b in zip(run["logits"], ref["logits"]))
+    leaves = [torch.equal(a[k], b[k]) for a, b in zip(run["caches"], caches) for k in a]
+    need = ("rmsnorm", "swiglu", "flash_attention", "flash_decode")
+    ok = ids and lg and all(leaves) and all(launches[n] > 0 for n in need)
+    emit({"phase": "mesh-serve", "row": "a: nccl, one rank (1, 1)", "config": cfg.name,
+          "n_layers": cfg.n_layers, "dtype": cfg.dtype, "batch": MS_B, "prompt": MS_PROMPT,
+          "new_tokens": MS_NEW, "backend": backend, "ids_bitwise": ids, "logits_bitwise": lg,
+          "cache_leaves": len(leaves), "cache_leaves_bitwise": sum(leaves),
+          "launches": launches, "ok": ok})
+    if not ok:
+        raise AssertionError(f"mesh-serve (a): ids {ids}, logits {lg}, caches "
+                             f"{sum(leaves)}/{len(leaves)}, launches {launches}")
+    del params, caches, run, ref
+    return launches
+
+
+def ms_kernel_rows(dev, timer) -> None:
+    """#2 and #5 at the head shapes phase 20's ranks launch (MS_HEADS: H 8
+    with KV 4, and with one KV head; hd 128) on its prefill's (4, 256) and
+    its last decode step's 272 positions, bf16, each against its plain
+    version with its cold time, bound and SDPA call."""
+    gen = torch.Generator(device=dev).manual_seed(24)
+    dt, es, hd = torch.bfloat16, 2, 128
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(dt)
+
+    L = MS_PROMPT + MS_NEW
+    for h, kv in MS_HEADS:
+        q, k, v = randn(MS_B, MS_PROMPT, h, hd), randn(MS_B, MS_PROMPT, kv, hd), \
+            randn(MS_B, MS_PROMPT, kv, hd)
+        pairs = MS_B * h * MS_PROMPT * (MS_PROMPT + 1) // 2
+        compare("flash_attention", dt, [MS_B, MS_PROMPT, h, kv, hd], flash_attention(q, k, v),
+                flash_attention_plain(q, k, v), timer, lambda: flash_attention(q, k, v),
+                lambda: flash_attention_plain(q, k, v), 2 * nbytes(q) + 2 * nbytes(k),
+                4.0 * hd * pairs, sdpa_call(q, k, v))
+        qd = randn(MS_B, 1, h, hd)
+        kd, vd = randn(MS_B, L, kv, hd), randn(MS_B, L, kv, hd)
+        lens = torch.full((MS_B,), L, dtype=torch.int32, device=dev)
+        compare("flash_decode", dt, [MS_B, L, h, kv, hd], flash_decode(qd, kd, vd, lens),
+                flash_decode_plain(qd, kd, vd, lens), timer,
+                lambda: flash_decode(qd, kd, vd, lens), lambda: flash_decode_plain(qd, kd, vd, lens),
+                2 * nbytes(qd) + 2 * MS_B * L * kv * hd * es + nbytes(lens),
+                4.0 * h * hd * MS_B * L, sdpa_decode_call(qd, kd, vd, lens))
+        del q, k, v, qd, kd, vd
+
+
+def mesh_serve_phase(dev, timer) -> dict:
+    """Phase 20.  Returns the launches of its NCCL run and of each rank."""
+    t0 = time.perf_counter()
+    free_card("mesh-serve", 60)
+    ms_kernel_rows(dev, timer)
+    fails, out = [], {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out["mesh serve"] = ms_nccl_row(dev, tmp)
+        free_card("mesh-serve", 60)
+        qwen = dataclasses.replace(get_config(MS_CONFIG), dtype="float32")
+        moe = dataclasses.replace(get_config(MOE_CONFIG), n_layers=MS_MOE_LAYERS,
+                                  dtype="float32")
+        big = get_config(MS_BIG)
+        lens = dict(prompt=MS_PROMPT, new=MS_NEW)
+        refs = {"qwen": ms_reference(dev, qwen, tmp, "qwen", caches=True)["path"],
+                "moe": ms_reference(dev, moe, tmp, "moe", caches=True, routing=True)["path"]}
+        free_card("mesh-serve", 60)
+        specs = [
+            dict(tag="b12", row="b: tp (1, 2)", mesh=(1, 2),
+                 cells=[dict(cfg=qwen, ref=refs["qwen"], **lens),
+                        dict(cfg=moe, ref=refs["moe"], **lens)]),
+            dict(tag="b22", row="b: tp + fsdp (2, 2)", mesh=(2, 2),
+                 cells=[dict(cfg=qwen, ref=refs["qwen"], **lens)]),
+        ]
+        for spec in specs:
+            ranks = ms_spawn(dev, tmp, spec)
+            ms_gate(spec, ranks, fails, dev.type == "cuda")
+            for r, res in enumerate(ranks):
+                tot = {n: sum(c["launches"][n] for c in res) for n in SERVE_KERNELS}
+                out[f"mesh serve {spec['mesh']} rank {r}"] = tot
+        free_card("mesh-serve", 60)
+        spec = dict(tag="c14", row="c: tp (1, 4), local_kv", mesh=(1, 4),
+                    cells=[dict(cfg=big, ref=ms_reference(dev, big, tmp, "big",
+                                                          caches=False)["path"], **lens)])
+        free_card("mesh-serve", 60)
+        ranks = ms_spawn(dev, tmp, spec)
+        ms_gate(spec, ranks, fails, dev.type == "cuda")
+        for r, res in enumerate(ranks):
+            out[f"mesh serve {spec['mesh']} rank {r}"] = res[0]["launches"]
+    emit({"phase": "mesh-serve", "run": "phase", "seconds": time.perf_counter() - t0})
+    if fails:
+        raise AssertionError(f"mesh-serve: {fails}")
     return out
 
 
@@ -4187,6 +4624,7 @@ def main() -> int:
     later["accumulation"] = accum_phase(dev)
     later.update(multirank_phase(dev))
     later.update(model_axis_phase(dev, timer))
+    later.update(mesh_serve_phase(dev, timer))
 
     emit({"kernels": [
         {"name": n, "route": "cuda", "source": f"src/repro_torch/csrc/{n}.cu",

@@ -1,7 +1,7 @@
 """PyTorch/CUDA port of ``repro`` (the JAX package): serving, the MeCeFO
 training step and Trainer, fault tolerance and state transfer, on one
-process or data-parallel across processes (``launch/mesh.py``,
-``launch/dist.py``).
+process or over a (data, model) mesh of processes (``launch/mesh.py``,
+``launch/dist.py``): training, prefill and decode.
 
 The port keeps the JAX package's module names and tensor layouts at its
 public functions, so every function here has a counterpart of the same name

@@ -40,9 +40,11 @@ def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def params_from_numpy(tree: Tree, cfg: ModelConfig, device="cuda") -> Tree:
+def params_from_numpy(tree: Tree, cfg: ModelConfig, device="cuda", layout=None) -> Tree:
     """The JAX package's params (numpy leaves) as the port's tensors, with
-    every leaf's shape checked against :func:`param_shapes`."""
+    every leaf's shape checked against :func:`param_shapes`.  With a mesh's
+    ``layout`` (``launch/state.py:ShardLayout``) each rank gets its slices
+    on both axes, the serving layout."""
     dev = resolve_device(device)
     shapes = param_shapes(cfg)
     out = {}
@@ -58,6 +60,10 @@ def params_from_numpy(tree: Tree, cfg: ModelConfig, device="cuda") -> Tree:
             )
         else:
             out[key] = _leaf(tree[key], want, key, dev)
+    if layout is not None:
+        from repro_torch.launch.state import local_params
+
+        out = local_params(out, layout)
     return out
 
 

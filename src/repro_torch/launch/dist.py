@@ -32,11 +32,12 @@ from repro_torch.launch.mesh import Mesh, make_host_mesh
 
 
 def init_process_group(rank: int, world: int, *, init_method: str, backend: Optional[str] = None,
-                       device="cpu", model: int = 1) -> Mesh:
+                       device="cuda", model: int = 1) -> Mesh:
     """Start this process's group and return the (world / model, model)
-    mesh.  ``backend`` defaults to NCCL for a CUDA device and gloo
-    otherwise; gloo with a CUDA device is the caller's choice (ranks
-    sharing one card)."""
+    mesh.  ``device`` is CUDA unless the caller asks for the CPU (an error
+    where CUDA is absent, as every entry point of the port).  ``backend``
+    defaults to NCCL for a CUDA device and gloo otherwise; gloo with a CUDA
+    device is the caller's choice (ranks sharing one card)."""
     import torch.distributed as dist
 
     dev = resolve_device(device)
@@ -118,13 +119,17 @@ def _first_failure(errors: str) -> Optional[BaseException]:
     return exc
 
 
-def spawn(fn, world: int, *args, backend: Optional[str] = None, device="cpu",
+def spawn(fn, world: int, *args, backend: Optional[str] = None, device="cuda",
           timeout: float = 600.0, model: int = 1) -> None:
     """Run ``fn(mesh, *args)`` on ``world`` fresh processes (``fn`` at module
     level, so the ranks can import it) over a ``(world / model, model)``
-    mesh.  Raises the exception of the rank that failed first, or
-    ``TimeoutError`` (after ending every rank) past ``timeout`` seconds."""
+    mesh on ``device`` (CUDA unless the caller asks for the CPU; checked
+    here, before any rank starts).  Raises the exception of the rank that
+    failed first, or ``TimeoutError`` (after ending every rank) past
+    ``timeout`` seconds."""
     import torch.multiprocessing as mp
+
+    resolve_device(device)
 
     if world % model:
         raise ValueError(f"{world} ranks do not make a mesh with a model axis of {model}")

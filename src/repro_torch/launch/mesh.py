@@ -13,8 +13,9 @@ package's is on one device.  The production meshes (16×16, 2×16×16) and
 their dry run are a later slice.
 
 The mesh holds its device explicitly: an NCCL group computes on CUDA and a
-gloo group on the device its caller names; a mesh asked for CUDA where
-there is none raises instead of carrying on on the CPU.
+gloo group on the device its caller names, CUDA unless the caller asks for
+the CPU; a mesh asked for CUDA where there is none raises instead of
+carrying on on the CPU.
 """
 from __future__ import annotations
 
@@ -64,15 +65,14 @@ class Mesh:
         return f"Mesh({self.shape}, rank {self.rank}, data {self.comm!r})"
 
 
-def make_host_mesh(data: Optional[int] = None, model: int = 1, device=None) -> Mesh:
+def make_host_mesh(data: Optional[int] = None, model: int = 1, device="cuda") -> Mesh:
     """The (data, model) mesh over the initialized process group, or the 1×1
     mesh of one process without one.  ``data`` defaults to the group's
     size over ``model``; as in the JAX package, a mesh larger than the
-    group shrinks to ``(group size, 1)``.  ``device`` defaults to the
-    current CUDA device of an NCCL group, else the CPU (a gloo group
-    computes on CUDA only where the caller names it).  Every rank makes
-    every group, in the same order: the data groups, then the model
-    groups."""
+    group shrinks to ``(group size, 1)``.  ``device`` is CUDA unless the
+    caller asks for the CPU (an error where CUDA is absent); an NCCL
+    group computes on its current CUDA device.  Every rank makes every
+    group, in the same order: the data groups, then the model groups."""
     import torch.distributed as dist
 
     group = dist.group.WORLD if dist.is_available() and dist.is_initialized() else None
@@ -83,11 +83,6 @@ def make_host_mesh(data: Optional[int] = None, model: int = 1, device=None) -> M
         data, model = world, 1
     if data * model != world:
         raise ValueError(f"a {data}x{model} mesh over a group of {world} processes")
-    if device is None:
-        if group is not None and dist.get_backend(group) == "nccl":
-            device = torch.device("cuda", torch.cuda.current_device())
-        else:
-            device = "cpu"
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())

@@ -1,8 +1,12 @@
-"""Batch and NDB-mask specs of the training step, and the rows each rank
-holds (the train part of ``repro.launch.specs``).
+"""Input specs of the train, prefill and decode steps and the NDB masks,
+and the rows each rank holds (the counterpart of ``repro.launch.specs``).
 
 Specs are the port's ``parallel.sharding.Spec``; shapes are (shape, dtype)
-pairs.  Prefill and decode inputs under a mesh wait for a later slice.
+pairs.  A prefill's inputs are the train inputs without ``labels``
+(frontend inputs included); a decode's are ``token`` (B,), ``cur_len``
+(a scalar) and ``caches`` (``models/kvcache.py``: the whole caches' shapes,
+with the JAX rules' specs; what a rank of the port holds is
+``parallel/sharding.py:held_cache_spec``).
 """
 from __future__ import annotations
 
@@ -11,7 +15,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.parallel.sharding import ShardingRules, Spec
+from repro_torch.models.kvcache import cache_annotations, cache_structs
+from repro_torch.parallel.sharding import ShardingRules, Spec, cache_spec
 
 
 def batch_axes_for(B: int, rules: ShardingRules, mesh_shape: Dict[str, int]):
@@ -31,12 +36,29 @@ def batch_axes_for(B: int, rules: ShardingRules, mesh_shape: Dict[str, int]):
 
 def input_specs(cfg: ModelConfig, shape: ShapeConfig, rules: ShardingRules,
                 mesh_shape: Dict[str, int], dtype=None) -> Tuple[Dict[str, Any], Dict[str, Spec]]:
-    """(shapes, specs) of a train step's batch, keyed by input name."""
-    if shape.kind != "train":
-        raise NotImplementedError(f"{shape.kind!r} inputs under a mesh wait for a later slice")
+    """(shapes, specs) of a step's inputs, keyed by input name (the module
+    docstring); a decode's ``shape.seq_len`` is its caches' length."""
     dt = dtype or getattr(torch, cfg.dtype)
     B, S = shape.global_batch, shape.seq_len
     bax = batch_axes_for(B, rules, mesh_shape)
+    if shape.kind == "train":
+        return _train_specs(cfg, B, S, bax, dt)
+    if shape.kind == "prefill":
+        shapes, specs = _train_specs(cfg, B, S, bax, dt)
+        shapes.pop("labels")
+        specs.pop("labels")
+        return shapes, specs
+    if shape.kind == "decode":
+        cshapes = tuple({k: (c.shape, c.dtype) for k, c in e.items()}
+                        for e in cache_structs(cfg, B, S, dt))
+        cspecs = tuple({k: cache_spec(ann, bax, rules) for k, ann in e.items()}
+                       for e in cache_annotations(cfg))
+        return ({"token": ((B,), torch.int32), "cur_len": ((), torch.int32), "caches": cshapes},
+                {"token": Spec(bax), "cur_len": Spec(), "caches": cspecs})
+    raise ValueError(shape.kind)
+
+
+def _train_specs(cfg: ModelConfig, B: int, S: int, bax, dt):
     shapes: Dict[str, Any] = {}
     specs: Dict[str, Spec] = {}
     if cfg.frontend == "audio":

@@ -242,12 +242,16 @@ def shard_layout(cfg: ModelConfig, rules: ShardingRules, mesh, fsdp: bool,
                        tuple(mdims), tuple(groups), proj_mdims)
 
 
+def local_params(params: Tree, layout: ShardLayout) -> Tree:
+    """This rank's slices of a whole params tree (the serving layout: no
+    optimizer state)."""
+    return layout.map(layout.cut, params)
+
+
 def to_local(state: TrainState, layout: ShardLayout) -> TrainState:
     """Each rank's slice of a whole state's params, moments and V1."""
-    def cut(tree):
-        return layout.map(layout.cut, tree)
-
-    return state._replace(params=cut(state.params), opt=type(state.opt)(*map(cut, state.opt)),
+    return state._replace(params=local_params(state.params, layout),
+                          opt=type(state.opt)(*(local_params(t, layout) for t in state.opt)),
                           proj=layout.cut_proj(state.proj))
 
 

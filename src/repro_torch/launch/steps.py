@@ -1,5 +1,6 @@
-"""The training step (the counterpart of ``repro.launch.steps``'s
-``make_train_step``), on one process or over a (data, model) mesh.
+"""The training step and the serve steps (the counterparts of
+``repro.launch.steps``'s ``make_train_step``, ``make_prefill_step`` and
+``make_decode_step``), on one process or over a (data, model) mesh.
 
 A step computes the forward loss, the MeCeFO backward (technique I skips
 the MHA backward, II recomputes the FFN, III takes the low-rank Wgrad
@@ -37,10 +38,18 @@ and rounded to bf16, the rounding the JAX program applies to the global
 micro-gradient.  A batch the mesh does not divide is not sharded: every
 rank computes all of it, with the MoE grouping of the mesh's shards, and
 nothing is reduced over the batch.
+
+The serve steps run ``forward_prefill`` / ``forward_decode`` under the same
+mesh, layout and model axis with ``remat="none"``, on params alone (no
+optimizer state): each rank serves its rows, holds its caches' KV heads
+and returns its logits' vocabulary columns; nothing is gathered for a
+decode loop (``serve/sampling.py:greedy_token`` takes the ids over the
+model group).
 """
 from __future__ import annotations
 
 import dataclasses
+from types import SimpleNamespace
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
@@ -52,14 +61,17 @@ from repro_torch.configs.base import (
 )
 from repro_torch.core.grad_sync import rescale_skipped_grads
 from repro_torch.core.ndb import NDBContext
-from repro_torch.launch.mesh import mesh_shape_dict, n_dp_shards
-from repro_torch.launch.specs import batch_axes_for, rows_of
+from repro_torch.launch.mesh import AXES, mesh_shape_dict, n_dp_shards
+from repro_torch.launch.specs import batch_axes_for, input_specs, rows_of
 from repro_torch.launch.state import ShardLayout, TrainState, shard_layout
-from repro_torch.models.model import ExecFlags, forward_loss
-from repro_torch.models.params import tree_leaves, tree_map
+from repro_torch.models.kvcache import cache_annotations, cache_structs, held_kv_heads
+from repro_torch.models.model import ExecFlags, forward_decode, forward_loss, forward_prefill
+from repro_torch.models.params import param_annotations, tree_leaves, tree_map
 from repro_torch.optim.optimizers import apply_update, clip_by_global_norm, lr_schedule
 from repro_torch.parallel.collectives import ModelAxis, StepSync
-from repro_torch.parallel.sharding import ShardingRules, default_rules
+from repro_torch.parallel.sharding import (
+    ShardingRules, Spec, default_rules, held_cache_spec, spec_tree,
+)
 
 Tree = Any
 
@@ -400,3 +412,151 @@ def make_train_step(
 
     step.layout, step.rows, step.accum, step.model_axis = layout, rows, accum, tp
     return step
+
+
+# ---------------------------------------------------------------------------
+# Serve steps
+# ---------------------------------------------------------------------------
+
+# the mesh of one process, where a serve step is built without one
+_ONE = SimpleNamespace(axis_names=AXES, shape={"data": 1, "model": 1}, sizes=(1, 1))
+
+
+def serve_flags(parallel: ParallelConfig, mesh, flags: Optional[ExecFlags] = None) -> ExecFlags:
+    """``build_flags``' counterpart for the serve steps: ``remat="none"``
+    and the JAX package's ``n_dp_shards`` (D, or D·M under
+    ``sharding_mode="fsdp"``), the MoE routing groups of the global
+    batch."""
+    nds = 1
+    if mesh is not None:
+        nds = n_dp_shards(mesh) * (mesh.sizes[1] if parallel.sharding_mode == "fsdp" else 1)
+    flags = flags or ExecFlags(n_dp_shards=nds)
+    return dataclasses.replace(flags, remat="none")
+
+
+class _ServePlan:
+    """What a prefill or decode step of ``cfg`` does on ``mesh`` (None: one
+    process): the rules, this rank's rows, its ``ModelAxis`` (no sequence
+    parallelism in a decode) and the params' layout."""
+
+    def __init__(self, cfg, parallel, mesh, shape, flags, decode: bool):
+        parallel = parallel or ParallelConfig()
+        self.B = shape.global_batch
+        self.flags = serve_flags(parallel, mesh, flags)
+        one = mesh is None or tuple(mesh.sizes) == (1, 1)
+        self.rules = build_rules(cfg, mesh or _ONE, parallel)
+        self.bax = batch_axes_for(self.B, self.rules, mesh_shape_dict(mesh or _ONE))
+        self.layout = self.tp = None
+        self.rows = slice(0, self.B)
+        if not one:
+            self.layout = mesh_layout(cfg, mesh, parallel)
+            tp = model_axis(cfg, mesh, parallel, shape)
+            self.tp = dataclasses.replace(tp, sp=False) if tp is not None and decode else tp
+            self.rows = rows_of(self.B, batch_axes(cfg, mesh, parallel, self.B), mesh)
+            n_shards = self.B // (self.rows.stop - self.rows.start)
+            # a rank's rows route in its share of the groups; a whole batch in all
+            self.flags = dataclasses.replace(
+                self.flags, n_dp_shards=max(self.flags.n_dp_shards // n_shards, 1))
+        self.kv_heads = held_kv_heads(cfg, self.tp)
+
+    @property
+    def n_rows(self) -> int:
+        return self.rows.stop - self.rows.start
+
+    def params(self, params: Tree) -> Tree:
+        """The params the step computes with: FSDP dims gathered."""
+        if self.layout is not None and self.layout.fsdp_sharded:
+            return self.layout.gather(params, "param")
+        return params
+
+    def specs(self, cfg: ModelConfig, shape: ShapeConfig, max_len: int) -> Dict[str, Any]:
+        """The params', inputs', caches' and logits' specs (the JAX rules'),
+        and ``held_caches``: the caches' specs as a rank holds them."""
+        msd = dict(zip(AXES, getattr(self.layout, "mesh", _ONE).sizes))
+        dshape = ShapeConfig(shape.name, max_len, self.B, "decode")
+        _, dspecs = input_specs(cfg, dshape, self.rules, msd)
+        kv_cut = self.tp is not None and self.tp.kv
+        held = tuple({k: held_cache_spec(a, self.bax, self.rules, kv_cut) for k, a in e.items()}
+                     for e in cache_annotations(cfg))
+        out = {"params": spec_tree(self.rules, param_annotations(cfg)),
+               "caches": dspecs["caches"], "held_caches": held,
+               "logits": Spec(self.bax, self.rules.vocab)}
+        if shape.kind == "decode":
+            out["inputs"] = dspecs
+        else:
+            out["batch"] = input_specs(cfg, shape, self.rules, msd)[1]
+        return out
+
+    def attach(self, step):
+        step.layout, step.rows, step.model_axis, step.flags = (
+            self.layout, self.rows, self.tp, self.flags)
+        return step
+
+
+def make_prefill_step(cfg: ModelConfig, parallel: Optional[ParallelConfig], mesh,
+                      shape: ShapeConfig, *, flags: Optional[ExecFlags] = None,
+                      max_len: Optional[int] = None):
+    """Returns ``(step, specs)``, ``step(params, batch) -> (caches,
+    logits)``: the prompt prefill of ``forward_prefill`` on ``shape``'s
+    (B, S) (the trunk's sequence, a vision stub's patches included) into
+    caches of ``max_len`` (default S) positions.
+
+    ``mesh`` None, or a 1×1 mesh, is ``forward_prefill`` itself on the
+    params' device.  Over a (data, model) mesh ``params`` are this rank's
+    slices (``launch/state.py:local_params``, ``init_params(...,
+    layout=step.layout)`` or ``params_from_numpy(..., layout=)``) and
+    ``batch`` is the global batch; the step runs this rank's rows
+    (``step.rows``) with the model axis of the train step (tensor
+    parallelism over heads, FFN and vocab, the experts' ``"gather"`` or
+    ``"a2a"``, sequence parallelism where ``shape.seq_len`` splits), after
+    gathering the params' FSDP dims.  It returns this rank's caches (its
+    rows, its KV heads: ``specs["held_caches"]``) and logits (its rows,
+    its vocabulary columns where the axis cuts the vocabulary), under
+    ``torch.no_grad()``.  ``specs`` holds the JAX rules' specs of the
+    params, the batch, the caches and the logits (``Spec(bax, vocab)``).
+    """
+    plan = _ServePlan(cfg, parallel, mesh, shape, flags, decode=False)
+    B, S = shape.global_batch, shape.seq_len
+    L = max_len or S
+
+    def step(params: Tree, batch: Dict):
+        batch = to_device(batch, params["embed"].device)
+        if trunk_shape(batch) != (B, S):
+            raise ValueError(f"trunk sequence {trunk_shape(batch)}, want {(B, S)} ({shape.name})")
+        if plan.n_rows != B:
+            batch = {k: v[plan.rows] for k, v in batch.items()}
+        with torch.no_grad():
+            structs = cache_structs(cfg, plan.n_rows, L, kv_heads=plan.kv_heads)
+            return forward_prefill(plan.params(params), batch, cfg, structs, flags=plan.flags,
+                                   tp=plan.tp)
+
+    return plan.attach(step), plan.specs(cfg, shape, L)
+
+
+def make_decode_step(cfg: ModelConfig, parallel: Optional[ParallelConfig], mesh,
+                     shape: ShapeConfig, *, flags: Optional[ExecFlags] = None):
+    """Returns ``(step, specs)``, ``step(params, caches, token, cur_len) ->
+    (caches, logits)``: one ``forward_decode`` step of ``shape``'s batch
+    over dense caches of ``shape.seq_len`` positions, written in place.
+
+    ``mesh`` as in :func:`make_prefill_step`, without sequence
+    parallelism: ``caches`` are this rank's (a prefill step's), ``token``
+    the global (B,) ids or this rank's rows of them (what ``greedy_token``
+    gives on its logits under the model axis), ``cur_len`` a scalar.
+    ``specs["inputs"]`` holds the JAX rules' specs of ``token``,
+    ``cur_len`` and ``caches``.
+    """
+    plan = _ServePlan(cfg, parallel, mesh, shape, flags, decode=True)
+    B = shape.global_batch
+
+    def step(params: Tree, caches, token, cur_len):
+        dev = params["embed"].device
+        token = torch.as_tensor(np.asarray(token) if not torch.is_tensor(token) else token,
+                                device=dev)
+        if token.shape[0] == B and plan.n_rows != B:
+            token = token[plan.rows]
+        with torch.no_grad():
+            return forward_decode(plan.params(params), caches, token, cur_len, cfg,
+                                  flags=plan.flags, tp=plan.tp)
+
+    return plan.attach(step), plan.specs(cfg, shape, shape.seq_len)

@@ -21,7 +21,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.parallel.collectives import reduce_from_model
 
 
-def _embed(params, tokens: torch.Tensor, tp=None) -> torch.Tensor:
+def embed_tokens(params, tokens: torch.Tensor, tp=None) -> torch.Tensor:
+    """The embedding rows of ``tokens``; under a model axis that cuts the
+    vocabulary (``tp``) the sum of the ranks' lookups."""
     # F.embedding, not params["embed"][tokens]: the index backward sums a
     # token's gradients across threads in no fixed order on the CPU, the
     # embedding backward in a fixed one
@@ -48,7 +50,7 @@ def embed_inputs(params, batch, cfg: ModelConfig, tp=None):
         return h, torch.ones(h.shape[:2], dtype=torch.float32, device=h.device)
     if cfg.frontend == "vision":
         patches = batch["patch_embeds"].to(dt)
-        h = torch.cat([patches, _embed(params, batch["tokens"], tp)], dim=1)
+        h = torch.cat([patches, embed_tokens(params, batch["tokens"], tp)], dim=1)
         w = torch.cat([
             torch.zeros(patches.shape[:2], dtype=torch.float32, device=h.device),
             torch.ones(batch["tokens"].shape, dtype=torch.float32, device=h.device),
@@ -56,7 +58,7 @@ def embed_inputs(params, batch, cfg: ModelConfig, tp=None):
         return h, w
     if cfg.frontend is not None:
         raise ValueError(f"unknown frontend {cfg.frontend!r}")
-    h = _embed(params, batch["tokens"], tp)
+    h = embed_tokens(params, batch["tokens"], tp)
     return h, torch.ones(h.shape[:2], dtype=torch.float32, device=h.device)
 
 

@@ -33,6 +33,9 @@ attends with its query heads' groups, and their gradients are all-reduced
 over the model group, as are those of ``q_norm``/``k_norm``, whose one
 scale every head shares.  The FFN's output all-reduce sits outside the
 recomputed body (technique II), so the backward does not run it again.
+A prefill or a decode under the axis writes and reads the caches of the
+KV heads its query heads read (``models/kvcache.py:held_kv_heads``), and
+the serving head returns its V/M vocabulary columns.
 """
 from __future__ import annotations
 
@@ -198,9 +201,11 @@ def attention_block(
 
 
 def _attention(p, x, cfg, positions, cache, cur_len, history, page_tables, page_size, tp):
-    """The sublayer's branch.  Under the model axis (training only) it runs
-    this rank's query heads, or every head where the axis does not divide
-    them."""
+    """The sublayer's branch.  Under the model axis it runs this rank's
+    query heads, or every head where the axis does not divide them; a
+    cache then holds the KV heads those query heads read (KV/M, or
+    ``local_kv``'s), so a prefill writes them and kernel #2 runs on the
+    rank's heads, and a decode writes its row and kernel #5 reads them."""
     cut = tp is not None and tp.heads
     xn = rmsnorm(x, norm_scale(p["ln"], tp), cfg.norm_eps)
     if tp is not None:
@@ -426,11 +431,15 @@ def chunked_cross_entropy(
 
 
 def logits_for_position(h_last: torch.Tensor, unembed: torch.Tensor,
-                        vocab_size: Optional[int] = None) -> torch.Tensor:
-    """(B, d) @ (d, V) -> (B, V) f32 logits; pad columns masked to -1e30."""
+                        vocab_size: Optional[int] = None, tp=None) -> torch.Tensor:
+    """(B, d) @ (d, V) -> (B, V) f32 logits; pad columns masked to -1e30.
+    Under a model axis that cuts the vocabulary (``tp``) ``unembed`` holds
+    this rank's V/M columns, and so do the logits: a column is padding
+    where its global index is at or past ``vocab_size``."""
     logits = (h_last @ unembed).float()
     V = logits.shape[-1]
-    if vocab_size is not None and vocab_size < V:
-        pad = torch.arange(V, device=logits.device) >= vocab_size
+    lo = tp.rank * V if tp is not None and tp.vocab else 0
+    if vocab_size is not None and vocab_size < lo + V:
+        pad = lo + torch.arange(V, device=logits.device) >= vocab_size
         logits = logits.masked_fill(pad, -1e30)
     return logits

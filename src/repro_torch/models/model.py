@@ -31,7 +31,7 @@ from repro_torch.models.layers import (
 from repro_torch.models.moe import moe_block
 from repro_torch.models.params import block_layout
 from repro_torch.models.ssm import ssm_block
-from repro_torch.parallel.collectives import split_along
+from repro_torch.parallel.collectives import StepSync, gather_along, split_along
 
 Tree = Any
 
@@ -188,38 +188,71 @@ def forward_loss(
     return loss, {"loss": loss, "ce": ce, "aux": aux}
 
 
+def serve_ctx(tp=None) -> NDBContext:
+    """The NDB context of a prefill or decode: ``off``, and under a model
+    axis above 1 (``tp``, a ``parallel/collectives.py:ModelAxis``) a sync
+    that carries it to the layers (no data group: a serve step reduces
+    nothing over the batch)."""
+    return NDBContext(sync=StepSync(None, tp=tp)) if tp is not None else NDBContext()
+
+
+def _head(params: Tree, h_last: torch.Tensor, cfg: ModelConfig, tp) -> torch.Tensor:
+    """Final norm and logits of the selected rows (B, d): (B, V) f32, or
+    this rank's V/M columns where the model axis cuts the vocabulary."""
+    h_last = rmsnorm(h_last.contiguous(), params["final_norm"], cfg.norm_eps)
+    return logits_for_position(h_last, _unembed(params), cfg.vocab_size, tp)
+
+
 def forward_prefill(
     params: Tree,
     batch: Tree,
     cfg: ModelConfig,
     cache_structs_tree: Tree,
     logit_pos=None,
+    *,
+    flags: Optional[ExecFlags] = None,
+    tp=None,
 ):
     """Prompt prefill: returns (filled caches, (B, V) f32 logits).
 
+    ``batch`` holds ``tokens`` (B, S), or a frontend stub's inputs
+    (``frontends.embed_inputs``: the vision stub's patches go before the
+    tokens, the audio stub's frame embeddings replace them), so the caches
+    and ``logit_pos`` index the trunk's sequence, patches included.
     ``logit_pos`` selects the position whose logits are returned (default:
     the last): a scalar, or a ``(B,)`` tensor of per-row last-prompt
     positions for the batched prefill of page-padded prompts.  The final
     norm runs on the selected rows only; it is per row, so this is the
     same result as norming all positions first.
+
+    ``flags`` sets the MoE routing groups (``n_dp_shards``).  Under a model
+    axis above 1 (``tp``) the params are this rank's slices
+    (``launch/state.py``), the caches hold its KV heads
+    (``models/kvcache.py:held_kv_heads``) and the logits its vocabulary
+    columns; under sequence parallelism the trunk runs on S/M positions,
+    cut after the embedding and gathered before the head.
     """
-    tokens = batch["tokens"]
-    h = params["embed"][tokens.long()]
-    B, S = tokens.shape
+    h, _ = frontends.embed_inputs(params, batch, cfg, tp)
+    B, S = h.shape[:2]
     positions = torch.arange(S, device=h.device)
     caches = tuple(
         {k: torch.zeros(s.shape, dtype=s.dtype, device=h.device) for k, s in entry.items()}
         for entry in cache_structs_tree
     )
-    h, caches, _ = run_trunk(params, h, cfg, positions=positions, caches=caches, cur_len=0)
+    sp = tp is not None and tp.sp
+    if sp:
+        h = split_along(h, tp, 1, "sp:split")
+    h, caches, _ = run_trunk(params, h, cfg, positions=positions, ctx=serve_ctx(tp),
+                             flags=flags, caches=caches, cur_len=0)
+    if sp:
+        h = gather_along(h, tp, 1, "sp:gather")
     if logit_pos is None:
         h_last = h[:, -1]
     elif torch.is_tensor(logit_pos) and logit_pos.dim():
         h_last = h[torch.arange(B, device=h.device), logit_pos.long().to(h.device)]
     else:
         h_last = h[:, int(logit_pos)]
-    h_last = rmsnorm(h_last.contiguous(), params["final_norm"], cfg.norm_eps)
-    return caches, logits_for_position(h_last, _unembed(params), cfg.vocab_size)
+    return caches, _head(params, h_last, cfg, tp)
 
 
 def forward_prefill_chunk(
@@ -229,6 +262,9 @@ def forward_prefill_chunk(
     off: int,
     cfg: ModelConfig,
     logit_idx: int,
+    *,
+    flags: Optional[ExecFlags] = None,
+    tp=None,
 ):
     """One page-aligned prompt chunk: tokens at positions ``off..off+C-1``
     attend to the dense cache's prefix ``[0, off)`` (earlier chunks or a
@@ -236,14 +272,14 @@ def forward_prefill_chunk(
     cache at ``off``, in place.  Returns (caches, (B, V) logits at
     chunk-local position ``logit_idx``).  Pad tokens past the true chunk
     length write rows at or past the slot's length, which are never read.
+    ``batch`` goes through the frontends as in :func:`forward_prefill`;
+    ``flags`` and ``tp`` as there (no sequence parallelism).
     """
-    tokens = batch["tokens"]
-    h = params["embed"][tokens.long()]
-    positions = off + torch.arange(tokens.shape[1], device=h.device)
-    h, caches, _ = run_trunk(params, h, cfg, positions=positions, caches=caches, cur_len=off,
-                             prefill_history=True)
-    h_last = rmsnorm(h[:, logit_idx].contiguous(), params["final_norm"], cfg.norm_eps)
-    return caches, logits_for_position(h_last, _unembed(params), cfg.vocab_size)
+    h, _ = frontends.embed_inputs(params, batch, cfg, tp)
+    positions = off + torch.arange(h.shape[1], device=h.device)
+    h, caches, _ = run_trunk(params, h, cfg, positions=positions, ctx=serve_ctx(tp), flags=flags,
+                             caches=caches, cur_len=off, prefill_history=True)
+    return caches, _head(params, h[:, logit_idx], cfg, tp)
 
 
 def forward_decode(
@@ -255,6 +291,8 @@ def forward_decode(
     *,
     page_tables: Optional[torch.Tensor] = None,
     page_size: Optional[int] = None,
+    flags: Optional[ExecFlags] = None,
+    tp=None,
 ):
     """One decode step: returns (caches, (B, V) logits).
 
@@ -265,10 +303,11 @@ def forward_decode(
     page in place and the paged kernel walks the tables.  Without, the
     caches are dense ``(n_periods, B, Smax, KV, hd)`` buffers: the new row
     is written at ``cur_len`` in place and kernel #5 attends over them, in
-    blocks of ``page_size`` rows when given.
+    blocks of ``page_size`` rows when given.  ``flags`` and ``tp`` as in
+    :func:`forward_prefill` (a decode is never cut along the sequence).
     """
     # the audio stub decodes from token ids like any LM, as in the reference
-    h = params["embed"][token.long()][:, None, :]
+    h = frontends.embed_tokens(params, token[:, None], tp)
     B = h.shape[0]
     if torch.is_tensor(cur_len) and cur_len.dim():
         positions = cur_len[:, None]
@@ -277,8 +316,7 @@ def forward_decode(
         if page_tables is not None:
             cur_len = positions.expand(B)
     h, caches, _ = run_trunk(
-        params, h, cfg, positions=positions, caches=caches, cur_len=cur_len,
-        page_tables=page_tables, page_size=page_size,
+        params, h, cfg, positions=positions, ctx=serve_ctx(tp), flags=flags, caches=caches,
+        cur_len=cur_len, page_tables=page_tables, page_size=page_size,
     )
-    h = rmsnorm(h[:, -1], params["final_norm"], cfg.norm_eps)
-    return caches, logits_for_position(h, _unembed(params), cfg.vocab_size)
+    return caches, _head(params, h[:, -1], cfg, tp)

@@ -184,7 +184,7 @@ def map_leaves(fn, tree: Tree, name: str = "") -> Tree:
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda",
-                dtype=None) -> Tree:
+                dtype=None, layout=None) -> Tree:
     """Seeded weights following ``repro.models.params._init_leaf``: embed
     ``N(0, 0.02²)``, norm scales 1, matmul weights ``N(0, 1/fan_in)``; the
     SSM's ``A_log`` = log(linspace(1, 16, nh)), ``dt_bias`` 0.5, ``D`` 1
@@ -196,6 +196,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda",
     Each leaf is made in place on ``dev``, its f32 draws taken in pieces
     of at most ``_DRAW`` elements, so a full-width leaf (qwen3-moe's
     ``(48, 128, 2048, 768)`` expert stack) never exists in f32 at once.
+
+    With a mesh's ``layout`` (``launch/state.py:ShardLayout``) each leaf is
+    cut to this rank's slice as soon as it is made, so a rank holds the
+    whole of one leaf at most at a time; the slices are those of the whole
+    tree this seed gives.
     """
     dev = resolve_device(device)
     dt = dtype or getattr(torch, cfg.dtype)
@@ -218,7 +223,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda",
             flat[lo:lo + n] = (w * std).to(device=dev, dtype=dt)
         return out
 
-    return map_leaves(leaf, _sorted(param_shapes(cfg)))
+    if layout is None:
+        return map_leaves(leaf, _sorted(param_shapes(cfg)))
+    index = iter(range(len(layout.dims)))  # map_leaves visits the leaves in leaf order
+
+    def cut_leaf(name, shape):
+        return layout.cut(leaf(name, shape), next(index))
+
+    return map_leaves(cut_leaf, _sorted(param_shapes(cfg)))
 
 
 def _is_node(tree) -> bool:

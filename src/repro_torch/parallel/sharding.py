@@ -3,9 +3,9 @@
 
 Every parameter carries *logical* axis names (``models/params.py:
 param_annotations``); :class:`ShardingRules` maps them to the mesh axes
-``data`` (data parallelism and FSDP) and ``model`` (TP / EP / SP, which the
-port runs at size 1 for now).  A spec is the port's :class:`Spec`, a tuple
-with one entry per dim: ``None``, a mesh axis name, or a tuple of them.
+``data`` (data parallelism and FSDP) and ``model`` (TP / EP / SP).  A spec
+is the port's :class:`Spec`, a tuple with one entry per dim: ``None``, a
+mesh axis name, or a tuple of them.
 
 ``constrain`` is the identity: eager PyTorch has no layout constraint; the
 port's step moves shards itself (``launch/steps.py``).
@@ -144,6 +144,36 @@ def spec_tree(rules: ShardingRules, ann_tree: Tree) -> Tree:
     return map_tree(lambda ann: rules.spec(*ann), ann_tree, is_annotation)
 
 
+def cache_spec(ann, bax, rules: ShardingRules) -> Spec:
+    """The spec of a cache leaf annotated ``ann`` (``models/kvcache.py``)
+    with its batch dim over ``bax``: the JAX package's ``_cache_spec``, each
+    name read from the rules as it is (no axis deduplication)."""
+    out = []
+    for name in ann:
+        if name == "batch":
+            out.append(bax)
+        elif name is None or name == "stacked":
+            out.append(None)
+        else:
+            out.append(getattr(rules, name))
+    return Spec(*out)
+
+
+def held_cache_spec(ann, bax, rules: ShardingRules, kv_cut: bool) -> Spec:
+    """The spec of the cache leaf a rank of the port holds: :func:`cache_spec`
+    but for the heads.  The KV-head dim is cut over ``model`` only where the
+    layers cut the KV heads (``kv_cut``); the head dim is never cut: where
+    the rules cut it (``cache_hd``, a KV head count the axis does not
+    divide) a rank holds ``local_kv``'s whole heads instead
+    (``models/kvcache.py:held_kv_heads``), which no spec over the mesh
+    describes."""
+    spec = list(cache_spec(ann, bax, rules))
+    for i, name in enumerate(ann):
+        if name == "cache_hd" or (name == "kv_cache" and not kv_cut):
+            spec[i] = None
+    return Spec(*spec)
+
+
 def constrain(x, rules: ShardingRules, *logical: Optional[str]):
     """The identity: eager PyTorch has no layout constraint to set."""
     return x
@@ -163,6 +193,7 @@ def state_specs(param_spec_tree):
     return param_spec_tree
 
 
-__all__ = ["ShardingRules", "Spec", "batch_spec", "constrain", "default_rules",
+__all__ = ["ShardingRules", "Spec", "batch_spec", "cache_spec", "constrain", "default_rules",
+           "held_cache_spec",
            "is_annotation", "logical_to_spec", "map_tree", "param_specs", "spec_leaves",
            "spec_tree", "state_specs"]

@@ -331,7 +331,7 @@ def mesh_case(kind, W, tmp_path):
     ckpt_dir = str(tmp_path / "ckpt") if (kind, W) == ("dense", 2) else ""
     if ckpt_dir:
         tckpt.save(init, os.path.join(ckpt_dir, "from_one"), 0)
-    spawn(_ranks, W, kind, init_path, str(tmp_path), ckpt_dir, timeout=600)
+    spawn(_ranks, W, kind, init_path, str(tmp_path), ckpt_dir, device="cpu", timeout=600)
     res = {c[0]: [torch.load(str(tmp_path / f"{c[0]}.{r}.pt"), weights_only=False)
                   for r in range(W)] for c in CASES}
     for case in CASES:
@@ -365,7 +365,7 @@ def test_compress_psum_matches_jax_under_vmap():
 
     with tempfile.TemporaryDirectory() as tmp:
         np.savez(os.path.join(tmp, "in.npz"), **tree)
-        spawn(_psum_ranks, 2, tmp, timeout=300)
+        spawn(_psum_ranks, 2, tmp, device="cpu", timeout=300)
         for r in range(2):
             got = torch.load(os.path.join(tmp, f"psum.{r}.pt"), weights_only=False)
             for k in tree:
@@ -388,7 +388,7 @@ def _psum_ranks(mesh, tmp):
 
 def test_spawn_raises_a_rank_failure():
     with pytest.raises(Exception, match="rank 1 fails"):
-        spawn(_failing_rank, 2, timeout=120)
+        spawn(_failing_rank, 2, device="cpu", timeout=120)
 
 
 def _failing_rank(mesh):
@@ -404,10 +404,10 @@ def test_mesh_refuses_what_it_does_not_run():
 
     from repro_torch.launch.mesh import make_host_mesh
 
-    mesh = make_host_mesh()
+    mesh = make_host_mesh(device="cpu")
     assert mesh.shape == {"data": 1, "model": 1} and mesh.device.type == "cpu"
     # as the JAX package's, a mesh larger than the group shrinks to (group, 1)
-    assert make_host_mesh(1, 2).shape == {"data": 1, "model": 1}
+    assert make_host_mesh(1, 2, device="cpu").shape == {"data": 1, "model": 1}
     cfg = _cfg(tbase, "dense")
     two = {"data": 1, "model": 2}
     for par in (tbase.ParallelConfig(sharding_mode="fsdp"),
@@ -424,11 +424,32 @@ def test_mesh_refuses_what_it_does_not_run():
         tbase.ParallelConfig(dp_axes=("pod", "data")).check(two, cfg)
 
 
+def test_launch_helpers_default_to_the_card(tmp_path, monkeypatch):
+    """``spawn``, ``init_process_group`` and ``make_host_mesh`` run on CUDA
+    unless the caller asks for the CPU: where CUDA is absent (as here, or
+    made so) each raises ``resolve_device``'s error, before any rank or
+    group starts."""
+    import torch.distributed as dist
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from repro_torch.launch.dist import init_process_group
+    from repro_torch.launch.mesh import make_host_mesh
+
+    msg = "CUDA is not available"
+    with pytest.raises(RuntimeError, match=msg):
+        spawn(_failing_rank, 2, timeout=60)
+    with pytest.raises(RuntimeError, match=msg):
+        init_process_group(0, 1, init_method=f"file://{tmp_path}/rendezvous")
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match=msg):
+        make_host_mesh()
+
+
 def test_collective_routes_agree():
     """The ``all_reduce`` route (gloo on CUDA tensors has only all-reduce and
     broadcast) gathers and reduce-scatters along every dim the bits the
     native route does; here on the CPU with the route forced."""
-    spawn(_routes_rank, 2, timeout=120)
+    spawn(_routes_rank, 2, device="cpu", timeout=120)
 
 
 def _routes_rank(mesh):

@@ -71,7 +71,7 @@ def test_default_rules_match_jax(data):
         assert dataclasses.asdict(tsh.default_rules(_stand_in(data), **kw)) == \
             dataclasses.asdict(want), kw
     if data == 1:  # the port's own 1×1 mesh of one process
-        got = tsh.default_rules(make_host_mesh(), fsdp=True)
+        got = tsh.default_rules(make_host_mesh(device="cpu"), fsdp=True)
         assert got == tsh.ShardingRules(**dataclasses.asdict(
             jsh.default_rules(_stand_in(1), fsdp=True)))
 
@@ -144,7 +144,7 @@ def _flat(tree):
 
 
 def test_rows_of_and_constrain():
-    mesh = make_host_mesh()
+    mesh = make_host_mesh(device="cpu")
     assert tspecs.rows_of(8, ("data",), mesh) == slice(0, 8)
     assert tspecs.rows_of(9, None, mesh) == slice(0, 9)
     mesh2 = SimpleNamespace(shape={"data": 4, "model": 1}, rank=3)

@@ -569,7 +569,7 @@ def test_statexfer_golden_replays_on_two_ranks(tmp_path):
     args = (cfg, tbase.ShapeConfig("cli", 128, 8, "train"), tbase.TrainConfig(steps=steps))
     kwargs = dict(mecefo=tbase.MeCeFOConfig(mode="dynamic", rank=16, svd_period=20),
                   statexfer=True, trace_replay=str(DATA / name))
-    spawn(trainer_rank, 2, args, kwargs, "", str(tmp_path / "rank"), timeout=600)
+    spawn(trainer_rank, 2, args, kwargs, "", str(tmp_path / "rank"), device="cpu", timeout=600)
     ranks = [torch.load(tmp_path / f"rank.{r}.pt", weights_only=False) for r in range(2)]
     assert all(r["ok"] for r in ranks)
     assert ranks[0]["acc"] == ranks[1]["acc"] and ranks[0]["acc"]["measured_transfer_bytes"] > 0
@@ -623,7 +623,8 @@ def test_fsdp_trainer_on_two_ranks_recovers_from_the_checkpoint(tmp_path):
                               checkpoint_dir=str(ckpt_dir)))
     kwargs = dict(parallel=tbase.ParallelConfig(fsdp=True, remat="ffn"),
                   mecefo=tbase.MeCeFOConfig(**mecefo), statexfer=True, trace_replay=str(path))
-    spawn(trainer_rank, 2, args, kwargs, str(init), str(tmp_path / "rank"), timeout=600)
+    spawn(trainer_rank, 2, args, kwargs, str(init), str(tmp_path / "rank"), device="cpu",
+          timeout=600)
     ranks = [torch.load(tmp_path / f"rank.{r}.pt", weights_only=False) for r in range(2)]
     assert jtr.verify_replay() == [] and all(r["ok"] for r in ranks)
     for r in ranks:

@@ -325,7 +325,8 @@ def test_model_axis_step_matches_jax_global_batch(D, M, tmp_path):
     names = sorted({c["cfg"] for c in cases})
     init_path = init_file(tmp_path, names)
     ckpt_dir = str(tmp_path / "ckpt") if (D, M) == (2, 2) else ""
-    spawn(tp_ranks, D * M, cases, init_path, str(tmp_path), ckpt_dir, model=M, timeout=600)
+    spawn(tp_ranks, D * M, cases, init_path, str(tmp_path), ckpt_dir, model=M, device="cpu",
+          timeout=600)
     for c in cases:
         ranks = [torch.load(tmp_path / f"{c['name']}.{r}.pt", weights_only=False)
                  for r in range(D * M)]
@@ -336,7 +337,8 @@ def test_model_axis_step_matches_jax_global_batch(D, M, tmp_path):
         init = torch.load(init_path, weights_only=False)["dense"]
         got, at = tckpt.restore(init, ckpt_dir)
         assert at == STEPS
-        spawn(restore_ranks, 2, ckpt_dir, init_path, str(tmp_path), model=2, timeout=300)
+        spawn(restore_ranks, 2, ckpt_dir, init_path, str(tmp_path), model=2, device="cpu",
+              timeout=300)
         again = torch.load(tmp_path / "restored.pt", weights_only=False)
         for tree in (got, again):
             for a, b in zip(tree_leaves(tree.params) + tree_leaves(tree.opt.m)
@@ -412,7 +414,7 @@ def collectives_rank(mesh):
 
 
 def test_autograd_collectives_match_one_process():
-    spawn(collectives_rank, 4, model=2, timeout=300)
+    spawn(collectives_rank, 4, model=2, device="cpu", timeout=300)
 
 
 def env_rank(rank, world, port):

@@ -37,7 +37,7 @@ CASES = [case(f"{smode}-{m}{'-sync' if sync else ''}", cfg="moe", mode=m, sync=s
 @pytest.mark.parametrize("M", [2, 4])
 def test_expert_parallel_step_matches_jax_global_batch(M, tmp_path):
     init_path = init_file(tmp_path, ["moe"])
-    spawn(tp_ranks, M, CASES, init_path, str(tmp_path), model=M, timeout=600)
+    spawn(tp_ranks, M, CASES, init_path, str(tmp_path), model=M, device="cpu", timeout=600)
     cfg = _cfg(tbase, "moe")
     for c in CASES:
         ranks = [torch.load(tmp_path / f"{c['name']}.{r}.pt", weights_only=False)

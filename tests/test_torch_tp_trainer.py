@@ -46,7 +46,7 @@ def test_trainer_on_a_model_axis_matches_jax_on_the_elastic_golden_trace(tmp_pat
     args = (tcfg, tbase.ShapeConfig("cli", 128, 8, "train"), tbase.TrainConfig(steps=steps))
     kwargs = dict(mecefo=tbase.MeCeFOConfig(**mecefo), trace_replay=str(DATA / name))
     spawn(trainer_rank, 2, args, kwargs, str(init), str(tmp_path / "rank"), model=2,
-          timeout=600)
+          device="cpu", timeout=600)
     ranks = [torch.load(tmp_path / f"rank.{r}.pt", weights_only=False) for r in range(2)]
     assert all(r["ok"] for r in ranks)
     for r in ranks:

@@ -402,7 +402,8 @@ def test_trainer_on_two_ranks_matches_jax_on_the_elastic_golden_trace(tmp_path):
             tbase.TrainConfig(steps=steps, checkpoint_every=20, checkpoint_dir=str(ckpt_dir)))
     kwargs = dict(mecefo=tbase.MeCeFOConfig(**mecefo), trace_replay=str(DATA / name),
                   trace_record=str(rec))
-    spawn(trainer_rank, 2, args, kwargs, str(init), str(tmp_path / "rank"), timeout=600)
+    spawn(trainer_rank, 2, args, kwargs, str(init), str(tmp_path / "rank"), device="cpu",
+          timeout=600)
     ranks = [torch.load(tmp_path / f"rank.{r}.pt", weights_only=False) for r in range(2)]
     assert ranks[0]["hist"] and all(r["ok"] for r in ranks)
     for r in ranks:
