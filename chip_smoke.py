@@ -18,9 +18,16 @@ each printing JSON lines:
              and the prefill's two) in turns against F.rms_norm, warm at the
              decode shapes beside the floor, after a clean L2 flush at the
              prefill's (2048, 1024), and batch invariant (rows alone equal
-             to the same rows among 2048 or 32768); SwiGLU at the decode
-             round's (8, 3072), cold and warm, and over the MoE expert
-             buffers (1024, 768) and (5120, 768), cold and warm; the
+             to the same rows among 2048 or 32768); SwiGLU (#4) in both
+             arithmetics (the TPU kernel's and the JAX trunk's, bitwise
+             equal to the plain version) at the decode round's (8, 3072),
+             the MoE expert buffers (1024, 768) and (5120, 768) (cold and
+             warm beside the PDL floor), the prefill's (2048, 3072) and the
+             train step's (8192, 2736), its time after the grouped
+             up-product ("in place"), and its backward kernel against
+             autograd of the plain version (bf16 within one ulp) beside
+             the plain backward's time and that of autograd through the
+             recomputed plain forward; the
              paged decode also bitwise-invariant to the physical page
              layout, with exact zeros on length-0 lanes; the dense flash
              decode (kernel #5) with exact zeros on length-0 lanes, right
@@ -42,8 +49,10 @@ each printing JSON lines:
              with its rounding row; the norm, activation and attention
              kernels also at the training path's shapes, where each
              autograd Function's gradient must equal the plain version's
-             (a check of the wiring: the backward recomputes the plain
-             version).
+             autograd gradient (a check of the wiring: the norm's and the
+             attention's backwards recompute the plain version, exactly;
+             the activation's is the swiglu_bwd kernel, within one bf16
+             ulp).
 3. serve   — full-width qwen3-0.6b (bf16, seeded weights) serves 16 seeded
              requests to completion through the port's engine on the paged
              decode round; launch counts must be exactly those the engine's
@@ -352,7 +361,9 @@ from repro_torch.ft.failures import SCENARIOS  # noqa: E402
 from repro_torch.ft.injectors import chaos_preset  # noqa: E402
 from repro_torch.ft.policy import verify_decisions  # noqa: E402
 from repro_torch.ft.trace import load_trace, replay_engine, verify_replay  # noqa: E402
-from repro_torch.kernels import PTR, _build, check_launch, kernel_fn, plain_versions  # noqa: E402
+from repro_torch.kernels import (  # noqa: E402
+    PTR, _build, check_launch, kernel_fn, plain_versions, recompute_grads,
+)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     ROUND_SLACK, flash_attention, flash_attention_plain, rounding_ratio,
 )
@@ -368,7 +379,9 @@ from repro_torch.kernels.paged_decode import (  # noqa: E402
 )
 from repro_torch.kernels.paged_decode_q8 import paged_decode_q8, paged_decode_q8_plain  # noqa: E402
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain  # noqa: E402
-from repro_torch.kernels.swiglu import swiglu, swiglu_plain  # noqa: E402
+from repro_torch.kernels.swiglu import (  # noqa: E402
+    swiglu, swiglu_bwd, swiglu_bwd_launch, swiglu_bwd_plain, swiglu_launch, swiglu_plain,
+)
 from repro_torch.launch.profile import (  # noqa: E402
     BATCH as TRAIN_B, CONFIG as TRAIN_CONFIG, FLAGS as TRAIN_FLAGS, PLAN as TRAIN_PLAN,
     RANK as TRAIN_RANK, SEQ_LEN as TRAIN_S, SSM_BATCH, SSM_PLAN, profile_step, train_cell,
@@ -408,7 +421,7 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # bf16 tensor cores; 
 TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-2, 2 ** -7)}
 
 WRAPPERS = {
-    "rmsnorm": rmsnorm, "swiglu": swiglu,
+    "rmsnorm": rmsnorm, "swiglu": swiglu, "swiglu_bwd": swiglu_bwd,
     "flash_attention": flash_attention, "paged_decode": paged_decode,
     "lowrank_wgrad": lowrank_wgrad_project, "flash_decode": flash_decode,
     "paged_decode_q8": paged_decode_q8,
@@ -416,6 +429,9 @@ WRAPPERS = {
 REPLACES = {
     "rmsnorm": "src/repro/kernels/rmsnorm.py:22",
     "swiglu": "src/repro/kernels/swiglu.py:20",
+    # the TPU kernel has no backward kernel: autodiff differentiates it
+    "swiglu_bwd": "backward of src/repro/kernels/swiglu.py:20; the JAX trunk's autodiff of "
+                  "src/repro/models/layers.py:330",
     "flash_attention": "src/repro/kernels/flash_attention.py:74",
     "paged_decode": "src/repro/kernels/paged_decode.py:51",
     "lowrank_wgrad": "src/repro/kernels/lowrank_wgrad.py:44",
@@ -424,7 +440,9 @@ REPLACES = {
     "paged_decode_q8": "src/repro/kernels/xla_paged.py:51",
 }
 SERVE_KERNELS = ("rmsnorm", "swiglu", "flash_attention", "paged_decode", "flash_decode")
-TRAIN_KERNELS = ("rmsnorm", "swiglu", "flash_attention", "lowrank_wgrad")
+TRAIN_KERNELS = ("rmsnorm", "swiglu", "swiglu_bwd", "flash_attention", "lowrank_wgrad")
+# the source of each kernel, where it is not csrc/<name>.cu
+KERNEL_SOURCES = {"swiglu_bwd": "swiglu"}
 
 # kernel #6 against its plain version, relative to max |ref|.  Both sides
 # multiply the same operands (bf16 or f32) with f32 products and sums, so
@@ -496,6 +514,24 @@ NORM_PREFILL = [(B_PRE * S_PRE, D), (B_PRE * S_PRE * H, HD)]
 DEC_HEADS = [(32, 2, 128), (48, 1, 128), (24, 2, 192), (32, 32, 96)]
 # prefill attention at the new head widths: phi-3-vision, nemotron's share
 PRE_HEADS = [(32, 32, 96), (24, 2, 192)]
+# kernel #4 (SwiGLU) at the main path's (rows, f) in bf16: the decode
+# round's FFN hidden, the MoE expert buffers of a decode round and of a
+# 512-token prefill (qwen3-moe: 128 experts x capacity 8 / 40, d_ff_expert
+# 768), the prefill's and the train step's FFN hidden (the first three also
+# warm); the backward at the train step's, the prefill's and the two expert
+# buffers'.
+SWIGLU_SHAPES = [(B_DEC, DFF), (128 * 8, 768), (128 * 40, 768), (B_PRE * S_PRE, DFF),
+                 (TRAIN_B * TRAIN_S, 2736)]
+SWIGLU_WARM = SWIGLU_SHAPES[:3]
+SWIGLU_BWD_SHAPES = [(TRAIN_B * TRAIN_S, 2736), (B_PRE * S_PRE, DFF), (128 * 40, 768),
+                     (128 * 8, 768)]
+# #4's forward must equal its plain version bitwise: the flat walk with a
+# plain launch did at every main-path shape and dtype on the card (PERF.md
+# §6)
+SWIGLU_BITWISE = True
+# the in-place row: qwen3-moe's grouped up-product over a decode round's
+# buffer (experts, capacity, d_model, d_ff_expert), then #4
+SWIGLU_IN_PLACE = (128, 8, 2048, 768)
 ECFG = EngineConfig(max_slots=8, page_size=16, pages_per_slot=64)
 PAGED_ECFG = dataclasses.replace(ECFG, use_paged_kernel=True)
 SPEC = WorkloadSpec(n_requests=16, vocab_size=151936, prompt_len=(64, 512),
@@ -755,11 +791,12 @@ def bound(bytes_moved: int, ops: float, dtype) -> tuple:
 
 
 def compare(name, dtype, shape, out, ref, timer, call_k, call_p, moved, ops, call_lib=None,
-            ops_dtype=None):
+            ops_dtype=None, **extra):
     """The kernel's output against its plain version's at TOL, with its cold
     time beside the plain version's, the bound and the library call's (no
     times when ``timer`` is None).  ``ops_dtype``: the type whose peak rate
-    bounds the operations, when it is not the output's."""
+    bounds the operations, when it is not the output's; ``extra``: more
+    fields of the row."""
     atol, rtol = TOL[dtype]
     err = (out.float() - ref.float()).abs()
     ok = bool((err <= atol + rtol * ref.float().abs()).all()) and bool(torch.isfinite(out.float()).all())
@@ -771,7 +808,7 @@ def compare(name, dtype, shape, out, ref, timer, call_k, call_p, moved, ops, cal
         "ok": ok, "ms": timer(call_k) if timed else None,
         "plain_ms": timer(call_p) if timed else None,
         "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": timer(call_lib) if timed and call_lib is not None else None,
+        "library_ms": timer(call_lib) if timed and call_lib is not None else None, **extra,
     }
     emit(row)
     if not ok:
@@ -841,8 +878,10 @@ def train_shape_rows(timer, randn) -> None:
     each held against its plain version as the serving rows are, in bf16
     and f32.  Then the wiring of each autograd Function: its output must
     carry autograd history, and its gradient equal the plain version's
-    autograd gradient exactly (its backward recomputes the plain version,
-    so this checks the Function, not the kernel)."""
+    autograd gradient exactly (the norm's and the attention's backwards
+    recompute the plain version, so there this checks the Function; the
+    activation's, in the model path's arithmetic, is the swiglu_bwd
+    kernel, bitwise autograd's on the card)."""
     import torch.nn.functional as F
 
     B, S, H, hd, D, FF = TRAIN_B, TRAIN_S, 16, 64, 1024, 2736
@@ -857,8 +896,9 @@ def train_shape_rows(timer, randn) -> None:
             "rmsnorm": (rmsnorm, rmsnorm_plain, (x, sc), [T, D],
                         2 * x.numel() * es + D * es, 4.0 * x.numel(),
                         lambda: F.rms_norm(x, (D,), sc, 1e-5)),
-            "swiglu": (swiglu, swiglu_plain, (g, u), [T, FF], 3 * g.numel() * es,
-                       5.0 * g.numel(), None),
+            "swiglu": (lambda g_, u_: swiglu(g_, u_, round_silu=True),
+                       lambda g_, u_: swiglu_plain(g_, u_, True), (g, u), [T, FF],
+                       3 * g.numel() * es, 5.0 * g.numel(), None),
             "flash_attention": (flash_attention, flash_attention_plain, (q, k, v),
                                 [B, S, H, H, hd], 4 * nbytes(q), 4.0 * hd * pairs,
                                 sdpa_call(q, k, v)),
@@ -1016,10 +1056,10 @@ def launch_floor_row(dev, timer, warm) -> dict:
     return row
 
 
-def warm_row(name, shape, row, floor, warm, call_k, call_lib=None, pdl=False) -> None:
+def warm_row(name, shape, row, floor, warm, call_k, call_lib=None, pdl=False, **extra) -> None:
     """A decode-shape kernel warm (WarmTimer) beside its cold time, the
     library call's and the launch floor's (the floor of a launch like the
-    kernel's: ``pdl`` for #3); each time over the floor's."""
+    kernel's: ``pdl`` for #3 and #4); each time over the floor's."""
     k_warm = warm(call_k)
     lib_warm = warm(call_lib) if call_lib is not None else None
     key = "pdl_" if pdl else ""
@@ -1031,7 +1071,93 @@ def warm_row(name, shape, row, floor, warm, call_k, call_lib=None, pdl=False) ->
           "cold_over_floor": row["ms"] / floor[key + "cold_ms"],
           "warm_over_floor": k_warm / floor[key + "warm_ms"],
           "warm_over_plain_floor": k_warm / floor["warm_ms"],
-          "bound_share_warm": row["bound_ms"] / k_warm})
+          "bound_share_warm": row["bound_ms"] / k_warm, **extra})
+
+
+def bf16_ulps(a, b) -> float:
+    """The largest |a - b| in bf16 ulps of b (8 significant bits)."""
+    ref = b.float().abs().clamp_min(torch.finfo(torch.float32).tiny)
+    return float(((a.float() - b.float()).abs() / torch.exp2(torch.floor(torch.log2(ref)) - 7))
+                 .max())
+
+
+def swiglu_rows(timer, warm, floor, randn) -> dict:
+    """Kernel #4 (``csrc/swiglu.cu``).  The forward in both arithmetics at
+    SWIGLU_SHAPES in bf16 and at the prefill's shape in f32, against its
+    plain version (bitwise where SWIGLU_BITWISE, else TOL with the count of
+    elements apart), cold, and warm beside the PDL floor at SWIGLU_WARM;
+    the in-place row; the backward kernel against autograd of the plain
+    version (TOL, bf16 within one ulp) at SWIGLU_BWD_SHAPES and the train
+    step's in f32, the main path's arithmetic timed beside the plain
+    backward and the recompute path (``recompute_grads`` of the plain
+    forward, the Function's backward before the kernel).
+    Returns the final line's rows: the forward's at the prefill's shape
+    and the backward's at the train step's, in the trunk's arithmetic."""
+    bf, rows = torch.bfloat16, {}
+    for dtype, shapes in ((bf, SWIGLU_SHAPES), (torch.float32, [(B_PRE * S_PRE, DFF)])):
+        es = torch.finfo(dtype).bits // 8
+        for shape in shapes:
+            g, u = randn(*shape, dtype=dtype), randn(*shape, dtype=dtype)
+            for rs in (False, True):
+                out, ref = swiglu(g, u, round_silu=rs), swiglu_plain(g, u, rs)
+                apart = int((out != ref).sum())
+                r = compare("swiglu", dtype, list(shape), out, ref, timer,
+                            lambda: swiglu(g, u, round_silu=rs), lambda: swiglu_plain(g, u, rs),
+                            3 * g.numel() * es, 5.0 * g.numel(), ops_dtype=torch.float32,
+                            round_silu=rs, n_apart_from_plain=apart,
+                            gate="bitwise" if SWIGLU_BITWISE else "TOL")
+                if SWIGLU_BITWISE and apart:
+                    raise AssertionError(f"swiglu {dtype} {shape} round_silu={rs}: {apart} "
+                                         "elements apart from the plain version")
+                if dtype == bf and shape in SWIGLU_WARM:
+                    warm_row("swiglu", list(shape), r, floor, warm,
+                             lambda: swiglu(g, u, round_silu=rs), pdl=True, round_silu=rs)
+                if shape == (B_PRE * S_PRE, DFF) and rs:
+                    rows[("swiglu", dtype)] = r
+    # in place: after the grouped up-product, as the MoE decode round runs it
+    E, C, dm, f = SWIGLU_IN_PLACE
+    x, w, u = randn(E, C, dm, dtype=bf), randn(E, dm, f, dtype=bf), randn(E, C, f, dtype=bf)
+    turn = []
+    for _ in range(2):
+        both = warm(lambda: swiglu(torch.bmm(x, w), u, round_silu=True))
+        alone = warm(lambda: torch.bmm(x, w))
+        turn.append([both, alone, both - alone])
+    emit({"phase": "kernels", "kernel": "swiglu", "dtype": "bfloat16", "run": "in place",
+          "product": f"bmm ({E}, {C}, {dm}) x ({E}, {dm}, {f})", "shape": [E * C, f],
+          "turns_ms": turn, "note": "[product then #4, product alone, difference], warm",
+          "in_place_ms": min(t_[2] for t_ in turn)})
+    del x, w, u
+    # the backward
+    for shape, dtype in [(s_, bf) for s_ in SWIGLU_BWD_SHAPES] + [
+            (SWIGLU_BWD_SHAPES[0], torch.float32)]:
+        es = torch.finfo(dtype).bits // 8
+        g, u, dy = (randn(*shape, dtype=dtype) for _ in range(3))
+        for rs in (False, True):
+            a = [g.clone().requires_grad_(), u.clone().requires_grad_()]
+            want = torch.autograd.grad(swiglu_plain(*a, rs), a, dy)
+            got = swiglu_bwd_launch(g, u, dy, round_silu=rs)
+            plain = swiglu_bwd_plain(g, u, dy, rs)
+            ulps = max(bf16_ulps(x_, y_) for x_, y_ in zip(got, want)) if dtype == bf else None
+            timed = timer if rs else None
+            recompute = (timer(lambda: recompute_grads(swiglu_plain, (g, u), (True, True), dy))
+                    if rs else None)
+            r = compare("swiglu_bwd", dtype, list(shape), torch.stack(got), torch.stack(want),
+                        timed, lambda: swiglu_bwd_launch(g, u, dy, round_silu=rs),
+                        lambda: swiglu_bwd_plain(g, u, dy, rs), 5 * g.numel() * es,
+                        20.0 * g.numel(), ops_dtype=torch.float32, round_silu=rs,
+                        against="autograd of swiglu_plain",
+                        n_apart=sum(int((x_ != y_).sum()) for x_, y_ in zip(got, want)),
+                        max_bf16_ulps=ulps,
+                        plain_n_apart=sum(int((x_ != y_).sum()) for x_, y_ in zip(plain, want)),
+                        recompute_path_ms=recompute)
+            if ulps is not None and ulps > 1:
+                raise AssertionError(f"swiglu_bwd {shape} round_silu={rs}: {ulps} bf16 ulps "
+                                     "from autograd of the plain version")
+            if shape == SWIGLU_BWD_SHAPES[0] and dtype == bf and rs:
+                rows[("swiglu_bwd", bf)] = r
+            del a, want, got, plain
+        del g, u, dy
+    return rows
 
 
 def clean_flush_row(dev, floor, randn) -> None:
@@ -1152,24 +1278,7 @@ def kernel_phase(dev, timer) -> dict:
         if dtype == torch.bfloat16:
             clean_flush_row(dev, floor, randn)
             norm_batch_rows(randn)
-            g, u = randn(B_DEC, DFF, dtype=dtype), randn(B_DEC, DFF, dtype=dtype)
-            r = compare("swiglu", dtype, [B_DEC, DFF], swiglu(g, u), swiglu_plain(g, u), timer,
-                        lambda: swiglu(g, u), lambda: swiglu_plain(g, u), 3 * g.numel() * es,
-                        5.0 * g.numel())
-            warm_row("swiglu", [B_DEC, DFF], r, floor, warm, lambda: swiglu(g, u))
-            # the MoE expert buffers of a decode round and of a 512-token prefill
-            for rows_ in NEW_SWIGLU_ROWS:
-                g, u = randn(rows_, 768, dtype=dtype), randn(rows_, 768, dtype=dtype)
-                r = compare("swiglu", dtype, [rows_, 768], swiglu(g, u), swiglu_plain(g, u),
-                            timer, lambda: swiglu(g, u), lambda: swiglu_plain(g, u),
-                            3 * g.numel() * es, 5.0 * g.numel())
-                warm_row("swiglu", [rows_, 768], r, floor, warm, lambda: swiglu(g, u))
-        # swiglu over the FFN hidden
-        g, u = randn(B_PRE * S_PRE, DFF, dtype=dtype), randn(B_PRE * S_PRE, DFF, dtype=dtype)
-        rows[("swiglu", dtype)] = compare(
-            "swiglu", dtype, [B_PRE * S_PRE, DFF], swiglu(g, u), swiglu_plain(g, u), timer,
-            lambda: swiglu(g, u), lambda: swiglu_plain(g, u), 3 * g.numel() * es,
-            5.0 * g.numel())
+            rows.update(swiglu_rows(timer, warm, floor, randn))
         # causal GQA prefill attention
         q = randn(B_PRE, S_PRE, H, HD, dtype=dtype)
         k, v = randn(B_PRE, S_PRE, KV, HD, dtype=dtype), randn(B_PRE, S_PRE, KV, HD, dtype=dtype)
@@ -1535,8 +1644,10 @@ def train_launches_per_step(cfg, mode: str, flags: ExecFlags, mecefo: MeCeFOConf
     in_proj and out_proj; a dense FFN's 3 with a gate, else 2, unless it
     has zero width) launches kernel #6 once in the backward unless the step
     is exact (the MoE experts' grouped low-rank backward is batched
-    products, as in the reference).  The backwards of the norm, activation
-    and attention recompute their plain versions and launch nothing."""
+    products, as in the reference); each SwiGLU (dense or an MoE layer's
+    experts, not zero-width) launches its backward kernel once, recompute
+    or not.  The backwards of the norm and attention recompute their plain
+    versions and launch nothing."""
     if flags.remat not in ("none", "ffn"):
         raise ValueError(f"no launch count derived for remat {flags.remat!r}")
     L = cfg.n_layers
@@ -1552,6 +1663,7 @@ def train_launches_per_step(cfg, mode: str, flags: ExecFlags, mecefo: MeCeFOConf
         "rmsnorm": ((1 + 2 * cfg.qk_norm) * attn + (2 + 2 * ssm_recompute) * ssm
                     + (1 + recompute) * L + 1),
         "swiglu": (1 + recompute) * (dense + moe) if gated else 0,
+        "swiglu_bwd": dense + moe if gated else 0,
         "flash_attention": attn,
         "lowrank_wgrad": 0 if exact else (3 if gated else 2) * dense + 2 * ssm,
     }
@@ -3020,13 +3132,14 @@ def ssm_kernel_rows(dev, timer) -> dict:
               lambda: torch.linalg.multi_dot([v1.T, x.T, dy]))
     before = {n: WRAPPERS[n].launches for n in WRAPPERS}
     g0 = randn(T, 0)
-    outs = {"swiglu (T, 0)": swiglu(g0, g0),
+    outs = {"swiglu (T, 0)": swiglu(g0, g0), "swiglu_bwd (T, 0)": swiglu_bwd(g0, g0, g0)[0],
             "lowrank_wgrad m 0": lowrank_wgrad_project(randn(T, d), randn(T, 0), randn(d, 0)),
             "lowrank_wgrad n 0": lowrank_wgrad_project(randn(T, 0), randn(T, d), randn(0, 0))}
     torch.cuda.synchronize()
     launched = {n: WRAPPERS[n].launches - before[n] for n in WRAPPERS}
     shapes = {k: list(v.shape) for k, v in outs.items()}
     ok = (not any(launched.values()) and shapes["swiglu (T, 0)"] == [T, 0]
+          and shapes["swiglu_bwd (T, 0)"] == [T, 0]
           and shapes["lowrank_wgrad m 0"] == [0, 0] and shapes["lowrank_wgrad n 0"] == [0, d])
     emit({"phase": "kernels", "run": "zero-element calls", "shapes": shapes,
           "launches": launched, "ok": ok})
@@ -3173,9 +3286,11 @@ def ssm_train_phase(dev) -> tuple:
     # the zero-width FFN: its SwiGLU and #6 calls are empty and launch nothing
     L = cfg.n_layers
     zero = {"swiglu": {m: (1 + 1) * L for m in TRAIN_MODES},  # forward + FFN recompute
+            "swiglu_bwd": {m: L for m in TRAIN_MODES},
             "lowrank_wgrad": {m: 0 if m == "off" else 3 * L for m in TRAIN_MODES}}
     emit({"phase": "mamba2 train", "run": "zero-width FFN calls per step (no launch)",
-          "calls": zero, "swiglu_launches": {m: rows[m]["launches"]["swiglu"] for m in rows}})
+          "calls": zero, "swiglu_launches": {m: rows[m]["launches"]["swiglu"] for m in rows},
+          "swiglu_bwd_launches": {m: rows[m]["launches"]["swiglu_bwd"] for m in rows}})
     # where the device time goes: the plain SSD scan's share
     for mode in ("off", "degraded"):
         free_card("mamba2 profile", 0)
@@ -4046,7 +4161,7 @@ def ma_gate(spec: dict, ranks: list, fails: list, on_card: bool) -> None:
         ok = (max(errs.values()) <= tol and loss_err <= tol and bitwise and metrics_equal
               and held_ok and all(reached.values()) and (kind == "fsdp" or row["model_cut_leaves"]))
         if on_card:  # every kernel of the run's path launched on every rank
-            need = ["rmsnorm", "swiglu", "flash_attention"]
+            need = ["rmsnorm", "swiglu", "swiglu_bwd", "flash_attention"]
             if cfg.moe is None and mode != "off":
                 need.append("lowrank_wgrad")
             row["launches_by_rank"] = [r["launches"] for r in runs]
@@ -4607,8 +4722,10 @@ def main() -> int:
     del cfg, params, workload
     torch.cuda.empty_cache()
     # each kernel's launches from its own path: the paged serve run's for
-    # #1-#4, the dense serve run's for #5, the training run's for #6
-    launches["lowrank_wgrad"] = train_phase(dev)["lowrank_wgrad"]
+    # #1-#4, the dense serve run's for #5, the training run's for #6 and
+    # #4's backward
+    train = train_phase(dev)
+    launches["lowrank_wgrad"], launches["swiglu_bwd"] = train["lowrank_wgrad"], train["swiglu_bwd"]
     train_parity_phase(dev)
     trainer_phase(dev)
     statexfer_phase(dev)
@@ -4627,7 +4744,8 @@ def main() -> int:
     later.update(mesh_serve_phase(dev, timer))
 
     emit({"kernels": [
-        {"name": n, "route": "cuda", "source": f"src/repro_torch/csrc/{n}.cu",
+        {"name": n, "route": "cuda",
+         "source": f"src/repro_torch/csrc/{KERNEL_SOURCES.get(n, n)}.cu",
          "replaces": REPLACES[n], "launches": launches[n],
          **{k: rows[(n, torch.bfloat16)][k] for k in
             ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},

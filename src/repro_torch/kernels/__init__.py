@@ -114,12 +114,14 @@ def kernel_fn(lib: str, fn: str, argtypes, restype=ctypes.c_int):
     return f
 
 
-def check_launch(lib: str, err: int) -> None:
+def check_launch(lib: str, err: int, kernel: str = "") -> None:
+    """Raise on a launch function's error code; ``kernel`` names the kernel
+    where it is not ``csrc/<lib>.cu``'s own."""
     if err != 0:
         es = _build.load(lib).cuda_error_string
         es.argtypes = [ctypes.c_int]
         es.restype = ctypes.c_char_p
-        raise RuntimeError(f"{lib} kernel launch failed: {es(err).decode()} ({err})")
+        raise RuntimeError(f"{kernel or lib} kernel launch failed: {es(err).decode()} ({err})")
 
 
 # ctypes argument types of the C launch functions: every pointer and the

@@ -53,7 +53,8 @@ CELLS = {CONFIG: (BATCH, PLAN), SSM_CONFIG: (SSM_BATCH, SSM_PLAN)}
 FLAGS = ExecFlags(remat="ffn")  # the Trainer's default (repro/launch/train.py:83-85)
 # the port's kernels by the names of their CUDA functions (csrc/*.cu)
 PORT_KERNELS = {"lowrank_wgrad": "lowrank_", "flash_attention": "flash_fwd_",
-                "rmsnorm": "rmsnorm_", "swiglu": "swiglu_kernel"}
+                "rmsnorm": "rmsnorm_", "swiglu": "swiglu_kernel",
+                "swiglu_bwd": "swiglu_bwd_kernel"}
 
 
 @dataclass

@@ -317,7 +317,7 @@ def ffn_block(
         u = _lin(xn, p["w_up"], _p(proj, "w_up"), keep, lowrank_mode, sync)
         if cfg.ffn_act == "swiglu":
             g = _lin(xn, p["w_gate"], _p(proj, "w_gate"), keep, lowrank_mode, sync)
-            h = swiglu(g, u)
+            h = swiglu(g, u, round_silu=True)  # the trunk rounds silu(g) first
         else:
             h = nonlin(u, cfg.ffn_act)
         return _lin(h, p["w_down"], _p(proj, "w_down"), keep, lowrank_mode, sync, row=cut)

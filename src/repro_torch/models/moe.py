@@ -132,7 +132,7 @@ def experts(p, xbuf: torch.Tensor, kbuf: torch.Tensor, cfg: ModelConfig, proj=No
     if cfg.ffn_act == "swiglu":
         g = _glin(xbuf, p["w_gate"], _pp(proj, "w_gate"), kbuf, lowrank_mode, sync)
         u = _glin(xbuf, p["w_up"], _pp(proj, "w_up"), kbuf, lowrank_mode, sync)
-        h = swiglu(g, u)
+        h = swiglu(g, u, round_silu=True)  # the trunk rounds silu(g) first
     else:
         u = _glin(xbuf, p["w_up"], _pp(proj, "w_up"), kbuf, lowrank_mode, sync)
         h = nonlin(u, cfg.ffn_act)

@@ -38,7 +38,8 @@ from repro_torch.serve.request import WorkloadSpec, build_workload
 # decode kernels' split passes by their row policy, their shared combine pass
 PORT_KERNELS = {"paged_decode": "PagedRows>", "flash_decode": "DenseRows",
                 "decode_combine": "decode::combine_kernel", "flash_attention": "flash_fwd_",
-                "rmsnorm": "rmsnorm_", "swiglu": "swiglu_kernel"}
+                "rmsnorm": "rmsnorm_", "swiglu": "swiglu_kernel",
+                "swiglu_bwd": "swiglu_bwd_kernel"}
 
 
 # the model's parts: (module, function) the profiled run labels

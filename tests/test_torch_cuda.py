@@ -9,8 +9,11 @@ with the card:
 Tolerances: f32 1e-5 (the kernels and the plain versions sum in other
 orders), bf16 one bf16 ulp relative (2^-7) plus 1e-2 absolute for values
 rounded on either side of a bf16 boundary.  Gradients through a kernel's
-autograd Function are the plain version's exactly (its backward recomputes
-the plain version).  Kernel #6 is held at 1e-4 relative to max |ref| in
+autograd Function are the plain version's exactly (the norm's and the
+attention's backwards recompute the plain version; SwiGLU's backward kernel
+takes autograd's roundings, bitwise on the card).  SwiGLU's forward equals
+its plain version bitwise in both arithmetics, and its backward kernel is
+within one bf16 ulp of autograd of the plain version.  Kernel #6 is held at 1e-4 relative to max |ref| in
 both dtypes: both sides multiply the same operands with f32 products and
 sums, and differ only in summation order (bf16: P split into two bf16
 terms, ~2^-17 relative).  The bf16 flash attention is also held within
@@ -594,6 +597,91 @@ def test_kernels_at_the_mamba2_shapes(cuda, dtype, case):
     assert float((a - ref).abs().max()) <= 1e-4 * (float(ref.abs().max()) + 1e-6)
 
 
+def _bf16_ulps(a, b):
+    ref = b.float().abs().clamp_min(torch.finfo(torch.float32).tiny)
+    return float(((a.float() - b.float()).abs() / torch.exp2(torch.floor(torch.log2(ref)) - 7))
+                 .max())
+
+
+def _swiglu_inputs(dev, dtype, shape, offset=0):
+    """g ~ 3 N(0, 1), u and dy ~ N(0, 1); ``offset`` elements into a larger
+    buffer, so that an odd offset gives views that are not 16-byte aligned
+    (the kernels' scalar path)."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    n = 1
+    for s in shape:
+        n *= s
+    scale = (3.0, 1.0, 1.0)
+    return [(sc * torch.randn(n + offset, generator=gen, device=dev)).to(dtype)[offset:]
+            .view(shape) for sc in scale]
+
+
+@pytest.mark.parametrize("round_silu", [False, True], ids=["pallas", "trunk"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape,offset", [((1024, 768), 0), ((37, 100), 0), ((3, 7), 0),
+                                          ((8, 3072), 1), ((129, 33), 3)])
+def test_swiglu_forward_and_backward_kernels(cuda, dtype, round_silu, shape, offset):
+    """Both kernels in both arithmetics: the forward bitwise its plain
+    version, the backward within TOL and one bf16 ulp of autograd of the
+    plain version; odd tails and views off 16-byte alignment."""
+    from repro_torch.kernels import swiglu as sg
+
+    g, u, dy = _swiglu_inputs(cuda, dtype, shape, offset)
+    assert (g.data_ptr() % 16 != 0) == (offset != 0)
+    n = (sg.swiglu.launches, sg.swiglu_bwd.launches)
+    assert torch.equal(sg.swiglu(g, u, round_silu=round_silu), sg.swiglu_plain(g, u, round_silu))
+    a = [g.clone().requires_grad_(), u.clone().requires_grad_()]
+    want = torch.autograd.grad(sg.swiglu_plain(*a, round_silu), a, dy)
+    got = sg.swiglu_bwd(g, u, dy, round_silu)
+    assert (sg.swiglu.launches, sg.swiglu_bwd.launches) == (n[0] + 1, n[1] + 1)
+    for x, w in zip(got, want):
+        _close(x, w, dtype)
+        if dtype == torch.bfloat16:
+            assert _bf16_ulps(x, w) <= 1.0
+
+
+@pytest.mark.parametrize("round_silu", [False, True], ids=["pallas", "trunk"])
+def test_swiglu_function_backward_is_the_kernel(cuda, round_silu):
+    """Through SwiGLUFn the backward launches swiglu_bwd once and never
+    the forward again; under plain_versions() neither kernel launches."""
+    from repro_torch.kernels import plain_versions
+    from repro_torch.kernels import swiglu as sg
+
+    g, u, dy = _swiglu_inputs(cuda, torch.bfloat16, (64, 256))
+    a = [t.clone().requires_grad_() for t in (g, u)]
+    y = sg.swiglu(*a, round_silu=round_silu)
+    n = (sg.swiglu.launches, sg.swiglu_bwd.launches)
+    got = torch.autograd.grad(y, a, dy)
+    assert (sg.swiglu.launches, sg.swiglu_bwd.launches) == (n[0], n[1] + 1)
+    with plain_versions():
+        b = [t.clone().requires_grad_() for t in (g, u)]
+        want = torch.autograd.grad(sg.swiglu(*b, round_silu=round_silu), b, dy)
+    assert (sg.swiglu.launches, sg.swiglu_bwd.launches) == (n[0], n[1] + 1)
+    for x, w in zip(got, want):
+        _close(x, w, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_swiglu_waits_for_the_product_before_it(cuda, dtype):
+    """Programmatic dependent launch: g and u come from matrix products
+    issued just before the kernels, with no sync between; the results are
+    bitwise those of the same calls after torch.cuda.synchronize()."""
+    from repro_torch.kernels import swiglu as sg
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(4096, 1024, generator=gen, device=cuda).to(dtype)
+    w1, w2 = (torch.randn(1024, 2736, generator=gen, device=cuda).to(dtype) for _ in range(2))
+    torch.cuda.synchronize()
+    for _ in range(3):
+        g, u = x @ w1, x @ w2
+        y = sg.swiglu(g, u, round_silu=True)
+        dg, du = sg.swiglu_bwd(g, u, x @ w1, True)
+        torch.cuda.synchronize()
+        assert torch.equal(y, sg.swiglu(g, u, round_silu=True))
+        dg2, du2 = sg.swiglu_bwd(g, u, x @ w1, True)
+        assert torch.equal(dg, dg2) and torch.equal(du, du2)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_zero_element_calls_launch_nothing(cuda, dtype):
     """mamba2's zero-width FFN: #4 on (T, 0) and #6 with m = 0 or n = 0
@@ -602,19 +690,22 @@ def test_zero_element_calls_launch_nothing(cuda, dtype):
     zero rows."""
     from repro_torch.kernels.lowrank_wgrad import lowrank_wgrad_project
     from repro_torch.kernels.rmsnorm import rmsnorm
-    from repro_torch.kernels.swiglu import swiglu
+    from repro_torch.kernels.swiglu import swiglu, swiglu_bwd
 
     def z(*shape):
         return torch.zeros(*shape, device=cuda, dtype=dtype)
 
-    counts = (rmsnorm.launches, swiglu.launches, lowrank_wgrad_project.launches)
+    counts = (rmsnorm.launches, swiglu.launches, swiglu_bwd.launches,
+              lowrank_wgrad_project.launches)
     assert swiglu(z(64, 0), z(64, 0)).shape == (64, 0)
+    assert [t.shape for t in swiglu_bwd(z(64, 0), z(64, 0), z(64, 0))] == [(64, 0)] * 2
     assert rmsnorm(z(0, 256), z(256)).shape == (0, 256)
     a = lowrank_wgrad_project(z(64, 256), z(64, 0), z(256, 0))
     b = lowrank_wgrad_project(z(64, 0), z(64, 256), z(0, 0))
     torch.cuda.synchronize()
     assert a.shape == (0, 0) and b.shape == (0, 256) and not b.any()
-    assert (rmsnorm.launches, swiglu.launches, lowrank_wgrad_project.launches) == counts
+    assert (rmsnorm.launches, swiglu.launches, swiglu_bwd.launches,
+            lowrank_wgrad_project.launches) == counts
 
 
 # the bf16 kernel's edges: T not a multiple of its 64-token steps or of the
