@@ -88,15 +88,11 @@ class ParallelConfig:
 
     def check(self, mesh_shape: dict, cfg: Optional["ModelConfig"] = None) -> None:
         """Raise for what the port does not run yet on a mesh of
-        ``mesh_shape`` ({axis: size}) for ``cfg``'s model family."""
+        ``mesh_shape`` ({axis: size}): axes other than ``data`` and
+        ``model``.  Every model family of ``cfg``'s runs on both."""
         later = "runs in a later slice of the port"
         if self.sharding_mode not in ("tp_fsdp", "fsdp"):
             raise ValueError(f"sharding_mode {self.sharding_mode!r}")
-        if (mesh_shape.get(self.tp_axis, 1) > 1 and cfg is not None
-                and cfg.family in ("ssm", "hybrid")):
-            raise NotImplementedError(
-                f"a {self.tp_axis!r} axis above 1 for the {cfg.family!r} family (the SSM "
-                f"mixer's ssm_inner cut) {later}")
         if tuple(self.dp_axes) != ("data",):
             raise NotImplementedError(f"dp_axes {self.dp_axes}: only ('data',) {later}")
         if self.tp_axis != "model":

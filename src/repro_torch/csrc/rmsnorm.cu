@@ -45,6 +45,13 @@
 //    16-byte vectors where the row allows them, two passes over the row (L1
 //    holds it for the second); rows wider than WIDE = 16384 (nemotron-4's
 //    18432) take a 256-thread block a row with a shared-memory reduce.
+// 6. The split form, for a row cut over the model axis (the SSM mixer's
+//    gate_norm over d_inner, each rank holding its heads' d_inner/M
+//    channels): rmsnorm_sumsq_launch writes each row's f32 sum of squares
+//    over the local channels; the caller all-reduces them over the model
+//    group; rmsnorm_apply_launch takes the summed values and the whole
+//    width and writes x * rsqrt(ss / d_whole + eps) * scale.  Both walk a
+//    row with a warp, as the two passes of the warp-a-row kernel do.
 //
 // Batch invariance: the arrangement (lanes per row, each lane's columns,
 // the order of its sums, the reduction tree) is chosen from d and the
@@ -138,19 +145,10 @@ rmsnorm_regs_kernel(const T* __restrict__ x, const T* __restrict__ scale, T* __r
   }
 }
 
-// Any width up to WIDE: a warp a row, two passes (the second from L1).
+// A warp's walk of one row: the sum of squares, on every lane
 template <typename T, bool VEC>
-__global__ void __launch_bounds__(kThreads)
-rmsnorm_warp_kernel(const T* __restrict__ x, const T* __restrict__ scale, T* __restrict__ y,
-                    int rows, int d, float eps) {
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  dependent_launch_begin();
-  if (row >= rows) return;  // whole warps: a row is one warp's
-  const T* xr = x + static_cast<size_t>(row) * d;
-  T* yr = y + static_cast<size_t>(row) * d;
+__device__ __forceinline__ float warp_row_sum_sq(const T* __restrict__ xr, int d, int lane) {
   constexpr int N = Vec<T>::N;
-
   float ss = 0.f;
   if (VEC) {
     for (int c = lane * N; c < d; c += 32 * N)
@@ -161,9 +159,15 @@ rmsnorm_warp_kernel(const T* __restrict__ x, const T* __restrict__ scale, T* __r
       ss = fmaf(v, v, ss);
     }
   }
-  ss = warp_sum(ss);
-  const float r = rsqrtf(ss / static_cast<float>(d) + eps);
+  return warp_sum(ss);
+}
 
+// ... and y = (x * r) * scale over it
+template <typename T, bool VEC>
+__device__ __forceinline__ void warp_row_apply(const T* __restrict__ xr,
+                                               const T* __restrict__ scale, T* __restrict__ yr,
+                                               int d, float r, int lane) {
+  constexpr int N = Vec<T>::N;
   if (VEC) {
     for (int c = lane * N; c < d; c += 32 * N) {
       float v[N], s[N];
@@ -176,6 +180,48 @@ rmsnorm_warp_kernel(const T* __restrict__ x, const T* __restrict__ scale, T* __r
   } else {
     for (int c = lane; c < d; c += 32) yr[c] = from_f<T>((to_f<T>(xr[c]) * r) * to_f<T>(scale[c]));
   }
+}
+
+// Any width up to WIDE: a warp a row, two passes (the second from L1).
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+rmsnorm_warp_kernel(const T* __restrict__ x, const T* __restrict__ scale, T* __restrict__ y,
+                    int rows, int d, float eps) {
+  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  dependent_launch_begin();
+  if (row >= rows) return;  // whole warps: a row is one warp's
+  const T* xr = x + static_cast<size_t>(row) * d;
+  const float ss = warp_row_sum_sq<T, VEC>(xr, d, lane);
+  const float r = rsqrtf(ss / static_cast<float>(d) + eps);
+  warp_row_apply<T, VEC>(xr, scale, y + static_cast<size_t>(row) * d, d, r, lane);
+}
+
+// The split form's first pass: each row's f32 sum of squares
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+rmsnorm_sumsq_kernel(const T* __restrict__ x, float* __restrict__ ss, int rows, int d) {
+  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  dependent_launch_begin();
+  if (row >= rows) return;
+  const float s = warp_row_sum_sq<T, VEC>(x + static_cast<size_t>(row) * d, d, lane);
+  if (lane == 0) ss[row] = s;
+}
+
+// ... and its second: the rows normed by the summed squares of the whole width
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+rmsnorm_apply_kernel(const T* __restrict__ x, const float* __restrict__ ss,
+                     const T* __restrict__ scale, T* __restrict__ y, int rows, int d,
+                     float d_whole, float eps) {
+  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  dependent_launch_begin();
+  if (row >= rows) return;
+  const float r = rsqrtf(ss[row] / d_whole + eps);
+  const size_t off = static_cast<size_t>(row) * d;
+  warp_row_apply<T, VEC>(x + off, scale, y + off, d, r, lane);
 }
 
 // Rows wider than WIDE: a block a row; per-thread sums, then warp sums in
@@ -266,7 +312,48 @@ int launch(const void* x, const void* scale, void* y, int rows, int d, float eps
   return launch_pdl(kernel, blocks, kThreads, stream, xp, sp, yp, rows, d, eps);
 }
 
+template <typename T>
+int launch_sumsq(const void* x, void* ss, int rows, int d, int vec, cudaStream_t stream) {
+  const int blocks = (rows + kThreads / 32 - 1) / (kThreads / 32);
+  auto kernel = vec ? rmsnorm_sumsq_kernel<T, true> : rmsnorm_sumsq_kernel<T, false>;
+  return launch_pdl(kernel, blocks, kThreads, stream, static_cast<const T*>(x),
+                    static_cast<float*>(ss), rows, d);
+}
+
+template <typename T>
+int launch_apply(const void* x, const void* ss, const void* scale, void* y, int rows, int d,
+                 float d_whole, float eps, int vec, cudaStream_t stream) {
+  const int blocks = (rows + kThreads / 32 - 1) / (kThreads / 32);
+  auto kernel = vec ? rmsnorm_apply_kernel<T, true> : rmsnorm_apply_kernel<T, false>;
+  return launch_pdl(kernel, blocks, kThreads, stream, static_cast<const T*>(x),
+                    static_cast<const float*>(ss), static_cast<const T*>(scale),
+                    static_cast<T*>(y), rows, d, d_whole, eps);
+}
+
 }  // namespace
+
+// The split form (design note 6).  x, y: (rows, d) contiguous; ss: (rows,)
+// f32; scale: (d,); d_whole: the width the row was cut from.
+extern "C" int rmsnorm_sumsq_launch(const void* x, void* ss, int rows, int d, int dtype,
+                                    int vec, void* stream) {
+  if (rows <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == DT_F32) return launch_sumsq<float>(x, ss, rows, d, vec, s);
+  if (dtype == DT_BF16) return launch_sumsq<__nv_bfloat16>(x, ss, rows, d, vec, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" int rmsnorm_apply_launch(const void* x, const void* ss, const void* scale, void* y,
+                                    int rows, int d, int d_whole, float eps, int dtype, int vec,
+                                    void* stream) {
+  if (rows <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float dw = static_cast<float>(d_whole);
+  if (dtype == DT_F32) return launch_apply<float>(x, ss, scale, y, rows, d, dw, eps, vec, s);
+  if (dtype == DT_BF16)
+    return launch_apply<__nv_bfloat16>(x, ss, scale, y, rows, d, dw, eps, vec, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
 
 // x, y: (rows, d) contiguous; scale: (d,).  vec = 1 when every row start
 // is 16-byte aligned (d a multiple of the vector width, aligned pointers).

@@ -14,10 +14,21 @@ it; the numbers are the same, and :attr:`ShardLayout.whole` names those
 leaves.  A ``model`` dim is cut only where the model's layers cut it
 (``parallel/collectives.py:ModelAxis``: a head count the axis divides, for
 one).  V1 (``proj``) is whole over ``data`` and cut over ``model`` as its
-weight's input dim is (``w_down``'s rows, the experts).
+weight's input dim is (``w_down``'s rows, the experts, ``out_proj``'s
+rows).
+
+The fused SSM leaves take a segmented ``model`` cut
+(``models/params.py:ssm_segments``): ``in_proj``'s columns ``[z | x | B |
+C | dt]`` and the conv's channels ``[x | B | C]`` are cut piece by piece,
+rank ``m`` holding ``[z_m | x_m | B | C | dt_m]`` and ``[x_m | B | C]``,
+B and C whole on every model rank.  ``cut``, ``gather_whole`` (so
+``to_local``, ``gather_state`` and the checkpoints) and the held-bytes
+count all go through the segments, and ``gather_whole`` inverts ``cut``
+exactly.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any, NamedTuple, Optional, Tuple
 
@@ -25,7 +36,9 @@ import torch
 
 from repro_torch.configs.base import MeCeFOConfig, ModelConfig, TrainConfig
 from repro_torch.core.lowrank import init_projections, projection_annotations
-from repro_torch.models.params import init_params, param_annotations, param_shapes, tree_leaves
+from repro_torch.models.params import (
+    init_params, param_annotations, param_shapes, ssm_segments, tree_leaves,
+)
 from repro_torch.optim.optimizers import AdamWState, SGDMState, init_opt_state
 from repro_torch.parallel.sharding import (
     ShardingRules, Spec, is_annotation, map_tree, spec_leaves, spec_tree,
@@ -79,8 +92,10 @@ class ShardLayout:
     """Where a mesh's ranks cut each param leaf (and its moments), in leaf
     order: ``mdims`` the dim cut over ``model`` (never gathered), ``dims``
     the FSDP dim, cut over ``groups`` (``"data"`` or ``"world"``), None
-    for a leaf held whole along that axis; ``proj_mdims`` V1's ``model``
-    dims in the V1 tree's leaf order."""
+    for a leaf held whole along that axis; ``segs`` a leaf's pieces along
+    its model dim as (width, cut) pairs where the cut is segmented (the
+    fused SSM leaves), else None; ``proj_mdims`` V1's ``model`` dims in
+    the V1 tree's leaf order."""
 
     mesh: Any
     dims: Tuple[Optional[int], ...]
@@ -90,6 +105,7 @@ class ShardLayout:
     mdims: Tuple[Optional[int], ...] = ()
     groups: Tuple[Optional[str], ...] = ()
     proj_mdims: Tuple[Optional[int], ...] = ()
+    segs: Tuple[Optional[Tuple[Tuple[int, bool], ...]], ...] = ()
 
     @property
     def sharded(self) -> bool:
@@ -101,20 +117,70 @@ class ShardLayout:
         return any(d is not None for d in self.dims)
 
     def pieces(self, k: int) -> int:
-        """How many ranks' slices make leaf ``k`` whole."""
+        """How many ranks' slices make leaf ``k`` whole (for a segmented
+        leaf, its cut pieces)."""
         D, M = self.mesh.sizes
         n = M if self.mdims[k] is not None else 1
         if self.dims[k] is not None:
             n *= D if self.groups[k] == "data" else D * M
         return n
 
+    def seg(self, k: int):
+        """Leaf ``k``'s segments along its model dim, or None."""
+        return self.segs[k] if self.segs else None
+
+    def local_widths(self, k: int) -> list:
+        """The widths a rank holds of a segmented leaf's pieces."""
+        M = self.mesh.sizes[1]
+        return [w // M if cut else w for w, cut in self.seg(k)]
+
+    def local_shape(self, k: int) -> Tuple[int, ...]:
+        """The shape of this rank's slice of leaf ``k``."""
+        shape = list(self.shapes[k])
+        md, d = self.mdims[k], self.dims[k]
+        D, M = self.mesh.sizes
+        if md is not None:
+            shape[md] = sum(self.local_widths(k)) if self.seg(k) else shape[md] // M
+        if d is not None:
+            shape[d] //= D if self.groups[k] == "data" else D * M
+        return tuple(shape)
+
     def cut(self, t: torch.Tensor, k: int) -> torch.Tensor:
         """This rank's slice of the whole leaf ``k`` (a copy where cut):
-        along its model dim, then its FSDP dim."""
-        if self.mdims[k] is None:
+        along its model dim (piece by piece where segmented), then its
+        FSDP dim."""
+        md = self.mdims[k]
+        if md is None:
             return self.cut_fsdp(t, k)
         M, m = self.mesh.sizes[1], self.mesh.coords[1]
-        return self.cut_fsdp(t.chunk(M, dim=self.mdims[k])[m], k, copy=True)
+        seg = self.seg(k)
+        if seg is None:
+            return self.cut_fsdp(t.chunk(M, dim=md)[m], k, copy=True)
+        parts = t.split([w for w, _ in seg], dim=md)
+        mine = torch.cat([p.chunk(M, dim=md)[m] if cut else p
+                          for p, (_, cut) in zip(parts, seg)], dim=md)
+        return self.cut_fsdp(mine, k)
+
+    def join(self, slices: torch.Tensor, k: int) -> torch.Tensor:
+        """The whole leaf ``k`` from the model ranks' slices concatenated
+        along its model dim in rank order: each cut piece from every rank's
+        share, a whole piece from rank 0's."""
+        seg, md = self.seg(k), self.mdims[k]
+        if seg is None:
+            return slices
+        M = self.mesh.sizes[1]
+        ranks = [s.split(self.local_widths(k), dim=md) for s in slices.chunk(M, dim=md)]
+        return torch.cat([torch.cat([r[i] for r in ranks], dim=md) if cut else ranks[0][i]
+                          for i, (_, cut) in enumerate(seg)], dim=md)
+
+    def own(self, x: torch.Tensor, k: int) -> list:
+        """The parts of this rank's slice ``x`` of a segmented leaf that it
+        alone holds: its cut pieces, and the whole pieces on model rank 0
+        (each distinct element once over the model group)."""
+        if self.mesh.coords[1] == 0:
+            return [x]
+        parts = x.split(self.local_widths(k), dim=self.mdims[k])
+        return [p for p, (_, cut) in zip(parts, self.seg(k)) if cut]
 
     def cut_fsdp(self, t: torch.Tensor, k: int, copy: bool = False) -> torch.Tensor:
         """This rank's FSDP slice of leaf ``k`` already cut over ``model``."""
@@ -148,8 +214,9 @@ class ShardLayout:
 
         def one(x, k):
             md = self.mdims[k]
-            return x if md is None else self.mesh.model_comm.all_gather(x, md,
-                                                                        f"{tag}:{self.paths[k]}")
+            if md is None:
+                return x
+            return self.join(self.mesh.model_comm.all_gather(x, md, f"{tag}:{self.paths[k]}"), k)
 
         return self.map(one, tree)
 
@@ -188,7 +255,7 @@ class ShardLayout:
 
 # the logical names a model axis cuts, by ModelAxis flag
 MODEL_CUTS = {"heads": "heads", "kv_heads": "kv", "mlp": "mlp", "vocab": "vocab",
-              "expert": "expert"}
+              "expert": "expert", "ssm_inner": "ssm"}
 
 
 def _ann_leaves(anns: Tree) -> list:
@@ -209,17 +276,21 @@ def shard_layout(cfg: ModelConfig, rules: ShardingRules, mesh, fsdp: bool,
                  cuts=frozenset()) -> ShardLayout:
     """The layout of ``cfg``'s params over ``mesh``: ``cuts`` names the
     logical dims the model's layers cut over ``model`` (``heads``,
-    ``kv_heads``, ``mlp``, ``vocab``, ``expert``); FSDP cuts each leaf
+    ``kv_heads``, ``mlp``, ``vocab``, ``expert``, ``ssm_inner``, the
+    fused SSM leaves segmented); FSDP cuts each leaf
     along its ``data`` dim (over ``data``, or over every rank where the
     rules give it both axes); without FSDP a leaf is whole over ``data``."""
     paths = leaf_paths(param_shapes(cfg))
     anns = _ann_leaves(param_annotations(cfg))
     specs = spec_leaves(spec_tree(rules, param_annotations(cfg)))
     D, M = mesh.sizes
-    dims, mdims, groups, whole = [], [], [], []
+    dims, mdims, groups, whole, segs = [], [], [], [], []
     shapes = tree_leaves(param_shapes(cfg))
+    fused = ssm_segments(cfg) if cfg.ssm is not None else {}
     for shape, ann, spec, path in zip(shapes, anns, specs, paths):
         md = _model_dim(ann, spec, cuts)
+        name = path.rsplit(".", 1)[-1]
+        segs.append(fused.get(name) if md is not None and ".mixer." in path else None)
         if M > 1 and md is None and "model" in spec:  # the rules cut it, the layers do not
             whole.append(path)
         d = spec.dim_of("data") if fsdp else None
@@ -239,7 +310,7 @@ def shard_layout(cfg: ModelConfig, rules: ShardingRules, mesh, fsdp: bool,
         proj_mdims = tuple(_model_dim(a, s, cuts) for a, s in zip(
             _ann_leaves(pann), spec_leaves(spec_tree(rules, pann))))
     return ShardLayout(mesh, tuple(dims), tuple(paths), tuple(shapes), tuple(whole),
-                       tuple(mdims), tuple(groups), proj_mdims)
+                       tuple(mdims), tuple(groups), proj_mdims, tuple(segs))
 
 
 def local_params(params: Tree, layout: ShardLayout) -> Tree:
@@ -270,7 +341,7 @@ def full_nbytes(state: TrainState, layout: Optional[ShardLayout]) -> int:
         return n
     for tree in (state.params, *state.opt):
         for k, x in enumerate(tree_flatten(tree)[0]):
-            n += (layout.pieces(k) - 1) * x.numel() * x.element_size()
+            n += (math.prod(layout.shapes[k]) - x.numel()) * x.element_size()
     if state.proj and layout.proj_mdims:
         M = layout.mesh.sizes[1]
         for x, d in zip(tree_flatten(state.proj)[0], layout.proj_mdims):

@@ -22,8 +22,8 @@ loss is its share of the global mean (the token-weight sum and the MoE
 routing fractions are all-reduced in the forward,
 ``parallel/collectives.py:StepSync``).  A ``model`` axis above 1 cuts the
 layers (``model_axis``: tensor parallelism over heads, FFN and vocab,
-sequence parallelism, the experts) as ``models/layers.py`` and
-``models/moe.py`` describe; the model ranks of one data row then hold the
+sequence parallelism, the experts, the SSM mixer by its heads) as
+``models/layers.py``, ``models/moe.py`` and ``models/ssm.py`` describe; the model ranks of one data row then hold the
 same rows and the same loss.  A leaf's gradient shares are summed over
 the batch's groups except ``model`` where the leaf is cut over it
 (all-reduced, or reduce-scattered along its FSDP dim), except the
@@ -64,7 +64,9 @@ from repro_torch.core.ndb import NDBContext
 from repro_torch.launch.mesh import AXES, mesh_shape_dict, n_dp_shards
 from repro_torch.launch.specs import batch_axes_for, input_specs, rows_of
 from repro_torch.launch.state import ShardLayout, TrainState, shard_layout
-from repro_torch.models.kvcache import cache_annotations, cache_structs, held_kv_heads
+from repro_torch.models.kvcache import (
+    cache_annotations, cache_structs, held_kv_heads, held_ssm_heads,
+)
 from repro_torch.models.model import ExecFlags, forward_decode, forward_loss, forward_prefill
 from repro_torch.models.params import param_annotations, tree_leaves, tree_map
 from repro_torch.optim.optimizers import apply_update, clip_by_global_norm, lr_schedule
@@ -188,10 +190,11 @@ def batch_axes(cfg: ModelConfig, mesh, parallel: ParallelConfig, B: int):
 def model_cuts(cfg: ModelConfig, mesh, parallel: ParallelConfig) -> frozenset:
     """The logical dims ``cfg``'s layers cut over a ``model`` axis above 1
     (``launch/state.py:shard_layout``): the rules' cuts where the axis
-    divides the head counts, ``d_ff``, the padded vocab and the experts.
-    Query heads the axis does not divide keep the attention whole on
-    every rank (GSPMD splits the fused head dim); KV heads it does not
-    divide keep ``wk``/``wv`` whole."""
+    divides the head counts, ``d_ff``, the padded vocab, the experts and
+    the SSM heads.  Query heads the axis does not divide keep the
+    attention whole on every rank (GSPMD splits the fused head dim); KV
+    heads it does not divide keep ``wk``/``wv`` whole; SSM heads it does
+    not divide keep the mixer whole."""
     M = mesh.sizes[1]
     if M == 1:
         return frozenset()
@@ -202,7 +205,9 @@ def model_cuts(cfg: ModelConfig, mesh, parallel: ParallelConfig) -> frozenset:
            "mlp": rules.mlp == "model" and cfg.d_ff > 0 and cfg.d_ff % M == 0,
            "vocab": rules.vocab == "model" and cfg.padded_vocab % M == 0,
            "expert": (cfg.moe is not None and rules.expert == "model"
-                      and cfg.moe.n_experts % M == 0)}
+                      and cfg.moe.n_experts % M == 0),
+           "ssm_inner": (cfg.ssm is not None and rules.ssm_inner == "model"
+                         and (cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim) % M == 0)}
     return frozenset(n for n, on in cut.items() if on)
 
 
@@ -221,7 +226,8 @@ def model_axis(cfg: ModelConfig, mesh, parallel: ParallelConfig, shape: ShapeCon
         sp=(parallel.sequence_parallel and parallel.sharding_mode == "tp_fsdp"
             and shape.seq_len % mesh.sizes[1] == 0),
         heads="heads" in cuts, kv="kv_heads" in cuts, mlp="mlp" in cuts, vocab="vocab" in cuts,
-        expert=("a2a" if "model" in bax else "gather") if "expert" in cuts else None)
+        expert=("a2a" if "model" in bax else "gather") if "expert" in cuts else None,
+        ssm="ssm_inner" in cuts)
 
 
 def mesh_layout(cfg: ModelConfig, mesh, parallel: Optional[ParallelConfig] = None
@@ -369,13 +375,17 @@ def make_train_step(
         return metrics, grads
 
     def counted() -> list:
-        """Per leaf, whether this rank's slice counts in the global norm: on
-        coordinate 0 of every axis that does not cut the leaf."""
+        """Per leaf, what of this rank's slice counts in the global norm:
+        all of it on coordinate 0 of every axis that does not cut the leaf,
+        else nothing; a segmented leaf's whole pieces on model rank 0 only
+        (``ShardLayout.own``)."""
         d0, m0 = mesh.coords
 
         def one(k):
             cuts_model = layout.mdims[k] is not None or layout.groups[k] == "world"
-            return (cuts_model or m0 == 0) and (layout.dims[k] is not None or d0 == 0)
+            if not ((cuts_model or m0 == 0) and (layout.dims[k] is not None or d0 == 0)):
+                return False
+            return True if layout.seg(k) is None else (lambda x: layout.own(x, k))
 
         return [one(k) for k in range(len(layout.dims))]
 
@@ -458,6 +468,7 @@ class _ServePlan:
             self.flags = dataclasses.replace(
                 self.flags, n_dp_shards=max(self.flags.n_dp_shards // n_shards, 1))
         self.kv_heads = held_kv_heads(cfg, self.tp)
+        self.ssm_heads = held_ssm_heads(cfg, self.tp)
 
     @property
     def n_rows(self) -> int:
@@ -476,8 +487,9 @@ class _ServePlan:
         dshape = ShapeConfig(shape.name, max_len, self.B, "decode")
         _, dspecs = input_specs(cfg, dshape, self.rules, msd)
         kv_cut = self.tp is not None and self.tp.kv
-        held = tuple({k: held_cache_spec(a, self.bax, self.rules, kv_cut) for k, a in e.items()}
-                     for e in cache_annotations(cfg))
+        ssm_cut = self.tp is not None and self.tp.ssm
+        held = tuple({k: held_cache_spec(a, self.bax, self.rules, kv_cut, ssm_cut)
+                      for k, a in e.items()} for e in cache_annotations(cfg))
         out = {"params": spec_tree(self.rules, param_annotations(cfg)),
                "caches": dspecs["caches"], "held_caches": held,
                "logits": Spec(self.bax, self.rules.vocab)}
@@ -510,7 +522,8 @@ def make_prefill_step(cfg: ModelConfig, parallel: Optional[ParallelConfig], mesh
     parallelism over heads, FFN and vocab, the experts' ``"gather"`` or
     ``"a2a"``, sequence parallelism where ``shape.seq_len`` splits), after
     gathering the params' FSDP dims.  It returns this rank's caches (its
-    rows, its KV heads: ``specs["held_caches"]``) and logits (its rows,
+    rows, its KV heads, its SSM heads and conv channels:
+    ``specs["held_caches"]``) and logits (its rows,
     its vocabulary columns where the axis cuts the vocabulary), under
     ``torch.no_grad()``.  ``specs`` holds the JAX rules' specs of the
     params, the batch, the caches and the logits (``Spec(bax, vocab)``).
@@ -526,7 +539,8 @@ def make_prefill_step(cfg: ModelConfig, parallel: Optional[ParallelConfig], mesh
         if plan.n_rows != B:
             batch = {k: v[plan.rows] for k, v in batch.items()}
         with torch.no_grad():
-            structs = cache_structs(cfg, plan.n_rows, L, kv_heads=plan.kv_heads)
+            structs = cache_structs(cfg, plan.n_rows, L, kv_heads=plan.kv_heads,
+                                    ssm_heads=plan.ssm_heads)
             return forward_prefill(plan.params(params), batch, cfg, structs, flags=plan.flags,
                                    tp=plan.tp)
 

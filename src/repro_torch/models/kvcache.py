@@ -10,7 +10,10 @@ B, d_conv, conv_ch)`` (``ssm_inner`` on the last dim) and ``ssd`` state
 
 Under a mesh a rank holds its rows of the batch and the KV heads its query
 heads read (:func:`held_kv_heads`): KV/M where the ``model`` axis cuts the
-KV heads, else ``models/layers.py:local_kv``'s heads.  The JAX package's
+KV heads, else ``models/layers.py:local_kv``'s heads.  Where the axis cuts
+the SSM mixer a rank holds its nh/M SSD heads (:func:`held_ssm_heads`)
+and the conv window's channels ``[x_m | B | C]``: its heads' x channels
+and B and C whole (``models/params.py:ssm_segments``).  The JAX package's
 rules cut the cache's head dim (``cache_hd``) where the axis does not divide
 the KV heads; the port holds ``local_kv``'s whole heads there instead,
 because kernel #5 cannot attend over a piece of head_dim without reducing
@@ -40,7 +43,8 @@ class CacheStruct:
     dtype: torch.dtype
 
 
-def _entries(cfg: ModelConfig, batch: int, max_len: int, kv_heads: Optional[int] = None):
+def _entries(cfg: ModelConfig, batch: int, max_len: int, kv_heads: Optional[int] = None,
+             ssm_heads: Optional[int] = None):
     """Per period-position {leaf: (shape, annotation)} dicts."""
     n_periods = cfg.n_layers // cfg.block_period
     kv = cfg.n_kv_heads if kv_heads is None else kv_heads
@@ -51,10 +55,9 @@ def _entries(cfg: ModelConfig, batch: int, max_len: int, kv_heads: Optional[int]
             out.append({"k": (shape, KV_ANN), "v": (shape, KV_ANN)})
             continue
         ssm = cfg.ssm
-        d_inner = ssm.expand * cfg.d_model
-        nh = d_inner // ssm.head_dim
+        nh = ssm.expand * cfg.d_model // ssm.head_dim if ssm_heads is None else ssm_heads
         out.append({
-            "conv": ((n_periods, batch, ssm.d_conv, d_inner + 2 * ssm.d_state),
+            "conv": ((n_periods, batch, ssm.d_conv, nh * ssm.head_dim + 2 * ssm.d_state),
                      ("stacked", "batch", None, "ssm_inner")),
             "ssd": ((n_periods, batch, nh, ssm.d_state, ssm.head_dim),
                     ("stacked", "batch", "heads", None, None)),
@@ -63,12 +66,13 @@ def _entries(cfg: ModelConfig, batch: int, max_len: int, kv_heads: Optional[int]
 
 
 def cache_structs(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
-                  kv_heads: Optional[int] = None):
+                  kv_heads: Optional[int] = None, ssm_heads: Optional[int] = None):
     """Per period-position structs (the module docstring); ``kv_heads``
-    (default ``cfg.n_kv_heads``) is the KV head count a cache holds."""
+    (default ``cfg.n_kv_heads``) and ``ssm_heads`` (default every SSM
+    head) are the head counts a cache holds."""
     dt = dtype or getattr(torch, cfg.dtype)
     return tuple({k: CacheStruct(shape, dt) for k, (shape, _ann) in e.items()}
-                 for e in _entries(cfg, batch, max_len, kv_heads))
+                 for e in _entries(cfg, batch, max_len, kv_heads, ssm_heads))
 
 
 def cache_annotations(cfg: ModelConfig):
@@ -95,6 +99,16 @@ def held_kv_heads(cfg: ModelConfig, tp=None) -> int:
     return hl
 
 
+def held_ssm_heads(cfg: ModelConfig, tp=None) -> Optional[int]:
+    """The SSD heads a rank's SSM caches hold under a model axis (``tp``):
+    nh/M where the axis cuts the mixer, else every head (None where
+    ``cfg`` has no SSM layer)."""
+    if cfg.ssm is None:
+        return None
+    nh = cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim
+    return nh // tp.size if tp is not None and tp.ssm else nh
+
+
 def held_cache_bytes(cfg: ModelConfig, batch: int, max_len: int, kv_heads: int,
                      hd_pieces: int = 1, dtype=None) -> int:
     """Bytes of the attention caches that hold ``kv_heads`` heads of
@@ -108,4 +122,4 @@ def held_cache_bytes(cfg: ModelConfig, batch: int, max_len: int, kv_heads: int,
 
 
 __all__ = ["CacheStruct", "KV_ANN", "cache_annotations", "cache_structs", "held_cache_bytes",
-           "held_kv_heads"]
+           "held_kv_heads", "held_ssm_heads"]

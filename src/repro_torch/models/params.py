@@ -78,6 +78,20 @@ def _mixer_entries(cfg: ModelConfig, kind: str) -> Dict[str, Tuple[Tuple[int, ..
     return out
 
 
+def ssm_segments(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, bool], ...]]:
+    """The pieces of the fused SSM leaves along their ``ssm_inner`` dim, in
+    order, as (width, cut): ``in_proj``'s columns z, x, B, C and dt, and
+    the conv's channels x, B and C.  Under a ``model`` axis that cuts the
+    mixer by its SSM heads a rank holds its share of each cut piece (its
+    heads' channels) and B and C whole: with ngroups = 1 they feed every
+    head."""
+    ssm = cfg.ssm
+    d_inner = ssm.expand * cfg.d_model
+    bc = (2 * ssm.d_state, False)
+    return {"in_proj": ((d_inner, True), (d_inner, True), bc, (d_inner // ssm.head_dim, True)),
+            "conv_w": ((d_inner, True), bc), "conv_b": ((d_inner, True), bc)}
+
+
 def _ffn_entries(cfg: ModelConfig, is_moe: bool) -> Dict[str, Tuple[Tuple[int, ...], Tuple]]:
     d = cfg.d_model
     if is_moe:
@@ -269,4 +283,4 @@ def _sorted(tree: Tree) -> Tree:
 
 
 __all__ = ["param_shapes", "param_annotations", "init_params", "count_params", "block_layout", "map_leaves",
-           "tree_leaves", "tree_map"]
+           "ssm_segments", "tree_leaves", "tree_map"]

@@ -46,13 +46,16 @@ def global_norm(tree: Tree, comm=None, counted: Optional[Sequence[bool]] = None)
     """The L2 norm over every leaf.  Over a tree of local shards
     (``comm``, the data group's collectives): the squared norms summed in
     leaf order, the leaves ``counted`` marks False left out (a leaf every
-    rank holds whole counts on one rank only), then one all-reduce."""
+    rank holds whole counts on one rank only), or only the parts a
+    callable entry gives of its leaf, then one all-reduce."""
     leaves = tree_leaves(tree)
     if comm is None:
         return torch.sqrt(sum(x.float().square().sum() for x in leaves))
     counted = counted if counted is not None else [True] * len(leaves)
     zero = torch.zeros((1,), dtype=torch.float32, device=leaves[0].device)
-    sq = sum((x.float().square().sum() for x, c in zip(leaves, counted) if c), zero)
+    parts = [p for x, c in zip(leaves, counted) if c
+             for p in (c(x) if callable(c) else [x])]
+    sq = sum((p.float().square().sum() for p in parts), zero)
     return torch.sqrt(comm.all_reduce(sq.reshape(1), tag="grad_norm")[0])
 
 

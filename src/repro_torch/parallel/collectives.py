@@ -30,7 +30,11 @@ the whole tensor reduce-scattered or exchanged), read by the tests and
 ``chip_smoke.py`` through :func:`counts`.  The model axis's tags:
 ``tp:attn_in`` / ``tp:attn_out``, ``tp:ffn_in`` / ``tp:ffn_out``,
 ``tp:embed``, ``tp:vocab`` (the cross-entropy's max, sum and gold logit),
-``tp:kv`` (whole K/V weights' partial gradients), ``sp:gather`` /
+``tp:kv`` (whole K/V weights' partial gradients), ``tp:ssm_in`` /
+``tp:ssm_out`` (the SSM mixer), ``tp:ssm_bc`` (the gradients of its B
+and C columns and channels, which every rank holds), ``tp:ssm_heads``
+(``A_log``, ``D``, ``dt_bias``), ``tp:gate_norm`` (its cut norm's sums
+of squares), ``sp:gather`` /
 ``sp:scatter`` / ``sp:norm`` under sequence parallelism, ``ep:gather`` /
 ``ep:a2a`` for the experts and ``lowrank_row:<leaf>`` for a row-parallel
 low-rank factor.
@@ -183,7 +187,9 @@ class ModelAxis:
     (``"gather"``: the model ranks hold the same tokens and each runs its
     E/M experts; ``"a2a"``: they hold different tokens, exchanged
     all-to-all) and ``sp`` (the activations between sublayers cut along
-    the sequence)."""
+    the sequence), ``ssm`` (the SSM mixer by its heads: ``in_proj``,
+    ``conv_w``/``conv_b`` by segments, ``gate_norm`` by channels,
+    ``out_proj`` by rows, nh/M heads a rank)."""
 
     comm: Comm
     sp: bool = False
@@ -192,6 +198,7 @@ class ModelAxis:
     mlp: bool = False
     vocab: bool = False
     expert: Optional[str] = None
+    ssm: bool = False
 
     @property
     def size(self) -> int:
@@ -216,6 +223,20 @@ class _Copy(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return ctx.comm.all_reduce(g.contiguous().clone(), tag=ctx.tag), None, None
+
+
+class _CopySlice(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, dim, lo, hi, tag):
+        ctx.comm, ctx.dim, ctx.lo, ctx.hi, ctx.tag = comm, dim, lo, hi, tag
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        part = g.narrow(ctx.dim, ctx.lo, ctx.hi - ctx.lo)
+        part.copy_(ctx.comm.all_reduce(part.contiguous(), tag=ctx.tag))
+        return g, None, None, None, None, None
 
 
 class _Reduce(torch.autograd.Function):
@@ -279,6 +300,15 @@ def copy_to_model(x: torch.Tensor, axis: ModelAxis, tag: str) -> torch.Tensor:
     """Identity forward, all-reduce over the model group backward: the
     input of a region whose ranks each give part of its gradient."""
     return _Copy.apply(x, axis.comm, tag)
+
+
+def copy_slice_to_model(x: torch.Tensor, axis: ModelAxis, dim: int, lo: int, hi: int,
+                        tag: str) -> torch.Tensor:
+    """Identity forward; backward all-reduces the gradient's ``[lo, hi)``
+    along ``dim`` over the model group and passes the rest: a weight part
+    every rank holds whole and each rank's heads give part of the
+    gradient of (the SSM's B and C columns)."""
+    return _CopySlice.apply(x, axis.comm, dim, lo, hi, tag)
 
 
 def reduce_from_model(x: torch.Tensor, axis: ModelAxis, tag: str) -> torch.Tensor:
@@ -357,6 +387,6 @@ def leaf_id(w: torch.Tensor) -> int:
     return id(w._base if w._base is not None else w)
 
 
-__all__ = ["Comm", "ModelAxis", "StepSync", "all_to_all", "copy_to_model", "counts",
-           "gather_along", "leaf_id", "reduce_from_model", "reset_counts", "scatter_along",
-           "split_along"]
+__all__ = ["Comm", "ModelAxis", "StepSync", "all_to_all", "copy_slice_to_model", "copy_to_model",
+           "counts", "gather_along", "leaf_id", "reduce_from_model", "reset_counts",
+           "scatter_along", "split_along"]

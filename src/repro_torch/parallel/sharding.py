@@ -159,18 +159,24 @@ def cache_spec(ann, bax, rules: ShardingRules) -> Spec:
     return Spec(*out)
 
 
-def held_cache_spec(ann, bax, rules: ShardingRules, kv_cut: bool) -> Spec:
+def held_cache_spec(ann, bax, rules: ShardingRules, kv_cut: bool,
+                    ssm_cut: bool = False) -> Spec:
     """The spec of the cache leaf a rank of the port holds: :func:`cache_spec`
     but for the heads.  The KV-head dim is cut over ``model`` only where the
     layers cut the KV heads (``kv_cut``); the head dim is never cut: where
     the rules cut it (``cache_hd``, a KV head count the axis does not
     divide) a rank holds ``local_kv``'s whole heads instead
     (``models/kvcache.py:held_kv_heads``), which no spec over the mesh
-    describes."""
+    describes.  The SSM caches' ``heads`` and ``ssm_inner`` dims are cut
+    only where the layers cut the mixer (``ssm_cut``); the conv window's
+    cut is then segmented (its heads' channels, B and C whole), which
+    ``"model"`` stands for."""
     spec = list(cache_spec(ann, bax, rules))
     for i, name in enumerate(ann):
         if name == "cache_hd" or (name == "kv_cache" and not kv_cut):
             spec[i] = None
+        elif name in ("heads", "ssm_inner"):
+            spec[i] = "model" if ssm_cut else None
     return Spec(*spec)
 
 

@@ -89,6 +89,45 @@ def test_rmsnorm_kernel_batch_invariant(cuda, dtype, d):
     assert torch.equal(full[1000:1013], rmsnorm(x[1000:1013].contiguous(), s))
 
 
+# the split form's rows: mamba2's gate_norm cut over M = 2 (a step's 2048
+# rows, a decode's 4), a rank's width at M = 4, and widths off the vectors
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape,d_whole", [((2048, 2560), 5120), ((4, 2560), 5120),
+                                           ((33, 1280), 5120), ((5, 100), 300), ((3, 7), 14)])
+def test_rmsnorm_split_kernels(cuda, dtype, shape, d_whole):
+    """#3's split form: each pass against its plain version, both launched
+    once, and the passes over the ranks' pieces equal to the whole row's
+    norm; under grad the gradients are the plain composition's."""
+    from repro_torch.kernels.rmsnorm import (
+        rmsnorm_apply, rmsnorm_apply_plain, rmsnorm_plain, rmsnorm_sumsq, rmsnorm_sumsq_plain,
+    )
+
+    g = torch.Generator(device=cuda).manual_seed(shape[1])
+    M = d_whole // shape[1]
+    xs = [torch.randn(shape, generator=g, device=cuda).to(dtype) for _ in range(M)]
+    scale = torch.randn(d_whole, generator=g, device=cuda).to(dtype)
+    n1, n2 = rmsnorm_sumsq.launches, rmsnorm_apply.launches
+    parts = [rmsnorm_sumsq(x) for x in xs]
+    for x, ss in zip(xs, parts):
+        torch.testing.assert_close(ss, rmsnorm_sumsq_plain(x), atol=1e-5, rtol=1e-5)
+    ss = sum(parts)
+    ys = [rmsnorm_apply(x, ss, sc, d_whole) for x, sc in zip(xs, scale.chunk(M))]
+    for x, sc, y in zip(xs, scale.chunk(M), ys):
+        _close(y, rmsnorm_apply_plain(x, ss, sc, d_whole), dtype)
+    assert (rmsnorm_sumsq.launches, rmsnorm_apply.launches) == (n1 + M, n2 + M)
+    _close(torch.cat(ys, -1), rmsnorm_plain(torch.cat(xs, -1), scale), dtype)
+    x = xs[0].clone().requires_grad_()
+    sc = scale.chunk(M)[0].clone().requires_grad_()
+    dy = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    y = rmsnorm_apply(x, rmsnorm_sumsq(x) + ss - parts[0], sc, d_whole)
+    gx, gs = torch.autograd.grad(y, (x, sc), dy)
+    xp, sp = x.detach().requires_grad_(), sc.detach().requires_grad_()
+    yp = rmsnorm_apply_plain(xp, rmsnorm_sumsq_plain(xp) + ss - parts[0], sp, d_whole)
+    px, ps = torch.autograd.grad(yp, (xp, sp), dy)
+    _close(gx, px, dtype)
+    _close(gs, ps, dtype)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(37, 100), (8, 3072), (3, 7)])
 def test_swiglu_kernel(cuda, dtype, shape):

@@ -397,9 +397,9 @@ def _failing_rank(mesh):
 
 
 def test_mesh_refuses_what_it_does_not_run():
-    """The attention-mixer families take a model axis, SP and the 2-D
-    ``fsdp`` mode; the SSM mixer's ``ssm_inner`` cut and other data axes
-    stay refused as later slices."""
+    """Every model family takes a model axis, SP and the 2-D ``fsdp`` mode
+    (the SSM families with the mixer's ``ssm_inner`` cut); other data axes
+    stay refused as a later slice."""
     import dataclasses
 
     from repro_torch.launch.mesh import make_host_mesh
@@ -417,8 +417,8 @@ def test_mesh_refuses_what_it_does_not_run():
         make_train_step(cfg, tbase.TrainConfig(), tbase.MeCeFOConfig(),
                         tbase.ShapeConfig("t", S, 8, "train"), mesh=mesh, parallel=par)
     for family in ("ssm", "hybrid"):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            tbase.ParallelConfig().check(two, dataclasses.replace(cfg, family=family))
+        for par in (tbase.ParallelConfig(), tbase.ParallelConfig(sharding_mode="fsdp")):
+            par.check(two, dataclasses.replace(cfg, family=family))
         tbase.ParallelConfig().check({"data": 2, "model": 1}, dataclasses.replace(cfg, family=family))
     with pytest.raises(NotImplementedError, match="later slice"):
         tbase.ParallelConfig(dp_axes=("pod", "data")).check(two, cfg)

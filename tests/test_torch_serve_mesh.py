@@ -500,8 +500,15 @@ def test_vocab_cut_greedy_takes_jnp_argmax_id_on_ties(M):
 
 
 def test_ssm_serve_steps_refuse_a_model_axis():
+    """The SSM serve steps take a model axis (the mixer cut by its heads,
+    ``tests/test_torch_serve_mesh_ssm.py``); a data axis other than
+    ``data`` is still refused."""
     mesh = _stand_in(1, 2)
     cfg = tbase.reduced(tbase.get_config("mamba2-2.7b"), dtype="float32")
+    from repro_torch.launch.steps import model_cuts
+
+    assert "ssm_inner" in model_cuts(cfg, mesh, tbase.ParallelConfig())
     for make, kind in ((make_prefill_step, "prefill"), (make_decode_step, "decode")):
         with pytest.raises(NotImplementedError, match="later slice"):
-            make(cfg, tbase.ParallelConfig(), mesh, tbase.ShapeConfig("s", 32, 4, kind))
+            make(cfg, tbase.ParallelConfig(dp_axes=("pod", "data")), mesh,
+                 tbase.ShapeConfig("s", 32, 4, kind))
