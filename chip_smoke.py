@@ -193,9 +193,10 @@ each printing JSON lines:
              8 layers) and ``nemotron-4-340b`` (relu2, hd 192, 2 layers) at
              full width serve 4 requests on the paged round: launch counts,
              and f32 logits against the plain path on min(4, depth) layers.
-14. moe train — ``qwen3-moe-30b-a3b`` at full width on 4 layers (B 4, S
-             1024, rank 64, FFN recompute, V1 refreshed once: 1536 expert
-             SVDs, timed): per NDB mode one step's bf16 gradients through
+14. moe train — ``qwen3-moe-30b-a3b`` at full width on MOE_TRAIN_LAYERS
+             (2, cut from 4 for phase 21's time) layers (B 4, S 1024, rank 64, FFN
+             recompute, V1 refreshed once: 384 expert SVDs a layer,
+             timed): per NDB mode one step's bf16 gradients through
              the kernels and the plain versions against the f32 step
              (finite, loss at 1e-3, the kernels no farther from f32 than
              1.5x the plain bf16 path; the kernels-vs-plain leaf error and
@@ -339,10 +340,36 @@ Then accumulation — phase 7's cell with ``accum`` 1, 2 and 4 and with
              the largest logit and cache element (phase 16's SSM scale),
              #3's split form launched on every rank.
 
-Each of phases 12-20 frees the card first and fails with a clear message
+21. pod — the production meshes' dry run and the ``pod`` mesh axis
+             (``launch/{mesh,dryrun,cost,roofline}.py``): (a) phase 7's
+             cell (llama-350m, B 8, S 1024, bf16) in DRY_MODES: one real
+             step on the card counted by ``launch/cost.py:CostMode``
+             against the dry run of the same step on the meta device:
+             FLOPs, HBM bytes, launches and each kernel's booked work
+             equal exactly, the dry peak within DRY_PEAK_TOL of
+             ``max_memory_allocated`` from a reset before the step; the
+             step's ms, its roofline ms and ``roofline_fraction`` reported;
+             (b) one NCCL rank at the (1, 1, 1) pod mesh: POD_STEPS
+             dynamic steps of phase 7's cell and phase 20 (a)'s prefill
+             and decode, bitwise the one-process steps; four gloo ranks
+             sharing the card at POD_MESH (2, 1, 2) on qwen3-0.6b at full
+             width on MESH_CELL_LAYERS f32 layers, B 4, S 256: each leaf
+             within 1e-4 of the one-process step, the held bytes and the
+             collective bytes by kind and group (``pod`` included) equal to
+             the dry run's count from the shapes at that rank; (c) the dry
+             runs of DRY_CELLS (qwen3-0.6b train_4k at 16×16,
+             nemotron-4-340b train_4k at 16×16, jamba-1.5-large-398b
+             decode_32k at 2×16×16), one CPU-only process each, started
+             after (a), the phase's last timed work, so that they run
+             beside (b) alone (its gloo ranks' ``step_ms`` are taken under
+             that load, and are not a measurement), and read at the end:
+             each summary line and each cell's per-rank state and peak
+             bytes (counts, not times).
+
+Each of phases 12-21 frees the card first and fails with a clear message
 when too little memory is free.  Then the kernels' summary line (each
 kernel's ``launches`` from the main paths of phases 3, 4, 7 and 11; the
-launches of phases 12-20 and the accumulation phase beside them in
+launches of phases 12-21 and the accumulation phase beside them in
 ``launches_by_later_path``, phases 18's, 19's and 20's per rank; phase
 20's NCCL run as ``"mesh serve"``; #3's split form's ``launches`` from
 phase 19 (e), summed over its two ranks), the card's name and power limit, and
@@ -619,7 +646,8 @@ DENSE_SPEC = dict(n_requests=4, prompt_len=(64, 256), new_tokens=(16, 16), seed=
 # phase 14: MeCeFO steps of qwen3-moe at full width on MOE_TRAIN_LAYERS
 # layers in the four NDB modes, and one degraded step each of the
 # non-gated and frontend configs at full width on 2 layers
-MOE_TRAIN_LAYERS, MOE_TRAIN_B, MOE_TRAIN_S, MOE_TRAIN_STEPS = 4, 4, 1024, 3
+# (cut from 4 layers to 2 to make room for phase 21)
+MOE_TRAIN_LAYERS, MOE_TRAIN_B, MOE_TRAIN_S, MOE_TRAIN_STEPS = 2, 4, 1024, 3
 MOE_TRAIN_PLAN = NDBPlan(n_dp=4, n_stages=2, failed=frozenset({(1, 0)}))
 CONFIG_STEPS = (("granite-34b", 2), ("phi-3-vision-4.2b", 2), ("musicgen-medium", 2))
 # phase 15: mamba2-2.7b at published widths and full depth, MeCeFO steps
@@ -4199,7 +4227,7 @@ def ma_rank_spec(mesh, tmp: str, spec: dict) -> None:
             launches[n] += run_launches[n]
         counts = collectives.counts()
         shared = [k for k in range(len(lay.dims))
-                  if lay.mdims[k] is None and lay.groups[k] != "world"]
+                  if lay.mdims[k] is None and lay.groups[k] != ("data", "model")]
         # a segmented leaf's whole pieces (the SSM's B and C), when data holds it whole
         bc = [p for k, x in enumerate(tree_leaves(state.params))
               if lay.seg(k) is not None and lay.dims[k] is None
@@ -4907,6 +4935,365 @@ def mesh_serve_phase(dev, timer) -> dict:
     return out
 
 
+# Phase 21: the production meshes' dry run and the pod axis.  (c)'s dry
+# runs start after (a), on the CPU in processes of their own (no card in
+# their sight), run beside (b), and are read at the end.
+DRY_CELLS = (("qwen3-0.6b", "train_4k", "single"), ("nemotron-4-340b", "train_4k", "single"),
+             ("jamba-1.5-large-398b", "decode_32k", "multi"))
+DRY_MODES = ("off", "degraded")
+DRY_PEAK_TOL = 0.15  # the dry run's peak against max_memory_allocated, relative
+DRY_TIMEOUT_S = 900
+POD_MESH = (2, 1, 2)  # (pod, data, model)
+POD_CONFIG, POD_B, POD_S, POD_STEPS, POD_SEED = "qwen3-0.6b", 4, 256, 2, 2
+POD_PLAN = NDBPlan(n_dp=2, n_stages=2, failed=frozenset({(1, 0)}))
+POD_TIMEOUT_S = 600
+
+
+class DryCells:
+    """(c): one ``python -m repro_torch.launch.dryrun`` process a cell of
+    DRY_CELLS, started at once, on the CPU only; :meth:`collect` waits for
+    them and reads their records, :meth:`stop` ends any still running."""
+
+    def __init__(self):
+        self.dir = tempfile.mkdtemp(prefix="dry_cells_")
+        self.procs = []
+        self.t0 = time.perf_counter()
+
+    def start(self) -> "DryCells":
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+                   PYTHONPATH=os.pathsep.join([os.path.join(ROOT, "src")]
+                                              + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+        for arch, shape, mesh in DRY_CELLS:
+            log = open(os.path.join(self.dir, f"{arch}.{shape}.log"), "w")
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+                   shape, "--mesh", mesh, "--out", self.dir, "--force"]
+            self.procs.append((arch, shape, mesh, log,
+                               subprocess.Popen(cmd, env=env, cwd=ROOT, stdout=log,
+                                                stderr=subprocess.STDOUT)))
+        return self
+
+    def collect(self) -> list:
+        out = []
+        for arch, shape, mesh, log, p in self.procs:
+            rc = p.wait(timeout=max(1.0, DRY_TIMEOUT_S - (time.perf_counter() - self.t0)))
+            log.close()
+            path = os.path.join(self.dir, f"{arch}__{shape}__{mesh}.json")
+            rec = None
+            if rc == 0 and os.path.exists(path):
+                with open(path) as f:
+                    rec = json.load(f)
+            with open(log.name) as f:
+                tail = f.read()[-2000:]
+            out.append((arch, shape, mesh, rc, rec, tail))
+        return out
+
+    def stop(self) -> None:
+        for *_, log, p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(10)
+            log.close()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def dry_count_rows(dev) -> dict:
+    """(a): launch/cost.py over one real step of phase 7's cell on the card
+    against the dry run of the same step on meta, in DRY_MODES: FLOPs, HBM
+    bytes and launches by kernel equal; the dry peak within DRY_PEAK_TOL of
+    max_memory_allocated; the step's ms, roofline ms and
+    roofline_fraction reported.  Returns the launches of the counted
+    steps."""
+    from repro_torch.launch.cost import CostMode
+    from repro_torch.launch.dryrun import dry_step
+    from repro_torch.launch.roofline import RooflineReport, model_flops, summarize
+
+    free_card("pod", 20)
+    cell = train_cell(dev)
+    cfg = cell.cfg
+    # the cell's weights are the state's: no second copy on the card
+    state = TrainState(step=0, params=cell.params, opt=init_opt_state(cell.params, cell.train),
+                       proj=cell.proj)
+    cell.params = None
+    batch = to_device(cell.source().batch(0, TRAIN_B, TRAIN_S), dev)
+    total = {n: 0 for n in TRAIN_KERNELS}
+    fails = []
+    for mode in DRY_MODES:
+        step, ndb = cell.step(mode, dev)
+        state, _ = step(state, batch, *ndb)  # warm: libraries loaded, handles made
+        state, _, ms = mr_steps(step, state, [batch], ndb, dev)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        reset_launches()
+        with CostMode((state, batch)) as counted:
+            state, _ = step(state, batch, *ndb)
+        torch.cuda.synchronize()
+        card_peak = torch.cuda.max_memory_allocated()
+        launches = {n: WRAPPERS[n].launches for n in TRAIN_KERNELS}
+        card = counted.cost
+        t0 = time.perf_counter()
+        dry = dry_step(cfg, cell.shape, None, ndb=mode, mecefo=cell.mecefo, train=cell.train,
+                       flags=TRAIN_FLAGS).cost
+        dry_s = time.perf_counter() - t0
+        rep = RooflineReport(arch=cfg.name, shape=f"B{TRAIN_B} S{TRAIN_S}", mesh="1x1",
+                             n_devices=1, flops_per_dev=card.flops, bytes_per_dev=card.bytes,
+                             collective_bytes_per_dev=0.0, collectives={},
+                             model_flops_global=model_flops(cfg, cell.shape),
+                             bytes_per_dev_peak=float(card.peak_bytes))
+        roof_ms = 1e3 * max(rep.t_compute, rep.t_memory, rep.t_collective)
+        peak_rel = abs(dry.peak_bytes - card_peak) / card_peak
+        same = {"flops": card.flops == dry.flops, "bytes": card.bytes == dry.bytes,
+                "launches": card.launches == dry.launches
+                and {n: c for n, c in launches.items() if c} == dry.launches,
+                "kernel_work": card.kernel_work == dry.kernel_work}
+        ok = all(same.values()) and peak_rel <= DRY_PEAK_TOL
+        emit({"phase": "pod", "row": "a: cost of a real step against the dry run",
+              "config": cfg.name, "dtype": cfg.dtype, "batch": TRAIN_B, "seq_len": TRAIN_S,
+              "mode": mode, "flops": card.flops, "dry_flops": dry.flops, "bytes": card.bytes,
+              "dry_bytes": dry.bytes, "launches": card.launches, "dry_launches": dry.launches,
+              "kernel_flops": card.kernel_flops, "kernel_bytes": card.kernel_bytes,
+              "equal": same, "card_peak_bytes": card_peak, "dry_peak_bytes": dry.peak_bytes,
+              "card_held_bytes_at_start": held, "dry_start_bytes": dry.start_bytes,
+              "peak_rel_diff": peak_rel, "peak_limit_rel": DRY_PEAK_TOL, "step_ms": ms[0],
+              "roofline_ms": roof_ms, "t_compute_ms": 1e3 * rep.t_compute,
+              "t_memory_ms": 1e3 * rep.t_memory, "bottleneck": rep.bottleneck,
+              "model_flops": rep.model_flops_global, "useful_flops_ratio": rep.useful_flops_ratio,
+              "roofline_fraction": rep.roofline_fraction,
+              "roofline_share_of_step": roof_ms / ms[0], "dry_seconds": dry_s,
+              "summary": summarize(rep), "ok": ok})
+        if not ok:
+            fails.append(f"(a) {mode}: {same}, peak {dry.peak_bytes} vs {card_peak}")
+        for n in TRAIN_KERNELS:
+            total[n] += launches[n]
+        del step
+    del state, batch, cell
+    if fails:
+        raise AssertionError(f"pod: {fails}")
+    return total
+
+
+def pod_nccl_rows(dev, tmp: str) -> dict:
+    """(b) one NCCL rank at the 1×1×1 pod mesh: POD_STEPS dynamic steps of
+    phase 7's cell (FSDP) and a prefill with MS_NEW greedy decode steps of
+    full-width qwen3-0.6b (bf16), bitwise the one-process steps.  Returns
+    the launches of the mesh runs."""
+    from repro_torch.launch.dist import destroy, init_process_group
+    from repro_torch.launch.state import to_local
+
+    free_card("pod", 20)
+    cell = train_cell(dev)
+    batches = [cell.source().batch(i, TRAIN_B, TRAIN_S) for i in range(POD_STEPS)]
+    ndb = ({"keep": cell.keep, "example_weight": cell.weight},)
+    ref_step, _ = cell.step("dynamic", dev)
+    ref, ref_m, _ = mr_steps(ref_step, cell.state(), batches, ndb, dev)
+    scfg = get_config(MS_CONFIG)
+    params = init_params(scfg, torch.Generator(device=dev).manual_seed(MS_SEED), dev)
+    toks = torch.from_numpy(ms_prompts(scfg, MS_PROMPT)).to(dev)
+    with torch.no_grad():
+        caches, logits = forward_prefill(params, {"tokens": toks}, scfg,
+                                         cache_structs(scfg, MS_B, MS_PROMPT + MS_NEW))
+        sref = {"logits": [logits], "own": [greedy_token(logits, scfg)]}
+        for i in range(MS_NEW):
+            caches, logits = forward_decode(params, caches, sref["own"][-1], MS_PROMPT + i, scfg)
+            sref["logits"].append(logits)
+            sref["own"].append(greedy_token(logits, scfg))
+    mesh = init_process_group(0, 1, init_method="file://" + os.path.join(tmp, "pod_nccl"),
+                              backend="nccl", device=dev, pod=1)
+    try:
+        step = make_train_step(cell.cfg, cell.train, cell.mecefo, cell.shape, ndb_mode="dynamic",
+                               total_steps=cell.train.steps, flags=TRAIN_FLAGS, mesh=mesh,
+                               parallel=ParallelConfig())
+        reset_launches()
+        state, metrics, _ = mr_steps(step, to_local(cell.state(), step.layout), batches, ndb,
+                                     dev)
+        train_launches = {n: WRAPPERS[n].launches for n in TRAIN_KERNELS}
+        pstep, dstep = ms_steps(scfg, mesh, ParallelConfig(), MS_PROMPT, MS_NEW)
+        reset_launches()
+        run = ms_run(pstep, dstep, params, scfg, toks, MS_NEW)
+        serve_launches = {n: WRAPPERS[n].launches for n in SERVE_KERNELS}
+        shape, backend = mesh.shape, mesh.world_comm.backend
+    finally:
+        destroy()
+    pairs = list(zip(tree_leaves(state.params) + tree_leaves(state.opt.m)
+                     + tree_leaves(state.opt.v),
+                     tree_leaves(ref.params) + tree_leaves(ref.opt.m) + tree_leaves(ref.opt.v)))
+    unequal = sum(not torch.equal(a, b) for a, b in pairs)
+    ids = all(torch.equal(a, b) for a, b in zip(run["own"], sref["own"]))
+    lg = all(torch.equal(a, b) for a, b in zip(run["logits"], sref["logits"]))
+    leaves = [torch.equal(a[k], b[k]) for a, b in zip(run["caches"], caches) for k in a]
+    launched = all(train_launches.values()) or dev.type != "cuda"  # plain on a CPU rehearsal
+    ok = (unequal == 0 and metrics == ref_m and ids and lg and all(leaves) and launched
+          and shape == {"pod": 1, "data": 1, "model": 1})
+    emit({"phase": "pod", "row": "b: nccl, one rank (1, 1, 1)", "mesh": shape,
+          "backend": backend, "train_config": cell.cfg.name, "steps": POD_STEPS,
+          "leaves": len(pairs), "leaves_not_bitwise": unequal, "metrics_bitwise": metrics == ref_m,
+          "serve_config": scfg.name, "ids_bitwise": ids, "logits_bitwise": lg,
+          "cache_leaves_bitwise": f"{sum(leaves)}/{len(leaves)}",
+          "train_launches": train_launches, "serve_launches": serve_launches, "ok": ok})
+    if not ok:
+        raise AssertionError(f"pod (b) nccl: {unequal} leaves differ, ids {ids}, logits {lg}, "
+                             f"caches {sum(leaves)}/{len(leaves)}")
+    del state, ref, params, caches, run, sref, cell
+    return {**train_launches, **{f"serve {n}": c for n, c in serve_launches.items()}}
+
+
+def pod_cell():
+    cfg = dataclasses.replace(get_config(POD_CONFIG), n_layers=MESH_CELL_LAYERS,
+                              dtype="float32")
+    return (cfg, ShapeConfig("pod", POD_S, POD_B, "train"),
+            MeCeFOConfig(mode="dynamic", rank=TRAIN_RANK), TrainConfig(), TRAIN_FLAGS)
+
+
+def pod_gloo_rank(mesh, tmp: str) -> None:
+    """(b) one of the gloo ranks at POD_MESH: POD_STEPS dynamic steps from
+    the seeded state, its slices against the one-process run's, its held
+    bytes and its collectives by group."""
+    from repro_torch.launch.state import to_local
+    from repro_torch.parallel import collectives
+
+    dev = mesh.device
+    cfg, shape, mecefo, train, flags = pod_cell()
+    init = tree_map(lambda t: t.to(dev),
+                    torch.load(os.path.join(tmp, "pod_init.pt"), weights_only=False))
+    step = make_train_step(cfg, train, mecefo, shape, ndb_mode="dynamic", flags=flags,
+                           mesh=mesh, parallel=ParallelConfig())
+    state = to_local(TrainState(step=0, params=init["params"],
+                                opt=init_opt_state(init["params"], train), proj=init["proj"]),
+                     step.layout)
+    del init
+    keep, w = plan_to_masks(POD_PLAN, cfg, POD_B)
+    src = SyntheticLM(cfg.vocab_size)
+    collectives.reset_counts()
+    reset_launches()
+    state, metrics, ms = mr_steps(step, state, [src.batch(i, POD_B, POD_S)
+                                                for i in range(POD_STEPS)],
+                                  ({"keep": keep, "example_weight": w},), dev)
+    groups = collectives.group_counts()
+    ref = torch.load(os.path.join(tmp, "pod_ref.pt"), weights_only=False)
+    lay = step.layout
+    errs = {}
+    for part, mine, whole in (("params", state.params, ref["params"]),
+                              ("m", state.opt.m, ref["m"]), ("v", state.opt.v, ref["v"])):
+        cut = lay.map(lambda x, k: lay.cut(x.to(dev), k), whole)
+        errs[part] = max(leaf_rel_errs(mine, cut))
+    held = sum(t.numel() * t.element_size() for t in
+               tree_leaves(state.params) + tree_leaves(state.opt.m) + tree_leaves(state.opt.v)
+               + tree_leaves(state.proj))
+    torch.save({"coord": mesh.coord, "metrics": metrics, "errs": errs, "held": held,
+                "groups": groups, "rows": step.rows, "step_ms": ms,
+                "route": mesh.comm_of(("pod",)).route,
+                "launches": {n: WRAPPERS[n].launches for n in TRAIN_KERNELS}},
+               os.path.join(tmp, f"pod.rank{mesh.rank}.pt"))
+
+
+def pod_gloo_rows(dev, tmp: str) -> dict:
+    """(b) four gloo ranks sharing the card at POD_MESH, against the
+    one-process step and the dry run's counts from the shapes.  Returns
+    each rank's launches."""
+    from repro_torch.launch.dist import spawn
+    from repro_torch.launch.dryrun import dry_step
+    from repro_torch.launch.mesh import dry_mesh
+
+    free_card("pod", 20)
+    cfg, shape, mecefo, train, flags = pod_cell()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(POD_SEED), dev)
+    state = TrainState(step=0, params=params, opt=init_opt_state(params, train),
+                       proj=refresh_projections(params, cfg, TRAIN_RANK))
+    torch.save(tree_map(lambda t: t.cpu(), {"params": params, "proj": state.proj}),
+               os.path.join(tmp, "pod_init.pt"))
+    keep, w = plan_to_masks(POD_PLAN, cfg, POD_B)
+    step = make_train_step(cfg, train, mecefo, shape, ndb_mode="dynamic", flags=flags, device=dev)
+    src = SyntheticLM(cfg.vocab_size)
+    ref, ref_m, _ = mr_steps(step, state, [src.batch(i, POD_B, POD_S) for i in range(POD_STEPS)],
+                             ({"keep": keep, "example_weight": w},), dev)
+    torch.save(tree_map(lambda t: t.cpu(), {"params": ref.params, "m": ref.opt.m,
+                                             "v": ref.opt.v}), os.path.join(tmp, "pod_ref.pt"))
+    del params, state, ref, step
+    torch.cuda.empty_cache()
+    P, D, M = POD_MESH
+    t0 = time.perf_counter()
+    spawn(pod_gloo_rank, P * D * M, tmp, backend="gloo", device=dev.type, model=M, pod=P,
+          timeout=POD_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(tmp, f"pod.rank{r}.pt"), weights_only=False)
+             for r in range(P * D * M)]
+    tol = TRAIN_PARITY_TOL["float32"][0]
+    fails = []
+    for r, x in enumerate(ranks):
+        dry = dry_step(cfg, shape, dry_mesh(P, D, M, rank=r), ndb="dynamic",
+                       parallel=ParallelConfig(), mecefo=mecefo, train=train, flags=flags)
+        want_groups = {k: {g: {"calls": POD_STEPS * e["calls"], "bytes": POD_STEPS * e["bytes"]}
+                           for g, e in t.items()}
+                       for k, t in dry.cost.collectives_by_group.items()}
+        want_held = sum(v for k, v in dry.state_bytes.items() if k != "grads")
+        ok = (max(x["errs"].values()) <= tol and x["metrics"] == ranks[0]["metrics"]
+              and x["groups"] == want_groups and x["held"] == want_held)
+        emit({"phase": "pod", "row": "b: gloo, four ranks on one card", "mesh": list(POD_MESH),
+              "rank": r, "coord": x["coord"], "config": cfg.name, "n_layers": cfg.n_layers,
+              "dtype": cfg.dtype, "batch": POD_B, "seq_len": POD_S, "rows": [x["rows"].start,
+                                                                             x["rows"].stop],
+              "route": x["route"], "losses": [m["loss"] for m in x["metrics"]],
+              "max_leaf_rel_err": x["errs"], "limit_rel": tol, "held_bytes": x["held"],
+              "held_bytes_from_shapes": want_held,
+              "bytes_by_group": {k: {g: e["bytes"] for g, e in t.items()}
+                                 for k, t in x["groups"].items()},
+              "groups_equal_count_from_shapes": x["groups"] == want_groups,
+              "step_ms": x["step_ms"], "launches": x["launches"], "ok": ok})
+        if not ok:
+            fails.append(f"(b) gloo rank {r}")
+    emit({"phase": "pod", "row": "b: gloo spawn", "seconds": spawn_s})
+    if fails:
+        raise AssertionError(f"pod: {fails}")
+    return {r: x["launches"] for r, x in enumerate(ranks)}
+
+
+def dry_cell_rows(cells: DryCells) -> None:
+    """(c): the dry runs' records: each summary line, state and peak."""
+    fails = []
+    for arch, shape, mesh, rc, rec, tail in cells.collect():
+        ok = rc == 0 and rec is not None and "skipped" not in rec
+        row = {"phase": "pod", "row": "c: dry run", "arch": arch, "shape": shape, "mesh": mesh,
+               "rc": rc, "ok": ok}
+        if rec is not None:
+            row.update({k: rec.get(k) for k in (
+                "n_devices", "state_bytes_per_dev", "peak_bytes_per_dev", "fits", "t_compute",
+                "t_memory", "t_collective", "bottleneck", "useful_flops_ratio",
+                "roofline_fraction", "seconds", "accum", "launches")})
+            row["state_gib_per_dev"] = rec["state_bytes_per_dev"] / 2 ** 30
+            row["peak_gib_per_dev"] = rec["peak_bytes_per_dev"] / 2 ** 30
+            row["summary"] = (
+                f"{arch:22s} {shape:12s} {mesh:6s} compute={rec['t_compute'] * 1e3:9.3f}ms "
+                f"memory={rec['t_memory'] * 1e3:9.3f}ms coll={rec['t_collective'] * 1e3:9.3f}ms "
+                f"-> {rec['bottleneck']:10s} useful={rec['useful_flops_ratio']:6.1%} "
+                f"roofline={rec['roofline_fraction']:6.1%}")
+        else:
+            row["log_tail"] = tail
+        emit(row)
+        if not ok:
+            fails.append(f"(c) {arch} {shape} {mesh}: rc {rc}")
+    if fails:
+        raise AssertionError(f"pod: {fails}")
+
+
+def pod_phase(dev) -> dict:
+    """Phase 21.  Returns the launches of each of its paths."""
+    t0 = time.perf_counter()
+    out = {"pod a: counted steps": dry_count_rows(dev)}
+    cells = DryCells().start()  # (c), on the CPU beside (b), after every timed phase
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            out["pod b: nccl (1, 1, 1)"] = pod_nccl_rows(dev, tmp)
+            gloo = pod_gloo_rows(dev, tmp)
+        out.update({f"pod b: gloo {POD_MESH} rank {r}": c for r, c in gloo.items()})
+        dry_cell_rows(cells)
+    finally:
+        cells.stop()
+    emit({"phase": "pod", "run": "phase", "seconds": time.perf_counter() - t0,
+          "dry_cells_wall_s": time.perf_counter() - cells.t0})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU",
@@ -4921,7 +5308,10 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     emit({"phase": "build", "seconds": build_s, "sources": sorted(logs),
           "kernels_registers_spills": {n: ptxas_info(log) for n, log in logs.items()}})
+    return run_phases(dev)
 
+
+def run_phases(dev) -> int:
     timer = ColdTimer(dev)
     rows = kernel_phase(dev, timer)
     ssm_kernel_rows(dev, timer)
@@ -4952,6 +5342,7 @@ def main() -> int:
     later.update(multirank_phase(dev))
     later.update(model_axis_phase(dev, timer))
     later.update(mesh_serve_phase(dev, timer))
+    later.update(pod_phase(dev))
     # #3's split form runs only where the model axis cuts the SSM mixer:
     # its main path is phase 19 (e), counted on both ranks
     for n in SPLIT_NORM:

@@ -1,11 +1,11 @@
 """Configs: a copy of ``repro.configs.base``'s ``ModelConfig``,
-``MeCeFOConfig``, ``ParallelConfig``, ``ShapeConfig``, ``TrainConfig``,
-``reduced``, ``register`` and ``get_config``.
+``MeCeFOConfig``, ``ParallelConfig``, ``ShapeConfig``, ``SHAPES``,
+``shape_applicable``, ``TrainConfig``, ``reduced``, ``register`` and
+``get_config``.
 
-The port runs the ``data`` mesh axis at any size with the ``model`` axis at
-1 (``launch/mesh.py``); :meth:`ParallelConfig.check` refuses what it does
-not run yet: a ``model`` axis above 1, the pure 2-D ``"fsdp"`` sharding
-mode (it shards weights over the ``model`` axis) and sequence parallelism.
+The port runs the mesh axes ``pod``, ``data`` and ``model``
+(``launch/mesh.py``); :meth:`ParallelConfig.check` refuses batch axes and
+a tensor-parallel axis of other names.
 """
 from __future__ import annotations
 
@@ -87,16 +87,22 @@ class ParallelConfig:
     grad_compression: str = "none"
 
     def check(self, mesh_shape: dict, cfg: Optional["ModelConfig"] = None) -> None:
-        """Raise for what the port does not run yet on a mesh of
-        ``mesh_shape`` ({axis: size}): axes other than ``data`` and
-        ``model``.  Every model family of ``cfg``'s runs on both."""
-        later = "runs in a later slice of the port"
+        """Raise for what the port does not run on a mesh of ``mesh_shape``
+        ({axis: size}): axes other than ``pod``, ``data`` and ``model``,
+        batch axes other than ``data`` (with ``pod`` before it) and a
+        tensor-parallel axis other than ``model``.  Every model family of
+        ``cfg``'s runs on all three."""
         if self.sharding_mode not in ("tp_fsdp", "fsdp"):
             raise ValueError(f"sharding_mode {self.sharding_mode!r}")
-        if tuple(self.dp_axes) != ("data",):
-            raise NotImplementedError(f"dp_axes {self.dp_axes}: only ('data',) {later}")
+        if tuple(self.dp_axes) not in (("data",), ("pod", "data")):
+            raise NotImplementedError(f"dp_axes {self.dp_axes}: the port runs ('data',) "
+                                      "and ('pod', 'data')")
         if self.tp_axis != "model":
-            raise NotImplementedError(f"tp_axis {self.tp_axis!r}: only 'model' {later}")
+            raise NotImplementedError(f"tp_axis {self.tp_axis!r}: the port runs 'model'")
+        other = set(mesh_shape) - {"pod", "data", "model"}
+        if other:
+            raise NotImplementedError(f"mesh axes {sorted(other)}: the port runs 'pod', "
+                                      "'data' and 'model'")
 
 
 @dataclass(frozen=True)
@@ -162,6 +168,24 @@ class ShapeConfig:
     seq_len: int
     global_batch: int
     kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+def shape_applicable(model: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether a (arch x shape) cell is runnable; else the documented reason."""
+    if shape.name == "long_500k" and model.family not in ("ssm", "hybrid"):
+        return False, (
+            "long_500k requires sub-quadratic attention; "
+            f"{model.name} is pure full-attention (skip per DESIGN.md)"
+        )
+    return True, ""
 
 
 @dataclass(frozen=True)

@@ -147,7 +147,7 @@ class LowRankLinear(torch.autograd.Function):
         # mixed's low-rank part sums over the model group only
         ctx.reduce_row = _reducer(sync, w, sync.tp.comm, "lowrank_row") if row else None
         # degraded_sync's over the batch's group, and the model group with it
-        ctx.reduce = (_reducer(sync, w, sync.world_comm if row else sync.comm, "lowrank")
+        ctx.reduce = (_reducer(sync, w, sync.batch_model_comm if row else sync.comm, "lowrank")
                       if synced else ctx.reduce_row)
         ctx.keep_const = None if torch.is_tensor(keep) else float(keep)
         ctx.save_for_backward(x, w, v1, *((keep,) if torch.is_tensor(keep) else ()))

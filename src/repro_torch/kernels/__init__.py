@@ -7,7 +7,18 @@ anything else: there is no fallback that hides a failed build or launch.
 Inside ``with plain_versions():`` every wrapper takes its plain version on
 any device, which is how the parity checks run the plain path on the card.
 Each wrapper counts its kernel launches in a plain int attribute,
-``<wrapper>.launches``.
+``<wrapper>.launches``, where it calls its kernel and nowhere else.  Every
+launch function also books its launch's work with each listening recorder
+(``launch/cost.py``) through :func:`book`: its operations and the HBM
+bytes it must move, from the shapes by the same arithmetic as
+``chip_smoke.py``'s bound rows.
+
+On the meta device (the dry run, ``launch/dryrun.py``) a wrapper takes its
+kernel's route: the launch function checks its operands, makes its
+outputs (uninitialized, of the kernel's shapes), books the launch, and
+calls nothing, so ``<wrapper>.launches`` stays as it was.  A backward that recomputes the plain version
+(#2, #3) recomputes it on meta too, so the dry run books what the card
+runs.
 """
 from __future__ import annotations
 
@@ -41,12 +52,16 @@ def plain_versions():
 def runs_plain(*tensors: torch.Tensor) -> bool:
     """True when the plain version runs: every tensor lies on the CPU, or
     :func:`plain_versions` is active.  False when all lie on the current
-    CUDA device (the kernel runs); raises otherwise."""
+    CUDA device (the kernel runs) or all on the meta device (the kernel's
+    route, shapes only); raises otherwise."""
     types = {t.device.type for t in tensors}
     if types == {"cpu"}:
         return True
+    if types == {"meta"}:
+        return _PLAIN
     if types != {"cuda"}:
-        raise ValueError(f"tensors on devices {sorted(types)}: want all cpu or all cuda")
+        raise ValueError(f"tensors on devices {sorted(types)}: want all cpu, all cuda or "
+                         "all meta")
     cur = torch.cuda.current_device()
     for t in tensors:
         if t.device.index != cur:
@@ -163,3 +178,28 @@ def recompute_grads(plain, saved, needs, grad_out, *consts):
     want = [x for x, n in zip(xs, needs) if n]
     grads = iter(torch.autograd.grad(out, want, grad_out) if want else ())
     return tuple(next(grads) if n else None for n in needs)
+
+
+# the recorders listening to launches (``launch/cost.py:CostMode`` adds
+# itself while it runs); each has ``kernel(name, ops, nbytes)``
+RECORDERS: list = []
+
+
+def on_meta(t: torch.Tensor) -> bool:
+    """True for a tensor of the meta device: the launch makes its outputs
+    and calls nothing."""
+    return t.device.type == "meta"
+
+
+def book(name: str, cost) -> None:
+    """Book one launch of kernel ``name`` with every recorder, on the card
+    or on meta: ``cost()`` gives (operations, HBM bytes), called only while
+    a recorder listens."""
+    if RECORDERS:
+        ops, nbytes = cost()
+        for r in RECORDERS:
+            r.kernel(name, float(ops), int(nbytes))
+
+
+def nbytes(*tensors: torch.Tensor) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)

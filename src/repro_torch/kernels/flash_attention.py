@@ -26,8 +26,8 @@ import math
 import torch
 
 from repro_torch.kernels import (
-    FLOAT, INT, PTR, aligned16, check_launch, check_operand, dtype_code, kernel_fn, needs_grad,
-    p_terms, recompute_grads, refuse_detach, runs_plain, stream_ptr,
+    FLOAT, INT, PTR, aligned16, book, check_launch, check_operand, dtype_code, kernel_fn,
+    nbytes, needs_grad, on_meta, p_terms, recompute_grads, refuse_detach, runs_plain, stream_ptr,
 )
 
 NEG_INF = -1e30
@@ -76,15 +76,25 @@ def flash_attention_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) ->
     check_operand(v, "v", q.dtype)
     code = dtype_code(q)
     o = torch.empty_like(q)
-    if not aligned16(q, k, v, o):
-        raise ValueError("operands must be 16-byte aligned")
-    fn = kernel_fn("flash_attention", "flash_attention_launch",
-                   [PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT, FLOAT, INT, PTR])
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Sq, Sk, H, KV,
-             hd, 1.0 / math.sqrt(hd), code, stream_ptr(q))
-    check_launch("flash_attention", err)
-    flash_attention.launches += 1
+    if not on_meta(q):
+        if not aligned16(q, k, v, o):
+            raise ValueError("operands must be 16-byte aligned")
+        fn = kernel_fn("flash_attention", "flash_attention_launch",
+                       [PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT, FLOAT, INT, PTR])
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Sq, Sk, H, KV,
+                 hd, 1.0 / math.sqrt(hd), code, stream_ptr(q))
+        check_launch("flash_attention", err)
+        flash_attention.launches += 1
+    book("flash_attention",
+         lambda: (4.0 * hd * causal_pairs(B, H, Sq, Sk), 2 * nbytes(q) + 2 * nbytes(k)))
     return o
+
+
+def causal_pairs(B: int, H: int, Sq: int, Sk: int) -> int:
+    """The (query, key) pairs the causal mask keeps, the queries the last
+    ``Sq`` of ``Sk`` positions."""
+    off = Sk - Sq
+    return B * H * (Sq * off + Sq * (Sq + 1) // 2)
 
 
 class FlashAttentionFn(torch.autograd.Function):

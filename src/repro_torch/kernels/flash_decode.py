@@ -16,12 +16,13 @@ autograd would record it.
 from __future__ import annotations
 
 import math
+import numbers
 
 import torch
 
 from repro_torch.kernels import (
-    FLOAT, INT, PTR, aligned16, check_launch, check_operand, dtype_code, kernel_fn,
-    refuse_detach, runs_plain, stream_ptr,
+    FLOAT, INT, PTR, aligned16, book, check_launch, check_operand, dtype_code, kernel_fn,
+    nbytes, on_meta, refuse_detach, runs_plain, stream_ptr,
 )
 
 NEG_INF = -1e30
@@ -122,8 +123,32 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, 
     lens = cur_len_vector(cur_len, B, q.device)
     if runs_plain(q, k_cache, v_cache, lens):
         return flash_decode_plain(q, k_cache, v_cache, lens)
+    rows = (B * min(max(int(cur_len), 0), k_cache.shape[1])
+            if isinstance(cur_len, numbers.Integral) else None)
     return flash_decode_launch(q, k_cache, v_cache, lens,
-                               block_k=BLOCK_K if block_k is None else block_k)
+                               block_k=BLOCK_K if block_k is None else block_k,
+                               valid_rows=rows)
+
+
+def valid_rows_of(lens: torch.Tensor, smax: int, valid_rows) -> int:
+    """The cache rows a decode launch attends over, summed over its lanes:
+    ``valid_rows`` where the caller knows it on the host, else read from
+    ``lens`` on the card (the meta device cannot say)."""
+    if valid_rows is not None:
+        return valid_rows
+    if on_meta(lens):
+        raise ValueError("a decode launch on the meta device needs its lengths on the host "
+                         "(an int cur_len)")
+    return int(lens.long().clamp(0, smax).sum())
+
+
+def decode_cost(q: torch.Tensor, row_bytes: int, lens: torch.Tensor, rows: int,
+                extra_bytes: int = 0):
+    """(operations, HBM bytes) of a decode launch over ``rows`` valid cache
+    rows, ``row_bytes`` of K or V a row (``chip_smoke.py``'s bound rows)."""
+    H, hd = q.shape[2], q.shape[3]
+    return (4.0 * H * hd * rows,
+            2 * nbytes(q) + 2 * rows * row_bytes + nbytes(lens) + extra_bytes)
 
 
 def split_scratch(q: torch.Tensor, n_blocks: int, split_blocks: int) -> torch.Tensor:
@@ -147,11 +172,12 @@ def check_decode_heads(q: torch.Tensor, KV: int) -> None:
 
 def flash_decode_launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                         lens: torch.Tensor, *, block_k: int,
-                        split_blocks: int = SPLIT_BLOCKS) -> torch.Tensor:
+                        split_blocks: int = SPLIT_BLOCKS, valid_rows=None) -> torch.Tensor:
     """The bare CUDA launch (no autograd history; raises under grad): both
     passes of the kernel over (B,) int32 ``lens``, which it reads on the
     device only.  ``split_blocks`` other than :data:`SPLIT_BLOCKS` is for
-    the split sweep."""
+    the split sweep; ``valid_rows``, the lanes' rows summed, where the
+    caller knows it on the host (:func:`valid_rows_of`)."""
     refuse_detach("flash_decode", q, k_cache, v_cache)
     B, one, H, hd = q.shape
     _, Smax, KV, hd_k = k_cache.shape
@@ -169,17 +195,21 @@ def flash_decode_launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.T
     o = torch.empty_like(q)
     if Smax == 0:
         return o.zero_()
-    if not aligned16(q, k_cache, v_cache, o):
-        raise ValueError("operands must be 16-byte aligned")
-    part = split_scratch(q, -(-Smax // bk), split_blocks)
-    fn = kernel_fn("flash_decode", "flash_decode_launch",
-                   [PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT, INT, FLOAT, INT,
-                    PTR])
-    err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lens.data_ptr(),
-             part.data_ptr(), o.data_ptr(), B, H, KV, hd, Smax, bk, split_blocks,
-             1.0 / math.sqrt(hd), code, stream_ptr(q))
-    check_launch("flash_decode", err)
-    flash_decode.launches += 1
+    if not on_meta(q):
+        if not aligned16(q, k_cache, v_cache, o):
+            raise ValueError("operands must be 16-byte aligned")
+        part = split_scratch(q, -(-Smax // bk), split_blocks)
+        fn = kernel_fn("flash_decode", "flash_decode_launch",
+                       [PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT, INT, FLOAT,
+                        INT, PTR])
+        err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lens.data_ptr(),
+                 part.data_ptr(), o.data_ptr(), B, H, KV, hd, Smax, bk, split_blocks,
+                 1.0 / math.sqrt(hd), code, stream_ptr(q))
+        check_launch("flash_decode", err)
+        flash_decode.launches += 1
+    book("flash_decode",
+         lambda: decode_cost(q, KV * hd * q.element_size(), lens,
+                             valid_rows_of(lens, Smax, valid_rows)))
     return o
 
 

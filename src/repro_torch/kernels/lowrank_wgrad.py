@@ -21,8 +21,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import (
-    INT, PTR, check_launch, check_operand, dtype_code, kernel_fn, p_terms, refuse_detach,
-    runs_plain, stream_ptr,
+    INT, PTR, book, check_launch, check_operand, dtype_code, kernel_fn, nbytes, on_meta,
+    p_terms, refuse_detach, runs_plain, stream_ptr,
 )
 
 MAX_RANK = 256
@@ -62,15 +62,18 @@ def lowrank_wgrad_project_launch(x: torch.Tensor, dy: torch.Tensor, v1: torch.Te
         # a zero-width leaf (mamba2's d_ff = 0 FFN has m = 0 and r = 0):
         # A is zeros, and a grid of zero blocks is an invalid launch
         return a.zero_()
-    n_scratch = kernel_fn("lowrank_wgrad", "lowrank_wgrad_scratch", [INT] * 5,
-                          ctypes.c_longlong)(T, n, m, r, code)
-    scratch = torch.empty(n_scratch, dtype=torch.float32, device=x.device)
-    fn = kernel_fn("lowrank_wgrad", "lowrank_wgrad_launch",
-                   [PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, PTR])
-    err = fn(x.data_ptr(), dy.data_ptr(), v1.data_ptr(), scratch.data_ptr(), a.data_ptr(),
-             T, n, m, r, code, stream_ptr(x))
-    check_launch("lowrank_wgrad", err)
-    lowrank_wgrad_project.launches += 1
+    if not on_meta(x):
+        n_scratch = kernel_fn("lowrank_wgrad", "lowrank_wgrad_scratch", [INT] * 5,
+                              ctypes.c_longlong)(T, n, m, r, code)
+        scratch = torch.empty(n_scratch, dtype=torch.float32, device=x.device)
+        fn = kernel_fn("lowrank_wgrad", "lowrank_wgrad_launch",
+                       [PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, PTR])
+        err = fn(x.data_ptr(), dy.data_ptr(), v1.data_ptr(), scratch.data_ptr(), a.data_ptr(),
+                 T, n, m, r, code, stream_ptr(x))
+        check_launch("lowrank_wgrad", err)
+        lowrank_wgrad_project.launches += 1
+    book("lowrank_wgrad",
+         lambda: (2.0 * T * r * (n + m), nbytes(x, dy, v1) + r * m * 4))
     return a
 
 

@@ -18,12 +18,22 @@ import math
 import torch
 
 from repro_torch.kernels import (
-    FLOAT, INT, PTR, aligned16, check_launch, check_operand, dtype_code, kernel_fn,
-    refuse_detach, runs_plain, stream_ptr,
+    FLOAT, INT, PTR, aligned16, book, check_launch, check_operand, dtype_code, kernel_fn,
+    on_meta, refuse_detach, runs_plain, stream_ptr,
 )
 from repro_torch.kernels.flash_decode import (
-    SPLIT_BLOCKS, check_decode_heads, flash_decode_plain, split_scratch,
+    SPLIT_BLOCKS, check_decode_heads, decode_cost, flash_decode_plain, split_scratch,
 )
+
+
+def paged_rows(lens: torch.Tensor, ps: int, n_blocks: int):
+    """(rows attended, rows of the pages walked) of a paged launch, summed
+    over its lanes, read from ``lens`` on the card (a dry run on the meta
+    device cannot say)."""
+    if on_meta(lens):
+        raise ValueError("a paged decode launch on the meta device has no lengths to count")
+    n = lens.long().clamp(0, n_blocks * ps)
+    return int(n.sum()), int(((n + ps - 1) // ps).sum()) * ps
 
 
 def paged_decode_plain(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
@@ -72,18 +82,26 @@ def paged_decode_launch(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.T
     check_operand(lens, "lens", torch.int32)
     code = dtype_code(q)
     o = torch.empty_like(q)
-    if not aligned16(q, k_pages, v_pages, o):
+    if not on_meta(q) and not aligned16(q, k_pages, v_pages, o):
         raise ValueError("operands must be 16-byte aligned")
     P = tables.shape[1]
-    part = split_scratch(q, P, split_blocks)
-    fn = kernel_fn("paged_decode", "paged_decode_launch",
-                   [PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT, INT, INT,
-                    FLOAT, INT, PTR])
-    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), tables.data_ptr(),
-             lens.data_ptr(), part.data_ptr(), o.data_ptr(), B, H, KV, hd, n_pages, ps, P,
-             split_blocks, 1.0 / math.sqrt(hd), code, stream_ptr(q))
-    check_launch("paged_decode", err)
-    paged_decode.launches += 1
+    if not on_meta(q):
+        part = split_scratch(q, P, split_blocks)
+        fn = kernel_fn("paged_decode", "paged_decode_launch",
+                       [PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT, INT, INT,
+                        FLOAT, INT, PTR])
+        err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), tables.data_ptr(),
+                 lens.data_ptr(), part.data_ptr(), o.data_ptr(), B, H, KV, hd, n_pages, ps, P,
+                 split_blocks, 1.0 / math.sqrt(hd), code, stream_ptr(q))
+        check_launch("paged_decode", err)
+        paged_decode.launches += 1
+
+    def cost():
+        rows, covered = paged_rows(lens, ps, P)
+        ops, moved = decode_cost(q, 0, lens, rows, tables.numel() * tables.element_size())
+        return ops, moved + 2 * covered * KV * hd * q.element_size()
+
+    book("paged_decode", cost)
     return o
 
 

@@ -20,12 +20,14 @@ import math
 import torch
 
 from repro_torch.kernels import (
-    FLOAT, INT, PTR, aligned16, check_launch, check_operand, dtype_code, kernel_fn,
-    refuse_detach, runs_plain, stream_ptr,
+    FLOAT, INT, PTR, aligned16, book, check_launch, check_operand, dtype_code, kernel_fn,
+    on_meta, refuse_detach, runs_plain, stream_ptr,
 )
-from repro_torch.kernels.flash_decode import SPLIT_BLOCKS, check_decode_heads, split_scratch
+from repro_torch.kernels.flash_decode import (
+    SPLIT_BLOCKS, check_decode_heads, decode_cost, split_scratch,
+)
 from repro_torch.kernels.kvquant import dequantize_pages
-from repro_torch.kernels.paged_decode import paged_decode_plain
+from repro_torch.kernels.paged_decode import paged_decode_plain, paged_rows
 
 
 def paged_decode_q8_plain(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
@@ -81,19 +83,28 @@ def paged_decode_q8_launch(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
     check_operand(lens, "lens", torch.int32)
     code = dtype_code(q)
     o = torch.empty_like(q)
-    if not aligned16(q, k_pages, v_pages, o):
-        raise ValueError("operands must be 16-byte aligned")
     P = tables.shape[1]
-    part = split_scratch(q, P, SPLIT_BLOCKS)
-    fn = kernel_fn("paged_decode_q8", "paged_decode_q8_launch",
-                   [PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT, INT,
-                    INT, FLOAT, INT, PTR])
-    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), k_scale.data_ptr(),
-             v_scale.data_ptr(), tables.data_ptr(), lens.data_ptr(), part.data_ptr(),
-             o.data_ptr(), B, H, KV, hd, n_pages, ps, P, SPLIT_BLOCKS, 1.0 / math.sqrt(hd), code,
-             stream_ptr(q))
-    check_launch("paged_decode_q8", err)
-    paged_decode_q8.launches += 1
+    if not on_meta(q):
+        if not aligned16(q, k_pages, v_pages, o):
+            raise ValueError("operands must be 16-byte aligned")
+        part = split_scratch(q, P, SPLIT_BLOCKS)
+        fn = kernel_fn("paged_decode_q8", "paged_decode_q8_launch",
+                       [PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT,
+                        INT, INT, FLOAT, INT, PTR])
+        err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), k_scale.data_ptr(),
+                 v_scale.data_ptr(), tables.data_ptr(), lens.data_ptr(), part.data_ptr(),
+                 o.data_ptr(), B, H, KV, hd, n_pages, ps, P, SPLIT_BLOCKS, 1.0 / math.sqrt(hd),
+                 code, stream_ptr(q))
+        check_launch("paged_decode_q8", err)
+        paged_decode_q8.launches += 1
+
+    def cost():
+        rows, covered = paged_rows(lens, ps, P)
+        ops, moved = decode_cost(q, 0, lens, rows, tables.numel() * tables.element_size())
+        # int8 K and V of the pages walked, and their two f32 scales a page
+        return ops, moved + 2 * covered * KV * hd + 8 * (covered // ps)
+
+    book("paged_decode_q8", cost)
     return o
 
 

@@ -28,8 +28,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import (
-    FLOAT, INT, PTR, aligned16, check_launch, check_operand, dtype_code, kernel_fn, needs_grad,
-    recompute_grads, refuse_detach, runs_plain, stream_ptr,
+    FLOAT, INT, PTR, aligned16, book, check_launch, check_operand, dtype_code, kernel_fn,
+    needs_grad, on_meta, recompute_grads, refuse_detach, runs_plain, stream_ptr,
 )
 
 
@@ -52,12 +52,16 @@ def rmsnorm_launch(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> t
     if y.numel() == 0:  # nothing to launch (an empty grid is invalid)
         return y
     rows = x.numel() // d
-    vec = int(d % (16 // x.element_size()) == 0 and aligned16(x, scale, y))
-    fn = kernel_fn("rmsnorm", "rmsnorm_launch", [PTR, PTR, PTR, INT, INT, FLOAT, INT, INT, PTR])
-    err = fn(x.data_ptr(), scale.data_ptr(), y.data_ptr(), rows, d, float(eps),
-             code, vec, stream_ptr(x))
-    check_launch("rmsnorm", err)
-    rmsnorm.launches += 1
+    if not on_meta(x):
+        vec = int(d % (16 // x.element_size()) == 0 and aligned16(x, scale, y))
+        fn = kernel_fn("rmsnorm", "rmsnorm_launch",
+                       [PTR, PTR, PTR, INT, INT, FLOAT, INT, INT, PTR])
+        err = fn(x.data_ptr(), scale.data_ptr(), y.data_ptr(), rows, d, float(eps),
+                 code, vec, stream_ptr(x))
+        check_launch("rmsnorm", err)
+        rmsnorm.launches += 1
+    es = x.element_size()
+    book("rmsnorm", lambda: (4.0 * x.numel(), 2 * x.numel() * es + d * es))
     return y
 
 
@@ -115,11 +119,14 @@ def rmsnorm_sumsq_launch(x: torch.Tensor) -> torch.Tensor:
     ss = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
     if ss.numel() == 0:
         return ss
-    rows, d, vec = _rows_vec(x)
-    fn = kernel_fn("rmsnorm", "rmsnorm_sumsq_launch", [PTR, PTR, INT, INT, INT, INT, PTR])
-    check_launch("rmsnorm", fn(x.data_ptr(), ss.data_ptr(), rows, d, code, vec, stream_ptr(x)),
-                 "rmsnorm_sumsq")
-    rmsnorm_sumsq.launches += 1
+    if not on_meta(x):
+        rows, d, vec = _rows_vec(x)
+        fn = kernel_fn("rmsnorm", "rmsnorm_sumsq_launch", [PTR, PTR, INT, INT, INT, INT, PTR])
+        check_launch("rmsnorm", fn(x.data_ptr(), ss.data_ptr(), rows, d, code, vec,
+                                   stream_ptr(x)), "rmsnorm_sumsq")
+        rmsnorm_sumsq.launches += 1
+    book("rmsnorm_sumsq",
+         lambda: (2.0 * x.numel(), x.numel() * x.element_size() + ss.numel() * 4))
     return ss
 
 
@@ -138,13 +145,17 @@ def rmsnorm_apply_launch(x: torch.Tensor, ss: torch.Tensor, scale: torch.Tensor,
     y = torch.empty_like(x)
     if y.numel() == 0:
         return y
-    rows, d, vec = _rows_vec(x, scale)
-    fn = kernel_fn("rmsnorm", "rmsnorm_apply_launch",
-                   [PTR, PTR, PTR, PTR, INT, INT, INT, FLOAT, INT, INT, PTR])
-    err = fn(x.data_ptr(), ss.data_ptr(), scale.data_ptr(), y.data_ptr(), rows, d, int(d_whole),
-             float(eps), code, vec, stream_ptr(x))
-    check_launch("rmsnorm", err, "rmsnorm_apply")
-    rmsnorm_apply.launches += 1
+    if not on_meta(x):
+        rows, d, vec = _rows_vec(x, scale)
+        fn = kernel_fn("rmsnorm", "rmsnorm_apply_launch",
+                       [PTR, PTR, PTR, PTR, INT, INT, INT, FLOAT, INT, INT, PTR])
+        err = fn(x.data_ptr(), ss.data_ptr(), scale.data_ptr(), y.data_ptr(), rows, d,
+                 int(d_whole), float(eps), code, vec, stream_ptr(x))
+        check_launch("rmsnorm", err, "rmsnorm_apply")
+        rmsnorm_apply.launches += 1
+    es = x.element_size()
+    book("rmsnorm_apply",
+         lambda: (2.0 * x.numel() + ss.numel(), 2 * x.numel() * es + ss.numel() * 4 + d * es))
     return y
 
 

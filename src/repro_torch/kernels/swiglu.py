@@ -24,8 +24,8 @@ import torch
 import torch.nn.functional as F_
 
 from repro_torch.kernels import (
-    INT, PTR, aligned16, check_launch, check_operand, dtype_code, kernel_fn, needs_grad,
-    refuse_detach, runs_plain, stream_ptr,
+    INT, PTR, aligned16, book, check_launch, check_operand, dtype_code, kernel_fn,
+    needs_grad, on_meta, refuse_detach, runs_plain, stream_ptr,
 )
 
 
@@ -58,12 +58,14 @@ def swiglu_launch(g: torch.Tensor, u: torch.Tensor, *, round_silu: bool = False)
     out = torch.empty_like(g)
     if out.numel() == 0:  # a zero-width FFN: nothing to launch (an empty grid is invalid)
         return out
-    fn = kernel_fn("swiglu", "swiglu_launch",
-                   [PTR, PTR, PTR, ctypes.c_longlong, INT, INT, INT, PTR])
-    err = fn(g.data_ptr(), u.data_ptr(), out.data_ptr(), g.numel(), code,
-             int(aligned16(g, u, out)), int(round_silu), stream_ptr(g))
-    check_launch("swiglu", err)
-    swiglu.launches += 1
+    if not on_meta(g):
+        fn = kernel_fn("swiglu", "swiglu_launch",
+                       [PTR, PTR, PTR, ctypes.c_longlong, INT, INT, INT, PTR])
+        err = fn(g.data_ptr(), u.data_ptr(), out.data_ptr(), g.numel(), code,
+                 int(aligned16(g, u, out)), int(round_silu), stream_ptr(g))
+        check_launch("swiglu", err)
+        swiglu.launches += 1
+    book("swiglu", lambda: (5.0 * g.numel(), 3 * g.numel() * g.element_size()))
     return out
 
 
@@ -80,13 +82,16 @@ def swiglu_bwd_launch(g: torch.Tensor, u: torch.Tensor, dy: torch.Tensor, *,
     dg, du = torch.empty_like(g), torch.empty_like(g)
     if g.numel() == 0:
         return dg, du
-    fn = kernel_fn("swiglu", "swiglu_bwd_launch",
-                   [PTR, PTR, PTR, PTR, PTR, ctypes.c_longlong, INT, INT, INT, PTR])
-    err = fn(g.data_ptr(), u.data_ptr(), dy.data_ptr(), dg.data_ptr(), du.data_ptr(),
-             g.numel(), code, int(aligned16(g, u, dy, dg, du)), int(round_silu),
-             stream_ptr(g))
-    check_launch("swiglu", err, "swiglu_bwd")
-    swiglu_bwd.launches += 1
+    if not on_meta(g):
+        fn = kernel_fn("swiglu", "swiglu_bwd_launch",
+                       [PTR, PTR, PTR, PTR, PTR, ctypes.c_longlong, INT, INT, INT, PTR])
+        err = fn(g.data_ptr(), u.data_ptr(), dy.data_ptr(), dg.data_ptr(), du.data_ptr(),
+                 g.numel(), code, int(aligned16(g, u, dy, dg, du)), int(round_silu),
+                 stream_ptr(g))
+        check_launch("swiglu", err, "swiglu_bwd")
+        swiglu_bwd.launches += 1
+    book("swiglu_bwd",
+         lambda: (20.0 * g.numel(), 5 * g.numel() * g.element_size()))
     return dg, du
 
 

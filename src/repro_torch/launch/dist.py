@@ -32,9 +32,10 @@ from repro_torch.launch.mesh import Mesh, make_host_mesh
 
 
 def init_process_group(rank: int, world: int, *, init_method: str, backend: Optional[str] = None,
-                       device="cuda", model: int = 1) -> Mesh:
+                       device="cuda", model: int = 1, pod: Optional[int] = None) -> Mesh:
     """Start this process's group and return the (world / model, model)
-    mesh.  ``device`` is CUDA unless the caller asks for the CPU (an error
+    mesh, or with ``pod`` the (pod, world / (pod·model), model) mesh.
+    ``device`` is CUDA unless the caller asks for the CPU (an error
     where CUDA is absent, as every entry point of the port).  ``backend``
     defaults to NCCL for a CUDA device and gloo otherwise; gloo with a CUDA
     device is the caller's choice (ranks sharing one card)."""
@@ -47,7 +48,7 @@ def init_process_group(rank: int, world: int, *, init_method: str, backend: Opti
         torch.cuda.set_device(index)  # before an NCCL group starts
         dev = torch.device("cuda", index)
     dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=world)
-    return make_host_mesh(world // model, model, device=dev)
+    return make_host_mesh(world // (model * (pod or 1)), model, device=dev, pod=pod)
 
 
 def init_from_env(device="cuda", backend: Optional[str] = None, model: int = 1) -> Optional[Mesh]:
@@ -85,12 +86,12 @@ def _record(errors: str, rank: int, exc: BaseException) -> None:
     os.replace(path + ".tmp", path)
 
 
-def _rank_main(rank, fn, world, init_method, backend, device, model, errors, args):
+def _rank_main(rank, fn, world, init_method, backend, device, model, errors, args, pod=None):
     if torch.device(device).type == "cpu":
         torch.set_num_threads(1)
     try:
         mesh = init_process_group(rank, world, init_method=init_method, backend=backend,
-                                  device=device, model=model)
+                                  device=device, model=model, pod=pod)
         try:
             fn(mesh, *args)
         finally:
@@ -120,10 +121,11 @@ def _first_failure(errors: str) -> Optional[BaseException]:
 
 
 def spawn(fn, world: int, *args, backend: Optional[str] = None, device="cuda",
-          timeout: float = 600.0, model: int = 1) -> None:
+          timeout: float = 600.0, model: int = 1, pod: Optional[int] = None) -> None:
     """Run ``fn(mesh, *args)`` on ``world`` fresh processes (``fn`` at module
     level, so the ranks can import it) over a ``(world / model, model)``
-    mesh on ``device`` (CUDA unless the caller asks for the CPU; checked
+    mesh, or with ``pod`` a ``(pod, world / (pod·model), model)`` mesh, on
+    ``device`` (CUDA unless the caller asks for the CPU; checked
     here, before any rank starts).  Raises the exception of the rank that
     failed first, or ``TimeoutError`` (after ending every rank) past
     ``timeout`` seconds."""
@@ -131,14 +133,16 @@ def spawn(fn, world: int, *args, backend: Optional[str] = None, device="cuda",
 
     resolve_device(device)
 
-    if world % model:
-        raise ValueError(f"{world} ranks do not make a mesh with a model axis of {model}")
+    if world % (model * (pod or 1)):
+        raise ValueError(f"{world} ranks do not make a mesh with a model axis of {model} "
+                         f"and a pod axis of {pod or 1}")
     with tempfile.TemporaryDirectory() as tmp:
         init_method = "file://" + os.path.join(tmp, "rendezvous")
         errors = os.path.join(tmp, "errors")
         os.makedirs(errors)
         ctx = mp.start_processes(
-            _rank_main, args=(fn, world, init_method, backend, str(device), model, errors, args),
+            _rank_main, args=(fn, world, init_method, backend, str(device), model, errors, args,
+                              pod),
             nprocs=world, join=False, start_method="spawn")
         deadline = time.monotonic() + timeout
         try:

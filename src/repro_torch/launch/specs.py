@@ -85,16 +85,12 @@ def rows_of(B: int, bax: Optional[tuple], mesh) -> slice:
     """The contiguous rows of a global batch of ``B`` this rank holds: all
     of them when the batch is not sharded (``bax`` None).  The batch axes
     index the rows in their order, the last fastest: ``d`` over
-    ``("data",)``, ``d·M + m`` over ``("data", "model")``."""
+    ``("data",)``, ``d·M + m`` over ``("data", "model")``, ``p·D + d``
+    over ``("pod", "data")`` (:meth:`Mesh.index_in`)."""
     if bax is None:
         return slice(0, B)
-    shape = mesh.shape
-    coord = dict(zip(("data", "model"), divmod(mesh.rank, shape.get("model", 1))))
-    n, r = 1, 0
-    for ax in bax:
-        n *= shape.get(ax, 1)
-        r = r * shape.get(ax, 1) + coord.get(ax, 0)
-    b = B // n
+    b = B // mesh.size_of(bax)
+    r = mesh.index_in(bax)
     return slice(r * b, (r + 1) * b)
 
 

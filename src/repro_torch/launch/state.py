@@ -6,8 +6,10 @@ A leaf may be cut along two dims.  Its ``model`` dim (``heads``,
 expert-parallel cut: rank ``m`` holds and computes with its slice, and the
 step never gathers it.  Its FSDP dim (``ParallelConfig.fsdp``: ``embed``,
 ``embed_tbl``, ``expert_embed``) is cut over the ``data`` group, or over
-every rank (``d·M + m``) where the rules give it ``("data", "model")``
-(``sharding_mode="fsdp"``); the step gathers it at its start.  AdamW's
+the ``("data", "model")`` group (index ``d·M + m``) where the rules give it
+both axes (``sharding_mode="fsdp"``); the step gathers it at its start.
+Under a ``pod`` axis a leaf is whole across the pods, as the reference's
+rules leave it (``pod`` shards only the batch).  AdamW's
 moments follow their params: the counterpart of ``to_shardings``.  A dim
 the mesh does not divide stays whole, where the JAX package's GSPMD pads
 it; the numbers are the same, and :attr:`ShardLayout.whole` names those
@@ -37,7 +39,7 @@ import torch
 from repro_torch.configs.base import MeCeFOConfig, ModelConfig, TrainConfig
 from repro_torch.core.lowrank import init_projections, projection_annotations
 from repro_torch.models.params import (
-    init_params, param_annotations, param_shapes, ssm_segments, tree_leaves,
+    init_params, map_leaves, param_annotations, param_shapes, ssm_segments, tree_leaves,
 )
 from repro_torch.optim.optimizers import AdamWState, SGDMState, init_opt_state
 from repro_torch.parallel.sharding import (
@@ -62,6 +64,41 @@ def init_state(cfg: ModelConfig, train: TrainConfig, mecefo: MeCeFOConfig,
     asks for the CPU)."""
     params = init_params(cfg, generator, device, dtype)
     proj = init_projections(params, cfg, mecefo.rank) if mecefo.mode != "off" else {}
+    return TrainState(step=0, params=params, opt=init_opt_state(params, train), proj=proj)
+
+
+def param_structs(cfg: ModelConfig, layout: Optional["ShardLayout"] = None, device="meta",
+                  dtype=None) -> Tree:
+    """This rank's params as zeros of its local shapes (each leaf as
+    ``layout`` cuts it; whole without one), in ``cfg``'s dtype on
+    ``device``: the meta device by default, where they hold no data."""
+    dt = dtype or getattr(torch, cfg.dtype)
+    whole = map_leaves(lambda _n, shape: torch.empty(shape, dtype=dt, device="meta"),
+                       param_shapes(cfg))
+    leaves, unflatten = tree_flatten(whole)
+    return unflatten([torch.zeros(layout.local_shape(k) if layout is not None else x.shape,
+                                  dtype=dt, device=device) for k, x in enumerate(leaves)])
+
+
+def state_structs(cfg: ModelConfig, train: TrainConfig, mecefo: MeCeFOConfig,
+                  layout: Optional["ShardLayout"] = None, device="meta",
+                  dtype=None) -> TrainState:
+    """This rank's state as zeros of its local shapes (the counterpart of
+    ``repro.launch.state.state_structs``; on the meta device, shapes only):
+    params and V1 in ``cfg``'s dtype, f32 moments, each leaf cut as
+    ``layout`` cuts it (the whole state without one).  The whole tree it
+    works from lies on the meta device, so a full-width config is never
+    materialised; on ``device`` only this rank's slices are made."""
+    dev = torch.device(device)
+    params = param_structs(cfg, layout, dev, dtype)
+    whole = param_structs(cfg, None, "meta", dtype)
+    proj = {}
+    if mecefo.mode != "off":
+        proj = init_projections(whole, cfg, mecefo.rank)
+        if layout is not None:
+            proj = layout.cut_proj(proj)
+        pl, punflatten = tree_flatten(proj)
+        proj = punflatten([torch.zeros(x.shape, dtype=x.dtype, device=dev) for x in pl])
     return TrainState(step=0, params=params, opt=init_opt_state(params, train), proj=proj)
 
 
@@ -91,11 +128,11 @@ def leaf_paths(tree: Tree, prefix: str = "") -> list:
 class ShardLayout:
     """Where a mesh's ranks cut each param leaf (and its moments), in leaf
     order: ``mdims`` the dim cut over ``model`` (never gathered), ``dims``
-    the FSDP dim, cut over ``groups`` (``"data"`` or ``"world"``), None
-    for a leaf held whole along that axis; ``segs`` a leaf's pieces along
-    its model dim as (width, cut) pairs where the cut is segmented (the
-    fused SSM leaves), else None; ``proj_mdims`` V1's ``model`` dims in
-    the V1 tree's leaf order."""
+    the FSDP dim, cut over ``groups`` (the mesh axes ``("data",)`` or
+    ``("data", "model")``), None for a leaf held whole along that axis;
+    ``segs`` a leaf's pieces along its model dim as (width, cut) pairs
+    where the cut is segmented (the fused SSM leaves), else None;
+    ``proj_mdims`` V1's ``model`` dims in the V1 tree's leaf order."""
 
     mesh: Any
     dims: Tuple[Optional[int], ...]
@@ -119,10 +156,9 @@ class ShardLayout:
     def pieces(self, k: int) -> int:
         """How many ranks' slices make leaf ``k`` whole (for a segmented
         leaf, its cut pieces)."""
-        D, M = self.mesh.sizes
-        n = M if self.mdims[k] is not None else 1
+        n = self.mesh.sizes[1] if self.mdims[k] is not None else 1
         if self.dims[k] is not None:
-            n *= D if self.groups[k] == "data" else D * M
+            n *= self.mesh.size_of(self.groups[k])
         return n
 
     def seg(self, k: int):
@@ -138,11 +174,11 @@ class ShardLayout:
         """The shape of this rank's slice of leaf ``k``."""
         shape = list(self.shapes[k])
         md, d = self.mdims[k], self.dims[k]
-        D, M = self.mesh.sizes
         if md is not None:
+            M = self.mesh.sizes[1]
             shape[md] = sum(self.local_widths(k)) if self.seg(k) else shape[md] // M
         if d is not None:
-            shape[d] //= D if self.groups[k] == "data" else D * M
+            shape[d] //= self.mesh.size_of(self.groups[k])
         return tuple(shape)
 
     def cut(self, t: torch.Tensor, k: int) -> torch.Tensor:
@@ -186,9 +222,8 @@ class ShardLayout:
         """This rank's FSDP slice of leaf ``k`` already cut over ``model``."""
         if self.dims[k] is None:
             return t.clone() if copy else t
-        D, M = self.mesh.sizes
-        n, i = (D, self.mesh.coords[0]) if self.groups[k] == "data" else (D * M, self.mesh.rank)
-        return t.chunk(n, dim=self.dims[k])[i].clone()
+        g = self.groups[k]
+        return t.chunk(self.mesh.size_of(g), dim=self.dims[k])[self.mesh.index_in(g)].clone()
 
     def map(self, fn, tree: Tree) -> Tree:
         """``fn(leaf, k)`` over a params-shaped tree, ``k`` the leaf index."""
@@ -278,8 +313,9 @@ def shard_layout(cfg: ModelConfig, rules: ShardingRules, mesh, fsdp: bool,
     logical dims the model's layers cut over ``model`` (``heads``,
     ``kv_heads``, ``mlp``, ``vocab``, ``expert``, ``ssm_inner``, the
     fused SSM leaves segmented); FSDP cuts each leaf
-    along its ``data`` dim (over ``data``, or over every rank where the
-    rules give it both axes); without FSDP a leaf is whole over ``data``."""
+    along its ``data`` dim (over ``data``, or over ``(data, model)`` where
+    the rules give it both axes); without FSDP a leaf is whole over
+    ``data``, and every leaf is whole over ``pod``."""
     paths = leaf_paths(param_shapes(cfg))
     anns = _ann_leaves(param_annotations(cfg))
     specs = spec_leaves(spec_tree(rules, param_annotations(cfg)))
@@ -297,8 +333,8 @@ def shard_layout(cfg: ModelConfig, rules: ShardingRules, mesh, fsdp: bool,
         g = None
         if d is not None:
             e = spec[d]
-            g = "world" if isinstance(e, tuple) and "model" in e else "data"
-            if shape[d] % (D * M if g == "world" else D):
+            g = ("data", "model") if isinstance(e, tuple) and "model" in e else ("data",)
+            if shape[d] % mesh.size_of(g):
                 whole.append(path)
                 d, g = None, None
         dims.append(d)

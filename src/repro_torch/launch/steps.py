@@ -1,6 +1,7 @@
 """The training step and the serve steps (the counterparts of
-``repro.launch.steps``'s ``make_train_step``, ``make_prefill_step`` and
-``make_decode_step``), on one process or over a (data, model) mesh.
+``repro.launch.steps``'s ``make_train_step``, ``make_prefill_step``,
+``make_decode_step`` and ``default_accum``), on one process or over a
+(data, model) or (pod, data, model) mesh.
 
 A step computes the forward loss, the MeCeFO backward (technique I skips
 the MHA backward, II recomputes the FFN, III takes the low-rank Wgrad
@@ -14,24 +15,27 @@ on one data shard), sums their gradients in f32, each optionally rounded
 to bf16 first (``parallel.grad_compression == "bf16"``), divides by
 ``accum``, and applies eq. (1), clipping and the update to the mean.
 
-Under a mesh (``launch/mesh.py``, axes ``data`` × ``model``) every rank
-gets the same global batch and NDB masks and computes on the rows its
-batch axes give it (``launch/specs.py``: ``d`` of D under
-``sharding_mode="tp_fsdp"``, ``d·M + m`` of D·M under ``"fsdp"``): its
-loss is its share of the global mean (the token-weight sum and the MoE
+Under a mesh (``launch/mesh.py``, axes ``data`` × ``model``, or ``pod`` ×
+``data`` × ``model``) every rank gets the same global batch and NDB masks
+and computes on the rows its batch axes give it (``launch/specs.py``:
+``d`` of D under ``sharding_mode="tp_fsdp"``, ``d·M + m`` of D·M under
+``"fsdp"``; with a pod axis ``p·D + d`` of P·D and ``(p·D + d)·M + m`` of
+P·D·M): its loss is its share of the global mean (the token-weight sum and the MoE
 routing fractions are all-reduced in the forward,
 ``parallel/collectives.py:StepSync``).  A ``model`` axis above 1 cuts the
 layers (``model_axis``: tensor parallelism over heads, FFN and vocab,
 sequence parallelism, the experts, the SSM mixer by its heads) as
 ``models/layers.py``, ``models/moe.py`` and ``models/ssm.py`` describe; the model ranks of one data row then hold the
 same rows and the same loss.  A leaf's gradient shares are summed over
-the batch's groups except ``model`` where the leaf is cut over it
-(all-reduced, or reduce-scattered along its FSDP dim), except the
+the batch's groups in a pod except ``model`` where the leaf is cut over it
+(all-reduced, or reduce-scattered along its FSDP dim), then all-reduced
+over ``pod`` where the batch is cut over it, except the
 low-rank leaves ``degraded_sync`` already reduced as their (r, m)
 factors.  Eq. (1) rescales with the global masks, clipping takes the
-global norm (each distinct slice counted once), and AdamW updates each
-rank's slices.  The step gathers the FSDP dims of the params at its start
-and frees them at its end; it never gathers a ``model`` dim.
+global norm (each distinct slice counted once, the slices of pod 0),
+and AdamW updates each rank's slices.  The step gathers the FSDP dims of
+the params at its start and frees them at its end; it never gathers a
+``model`` dim.
 Accumulation splits each rank's rows (the JAX package's per-shard
 interleave); with bf16 compression each micro-gradient is reduced in f32
 and rounded to bf16, the rounding the JAX program applies to the global
@@ -49,6 +53,7 @@ model group).
 from __future__ import annotations
 
 import dataclasses
+import math
 from types import SimpleNamespace
 from typing import Any, Callable, Dict, Optional
 
@@ -68,7 +73,7 @@ from repro_torch.models.kvcache import (
     cache_annotations, cache_structs, held_kv_heads, held_ssm_heads,
 )
 from repro_torch.models.model import ExecFlags, forward_decode, forward_loss, forward_prefill
-from repro_torch.models.params import param_annotations, tree_leaves, tree_map
+from repro_torch.models.params import count_params, param_annotations, tree_leaves, tree_map
 from repro_torch.optim.optimizers import apply_update, clip_by_global_norm, lr_schedule
 from repro_torch.parallel.collectives import ModelAxis, StepSync
 from repro_torch.parallel.sharding import (
@@ -179,12 +184,48 @@ def build_rules(cfg: ModelConfig, mesh, parallel: ParallelConfig) -> ShardingRul
     return rules
 
 
+# the batch axes the port cuts a batch over
+BATCH_AXES = (("data",), ("data", "model"), ("pod", "data"), ("pod", "data", "model"))
+
+
 def batch_axes(cfg: ModelConfig, mesh, parallel: ParallelConfig, B: int):
     """The mesh axes a global batch of ``B`` is cut over: ``("data",)``,
-    ``("data", "model")`` (``sharding_mode="fsdp"``), or None where the
-    mesh does not divide it (every rank then computes every row)."""
+    ``("data", "model")`` (``sharding_mode="fsdp"``), each with ``"pod"``
+    first where the mesh has the axis and it divides the batch, or None
+    where the mesh does not divide it (every rank then computes every
+    row)."""
     bax = batch_axes_for(B, build_rules(cfg, mesh, parallel), mesh_shape_dict(mesh))
-    return bax if bax in (("data",), ("data", "model")) else None
+    return bax if bax in BATCH_AXES else None
+
+
+def default_accum(cfg: ModelConfig, shape: ShapeConfig, mesh,
+                  parallel: Optional[ParallelConfig] = None) -> int:
+    """The JAX package's choice of gradient-accumulation micro-batches: so
+    a device's layer-input checkpoints stay within ~2.5 GB (a copy of
+    ``repro.launch.steps.default_accum``; its 16 GB budget is the TPU's
+    HBM, kept so the port's dry run takes the reference's micro-batches)."""
+    if shape.kind != "train":
+        return 1
+    nds = n_dp_shards(mesh)
+    if parallel is not None and parallel.sharding_mode == "fsdp":
+        nds *= mesh_shape_dict(mesh).get("model", 1)
+    n_dev = math.prod(mesh_shape_dict(mesh).values())
+    B = shape.global_batch
+    b_loc = max(B // nds, 1)
+    tokens_dev = b_loc * shape.seq_len
+    ckpt_bytes = tokens_dev * cfg.d_model * 2 * cfg.n_layers
+    state_bytes = count_params(cfg) * 14 // n_dev  # bf16 p + f32 g,m,v
+    # halve the nominal budget: transient (non-checkpoint) buffers in the
+    # layer backward roughly match the checkpoint footprint
+    budget = max(int((16e9 - state_bytes - 6e9) // 2), int(1_200_000_000))
+    need = max(1, -(-ckpt_bytes // budget))
+    accum = 1
+    for cand in range(1, b_loc + 1):
+        if b_loc % cand == 0:
+            accum = cand
+            if cand >= need:
+                break
+    return accum
 
 
 def model_cuts(cfg: ModelConfig, mesh, parallel: ParallelConfig) -> frozenset:
@@ -299,8 +340,7 @@ def make_train_step(
         n_shards = B // (rows.stop - rows.start)
         # a rank's rows route in its share of the groups; a whole batch in all
         flags = dataclasses.replace(flags, n_dp_shards=max(nds // n_shards, 1))
-        batch_comm = None if bax is None else mesh.comm_of("data" if bax == ("data",) else
-                                                          "world")
+        batch_comm = None if bax is None else mesh.comm_of(bax)
     accum = max(getattr(parallel, "accum", 1), 1)
     if B % (nds * accum):
         accum = 1
@@ -327,23 +367,28 @@ def make_train_step(
 
     def reduce_grads(grads: Tree, sync: Optional[StepSync]) -> Tree:
         """A rank's gradient shares as this rank's slices of the global
-        gradient.  A leaf sums over the batch's groups except ``model``
-        where it cuts that axis (its experts' exchange already summed the
-        model ranks' rows): all-reduced, or reduce-scattered along its FSDP
-        dim.  A leaf the backward already reduced (or every leaf, when each
-        rank computed the whole batch) is only cut."""
+        gradient.  A leaf sums over the batch's groups in its pod except
+        ``model`` where it cuts that axis (its experts' exchange already
+        summed the model ranks' rows): all-reduced, or reduce-scattered
+        along its FSDP dim; then over ``pod`` where the batch is cut over
+        it (a leaf is whole across the pods).  A leaf the backward already
+        reduced (or every leaf, when each rank computed the whole batch)
+        is only cut."""
         synced = sync.synced if sharded else [True] * len(layout.dims)
 
         def one(g, k, done):
             if done:
                 return layout.cut_fsdp(g, k)
-            over = "data" if bax == ("data",) or layout.mdims[k] is not None else "world"
+            over = tuple(a for a in bax  # the batch's groups in a pod
+                         if a != "pod" and (a != "model" or layout.mdims[k] is None))
             comm, d, tag = mesh.comm_of(over), layout.dims[k], "grad:" + layout.paths[k]
             if d is None:
-                return comm.all_reduce(g, tag=tag)
-            if layout.groups[k] == over:
-                return comm.reduce_scatter(g, d, tag=tag)
-            return layout.cut_fsdp(comm.all_reduce(g, tag=tag), k)
+                g = comm.all_reduce(g, tag=tag)
+            elif layout.groups[k] == over:
+                g = comm.reduce_scatter(g, d, tag=tag)
+            else:
+                g = layout.cut_fsdp(comm.all_reduce(g, tag=tag), k)
+            return mesh.comm_of(("pod",)).all_reduce(g, tag=tag) if "pod" in bax else g
 
         leaves = tree_leaves(grads)
         out = [one(g, k, done) for k, (g, done) in enumerate(zip(leaves, synced))]
@@ -360,8 +405,10 @@ def make_train_step(
         params = layout.gather(state.params, "param") if layout.fsdp_sharded else state.params
         sync = None
         if sharded or tp is not None:
-            sync = StepSync(batch_comm, layout.paths, tp, mesh.world_comm,
-                            mesh.comm if tp is not None and tp.expert == "a2a" else batch_comm)
+            both = None if bax is None else mesh.comm_of(bax + ("model",))
+            experts = (mesh.comm_of(tuple(a for a in bax if a != "model"))
+                       if tp is not None and tp.expert == "a2a" else batch_comm)
+            sync = StepSync(batch_comm, layout.paths, tp, both, experts)
         if accum == 1:
             _loss, metrics, grads = loss_and_grads(params, proj, batch, cfg, ctx, flags, sync)
             grads = reduce_grads(grads, sync)
@@ -376,14 +423,15 @@ def make_train_step(
 
     def counted() -> list:
         """Per leaf, what of this rank's slice counts in the global norm:
-        all of it on coordinate 0 of every axis that does not cut the leaf,
-        else nothing; a segmented leaf's whole pieces on model rank 0 only
-        (``ShardLayout.own``)."""
+        all of it on coordinate 0 of every axis that does not cut the leaf
+        (``pod`` cuts none), else nothing; a segmented leaf's whole pieces
+        on model rank 0 only (``ShardLayout.own``)."""
         d0, m0 = mesh.coords
 
         def one(k):
-            cuts_model = layout.mdims[k] is not None or layout.groups[k] == "world"
-            if not ((cuts_model or m0 == 0) and (layout.dims[k] is not None or d0 == 0)):
+            cuts_model = layout.mdims[k] is not None or layout.groups[k] == ("data", "model")
+            if mesh.pod_coord or not ((cuts_model or m0 == 0)
+                                      and (layout.dims[k] is not None or d0 == 0)):
                 return False
             return True if layout.seg(k) is None else (lambda x: layout.own(x, k))
 
@@ -453,7 +501,7 @@ class _ServePlan:
         parallel = parallel or ParallelConfig()
         self.B = shape.global_batch
         self.flags = serve_flags(parallel, mesh, flags)
-        one = mesh is None or tuple(mesh.sizes) == (1, 1)
+        one = mesh is None or math.prod(mesh_shape_dict(mesh).values()) == 1
         self.rules = build_rules(cfg, mesh or _ONE, parallel)
         self.bax = batch_axes_for(self.B, self.rules, mesh_shape_dict(mesh or _ONE))
         self.layout = self.tp = None
@@ -483,7 +531,7 @@ class _ServePlan:
     def specs(self, cfg: ModelConfig, shape: ShapeConfig, max_len: int) -> Dict[str, Any]:
         """The params', inputs', caches' and logits' specs (the JAX rules'),
         and ``held_caches``: the caches' specs as a rank holds them."""
-        msd = dict(zip(AXES, getattr(self.layout, "mesh", _ONE).sizes))
+        msd = mesh_shape_dict(getattr(self.layout, "mesh", _ONE))
         dshape = ShapeConfig(shape.name, max_len, self.B, "decode")
         _, dspecs = input_specs(cfg, dshape, self.rules, msd)
         kv_cut = self.tp is not None and self.tp.kv

@@ -1,11 +1,19 @@
 """The port's collectives: the one module that calls ``torch.distributed``.
 
-A :class:`Comm` binds one group of a mesh (``launch/mesh.py``: the data
-group, the model group or the world): its backend, device, rank and size.
-It offers all-reduce (sum, max), the all-gather of a shard along a dim,
-the reduce-scatter (sum) along a dim, the all-to-all of equal chunks of
-dim 0, and broadcast.  A ``Comm`` without a group (the 1×1 mesh of one
-process) runs each call as the identity.
+A :class:`Comm` binds one group of a mesh (``launch/mesh.py``: the ranks
+that differ only along some of its axes, named by them in ``axes``): its
+backend, device, rank and size.  It offers all-reduce (sum, max), the
+all-gather of a shard along a dim, the reduce-scatter (sum) along a dim,
+the all-to-all of equal chunks of dim 0, and broadcast.  A ``Comm``
+without a group (the 1×1 mesh of one process) runs each call as the
+identity.
+
+A dry ``Comm`` (``dry=True``: a rank of a mesh with no process group
+behind it, ``launch/dryrun.py``) moves no data: ``all_gather`` and
+``all_to_all`` return uninitialized tensors of the gathered or exchanged
+shape (``new_empty``), ``reduce_scatter`` one of the rank's slice's shape,
+``all_reduce`` and ``broadcast`` their input.  Each call still counts, so
+a dry rank's counters read what a real rank's do.
 
 The route is chosen once, where the group is made, by backend: ``native``
 (NCCL, or gloo on CPU tensors) calls the gather and scatter collectives;
@@ -27,7 +35,9 @@ all-reduces the gradient again.
 Every call adds to a counter by kind and tag: its calls and the bytes a
 rank hands it (the tensor all-reduced or broadcast, the shard gathered,
 the whole tensor reduce-scattered or exchanged), read by the tests and
-``chip_smoke.py`` through :func:`counts`.  The model axis's tags:
+``chip_smoke.py`` through :func:`counts`, and again by kind and group
+(the ``Comm``'s axes joined by ``+``) through :func:`group_counts`.  The
+model axis's tags:
 ``tp:attn_in`` / ``tp:attn_out``, ``tp:ffn_in`` / ``tp:ffn_out``,
 ``tp:embed``, ``tp:vocab`` (the cross-entropy's max, sum and gold logit),
 ``tp:kv`` (whole K/V weights' partial gradients), ``tp:ssm_in`` /
@@ -51,50 +61,74 @@ from __future__ import annotations
 
 from collections import defaultdict
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 _COUNTS: Dict[str, Dict[str, list]] = defaultdict(lambda: defaultdict(lambda: [0, 0]))
+_GROUP_COUNTS: Dict[str, Dict[str, list]] = defaultdict(lambda: defaultdict(lambda: [0, 0]))
+
 
 def reset_counts() -> None:
     _COUNTS.clear()
+    _GROUP_COUNTS.clear()
+
+
+def _read(table) -> Dict[str, Dict[str, Dict[str, int]]]:
+    return {k: {t: {"calls": c, "bytes": b} for t, (c, b) in tags.items()}
+            for k, tags in table.items()}
 
 
 def counts() -> Dict[str, Dict[str, Dict[str, int]]]:
     """``{kind: {tag: {"calls": n, "bytes": b}}}`` since the last reset."""
-    return {k: {t: {"calls": c, "bytes": b} for t, (c, b) in tags.items()}
-            for k, tags in _COUNTS.items()}
+    return _read(_COUNTS)
 
 
-def _count(kind: str, tag: str, t: torch.Tensor) -> None:
-    entry = _COUNTS[kind][tag]
-    entry[0] += 1
-    entry[1] += t.numel() * t.element_size()
+def group_counts() -> Dict[str, Dict[str, Dict[str, int]]]:
+    """``{kind: {group: {"calls": n, "bytes": b}}}`` since the last reset,
+    a group named by its axes joined by ``+`` (``"pod+data"``)."""
+    return _read(_GROUP_COUNTS)
+
+
+def _count(kind: str, tag: str, t: torch.Tensor, comm: "Comm") -> None:
+    n = t.numel() * t.element_size()
+    for entry in (_COUNTS[kind][tag], _GROUP_COUNTS[kind][comm.name]):
+        entry[0] += 1
+        entry[1] += n
 
 
 class Comm:
     """One group's collectives (see the module docstring)."""
 
-    def __init__(self, group, device: torch.device, rank: int = 0, world: int = 1):
+    def __init__(self, group, device: torch.device, rank: int = 0, world: int = 1,
+                 axes: Tuple[str, ...] = (), dry: bool = False):
         import torch.distributed as dist
 
         self.group, self.device, self.rank, self.world = group, device, rank, world
+        self.axes = tuple(axes)
         self.backend = dist.get_backend(group) if group is not None else "none"
-        if self.backend == "gloo" and device.type == "cuda":
+        if dry and group is not None:
+            raise ValueError("a dry Comm has no process group")
+        if dry and world > 1:
+            self.route = "dry"
+        elif self.backend == "gloo" and device.type == "cuda":
             self.route = "all_reduce"
         else:
             self.route = "native"
         if self.backend == "nccl" and device.type != "cuda":
             raise ValueError("an NCCL group needs a CUDA device")
 
+    @property
+    def name(self) -> str:
+        return "+".join(self.axes) or "none"
+
     def __repr__(self) -> str:
-        return (f"Comm(backend={self.backend!r}, route={self.route!r}, device={self.device}, "
-                f"rank={self.rank}, world={self.world})")
+        return (f"Comm(axes={self.name!r}, backend={self.backend!r}, route={self.route!r}, "
+                f"device={self.device}, rank={self.rank}, world={self.world})")
 
     def all_reduce(self, t: torch.Tensor, op: str = "sum", tag: str = "") -> torch.Tensor:
         """Sum (or max) of ``t`` over the group, in place; returns ``t``."""
-        _count("all_reduce" if op == "sum" else "all_reduce_max", tag, t)
+        _count("all_reduce" if op == "sum" else "all_reduce_max", tag, t, self)
         if self.group is not None:
             import torch.distributed as dist
 
@@ -104,7 +138,7 @@ class Comm:
 
     def broadcast(self, t: torch.Tensor, src: int = 0, tag: str = "") -> torch.Tensor:
         """``t`` of rank ``src`` on every rank, in place; returns ``t``."""
-        _count("broadcast", tag, t)
+        _count("broadcast", tag, t, self)
         if self.group is not None:
             import torch.distributed as dist
 
@@ -113,7 +147,11 @@ class Comm:
 
     def all_gather(self, shard: torch.Tensor, dim: int, tag: str = "") -> torch.Tensor:
         """The ranks' shards concatenated along ``dim`` in rank order."""
-        _count("all_gather", tag, shard)
+        _count("all_gather", tag, shard, self)
+        if self.route == "dry":
+            shape = list(shard.shape)
+            shape[dim] *= self.world
+            return shard.new_empty(shape)
         shard = shard.contiguous()
         if self.group is None:
             return shard.clone()
@@ -133,9 +171,13 @@ class Comm:
     def reduce_scatter(self, full: torch.Tensor, dim: int, tag: str = "") -> torch.Tensor:
         """This rank's slice along ``dim`` of the sum of ``full`` over the
         group (``full.shape[dim]`` divisible by the group's size)."""
-        _count("reduce_scatter", tag, full)
+        _count("reduce_scatter", tag, full, self)
         if full.shape[dim] % self.world:
             raise ValueError(f"dim {dim} of {tuple(full.shape)} does not split {self.world} ways")
+        if self.route == "dry":
+            shape = list(full.shape)
+            shape[dim] //= self.world
+            return full.new_empty(shape)
         if self.group is None:
             return full.clone()
         import torch.distributed as dist
@@ -152,9 +194,11 @@ class Comm:
     def all_to_all(self, t: torch.Tensor, tag: str = "") -> torch.Tensor:
         """Chunk j of ``t``'s dim 0 (``world`` equal chunks) sent to rank j;
         chunk j of the result is what rank j sent this rank."""
-        _count("all_to_all", tag, t)
+        _count("all_to_all", tag, t, self)
         if t.shape[0] % self.world:
             raise ValueError(f"dim 0 of {tuple(t.shape)} does not split {self.world} ways")
+        if self.route == "dry":
+            return t.new_empty(t.shape)
         t = t.contiguous()
         if self.group is None:
             return t.clone()
@@ -346,21 +390,23 @@ def all_to_all(x: torch.Tensor, axis: ModelAxis, tag: str) -> torch.Tensor:
 class StepSync:
     """One training step's reductions inside its forward and backward (see
     the module docstring).  ``comm`` is the group the batch is cut over (the
-    data group, or the world under ``sharding_mode="fsdp"``), None where
-    every rank computes the whole batch; ``tp`` the step's
-    :class:`ModelAxis` (None at a model axis of 1); ``world_comm`` the
-    world's group and ``expert_comm`` the group whose ranks' expert
-    gradients are shares of one sum (the batch group, or the data group
-    where the experts' all-to-all already summed over the model group).
+    data group, with the pods where the batch is cut over them, and the
+    model group under ``sharding_mode="fsdp"``), None where every rank
+    computes the whole batch; ``tp`` the step's :class:`ModelAxis` (None at
+    a model axis of 1); ``batch_model_comm`` the batch's group together
+    with the model group (a row-parallel low-rank factor's) and
+    ``expert_comm`` the group whose ranks' expert gradients are shares of
+    one sum (the batch group, or the batch group without ``model`` where
+    the experts' all-to-all already summed over the model group).
     ``paths`` maps ``id`` of a live parameter leaf to its path
     (``launch/steps.py:loss_and_grads`` fills it from ``leaf_paths``);
     :meth:`mark` records a leaf (by :func:`leaf_id`) whose gradient its
     backward has already reduced, so the step does not reduce it again."""
 
     def __init__(self, comm: Optional[Comm], leaf_paths=(), tp: Optional[ModelAxis] = None,
-                 world_comm: Optional[Comm] = None, expert_comm: Optional[Comm] = None):
+                 batch_model_comm: Optional[Comm] = None, expert_comm: Optional[Comm] = None):
         self.comm, self.tp = comm, tp
-        self.world_comm = world_comm
+        self.batch_model_comm = batch_model_comm
         self.expert_comm = expert_comm if expert_comm is not None else comm
         self.leaf_paths = tuple(leaf_paths)  # the params' leaf paths, in leaf order
         self.paths: Dict[int, str] = {}
@@ -388,5 +434,5 @@ def leaf_id(w: torch.Tensor) -> int:
 
 
 __all__ = ["Comm", "ModelAxis", "StepSync", "all_to_all", "copy_slice_to_model", "copy_to_model",
-           "counts", "gather_along", "leaf_id", "reduce_from_model", "reset_counts",
+           "counts", "gather_along", "group_counts", "leaf_id", "reduce_from_model", "reset_counts",
            "scatter_along", "split_along"]

@@ -398,8 +398,8 @@ def _failing_rank(mesh):
 
 def test_mesh_refuses_what_it_does_not_run():
     """Every model family takes a model axis, SP and the 2-D ``fsdp`` mode
-    (the SSM families with the mixer's ``ssm_inner`` cut); other data axes
-    stay refused as a later slice."""
+    (the SSM families with the mixer's ``ssm_inner`` cut), and a ``pod``
+    axis before ``data``; other data axes are refused."""
     import dataclasses
 
     from repro_torch.launch.mesh import make_host_mesh
@@ -420,8 +420,9 @@ def test_mesh_refuses_what_it_does_not_run():
         for par in (tbase.ParallelConfig(), tbase.ParallelConfig(sharding_mode="fsdp")):
             par.check(two, dataclasses.replace(cfg, family=family))
         tbase.ParallelConfig().check({"data": 2, "model": 1}, dataclasses.replace(cfg, family=family))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tbase.ParallelConfig(dp_axes=("pod", "data")).check(two, cfg)
+    tbase.ParallelConfig(dp_axes=("pod", "data")).check({"pod": 2, **two}, cfg)
+    with pytest.raises(NotImplementedError, match="the port runs"):
+        tbase.ParallelConfig(dp_axes=("replica",)).check(two, cfg)
 
 
 def test_launch_helpers_default_to_the_card(tmp_path, monkeypatch):

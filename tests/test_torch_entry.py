@@ -36,7 +36,39 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     imported = set(out.stdout.strip().splitlines()[-1].split())
     assert len(imported) >= 20  # every module was imported
     assert {"repro_torch.serve.replicas", "repro_torch.serve.trace",
-            "repro_torch.kernels.kvquant", "repro_torch.kernels.paged_decode_q8"} <= imported
+            "repro_torch.kernels.kvquant", "repro_torch.kernels.paged_decode_q8",
+            "repro_torch.launch.dryrun", "repro_torch.launch.cost",
+            "repro_torch.launch.roofline"} <= imported
+
+
+# the dry run's CLI with every jax and repro module made unimportable
+NO_JAX_CLI = r"""
+import runpy, sys
+
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+            raise ImportError(f"{name} is not importable here")
+        return None
+
+sys.meta_path.insert(0, Refuse())
+sys.argv = ["repro_torch.launch.dryrun"] + sys.argv[1:]
+runpy.run_module("repro_torch.launch.dryrun", run_name="__main__")
+"""
+
+
+def test_dryrun_cli_lists_its_cells_without_jax():
+    out = subprocess.run(
+        [sys.executable, "-c", NO_JAX_CLI, "--list"],
+        cwd=ROOT, env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    cells = [ln.split() for ln in out.stdout.splitlines()]
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch.dryrun import ASSIGNED
+
+    assert cells == [[a, s] for a in ASSIGNED for s in SHAPES]
 
 
 def _imported_modules(path: pathlib.Path):

@@ -208,9 +208,14 @@ def test_wrappers_take_the_plain_version_on_cpu_and_do_not_count():
 def test_wrappers_raise_on_other_devices():
     x = torch.empty(4, 32, device="meta")
     with pytest.raises(ValueError, match="devices"):
-        rmsnorm(x, torch.empty(32, device="meta"))
+        rmsnorm(x, torch.empty(32))
     with pytest.raises(ValueError, match="devices"):
         swiglu(x, torch.randn(4, 32))
+    # all on the meta device: the kernel's route, shapes only (the dry run);
+    # nothing is launched, so nothing is counted
+    before = rmsnorm.launches
+    assert rmsnorm(x, torch.empty(32, device="meta")).device.type == "meta"
+    assert rmsnorm.launches == before
 
 
 def test_plain_versions_switch_nests_restores_and_keeps_the_device_check():
@@ -223,8 +228,10 @@ def test_plain_versions_switch_nests_restores_and_keeps_the_device_check():
             assert kernels.runs_plain(torch.randn(3))
         assert kernels._PLAIN
         with pytest.raises(ValueError, match="devices"):
-            kernels.runs_plain(x)
+            kernels.runs_plain(x, torch.randn(3))
+        assert kernels.runs_plain(x)  # the meta device takes the switch too
     assert not kernels._PLAIN
+    assert not kernels.runs_plain(x)
     with pytest.raises(RuntimeError, match="inside"):
         with kernels.plain_versions():
             raise RuntimeError("inside")

@@ -124,7 +124,9 @@ def groups_of(c, D, M):
 
 def data_mesh(mesh) -> Mesh:
     """This rank's data group as a (D, 1) mesh of its own."""
-    return Mesh((mesh.sizes[0], 1), mesh.comm, Comm(None, mesh.device, 0, 1), mesh.comm)
+    return Mesh({"data": mesh.sizes[0], "model": 1}, mesh.comm.rank,
+                {("data",): mesh.comm, ("model",): Comm(None, mesh.device, 0, 1),
+                 ("data", "model"): mesh.comm})
 
 
 def serve_ranks(mesh, cases, init_path, out_dir):
@@ -509,6 +511,6 @@ def test_ssm_serve_steps_refuse_a_model_axis():
 
     assert "ssm_inner" in model_cuts(cfg, mesh, tbase.ParallelConfig())
     for make, kind in ((make_prefill_step, "prefill"), (make_decode_step, "decode")):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            make(cfg, tbase.ParallelConfig(dp_axes=("pod", "data")), mesh,
+        with pytest.raises(NotImplementedError, match="the port runs"):
+            make(cfg, tbase.ParallelConfig(dp_axes=("replica",)), mesh,
                  tbase.ShapeConfig("s", 32, 4, kind))

@@ -28,7 +28,7 @@ from repro.parallel import sharding as jsh  # noqa: E402
 from repro_torch.configs import base as tbase  # noqa: E402
 from repro_torch.core.lowrank import projection_annotations  # noqa: E402
 from repro_torch.launch import specs as tspecs  # noqa: E402
-from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
+from repro_torch.launch.mesh import dry_mesh, make_host_mesh  # noqa: E402
 from repro_torch.launch.state import state_specs  # noqa: E402
 from repro_torch.models.params import param_annotations  # noqa: E402
 from repro_torch.parallel import sharding as tsh  # noqa: E402
@@ -147,7 +147,7 @@ def test_rows_of_and_constrain():
     mesh = make_host_mesh(device="cpu")
     assert tspecs.rows_of(8, ("data",), mesh) == slice(0, 8)
     assert tspecs.rows_of(9, None, mesh) == slice(0, 9)
-    mesh2 = SimpleNamespace(shape={"data": 4, "model": 1}, rank=3)
+    mesh2 = dry_mesh(None, 4, 1, rank=3)
     assert tspecs.rows_of(8, ("data",), mesh2) == slice(6, 8)
     x = torch.ones(2)
     assert tsh.constrain(x, tsh.ShardingRules(), "batch") is x

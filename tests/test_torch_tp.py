@@ -258,15 +258,15 @@ def check_case(c, D, M, ranks):
     for r in ranks[1:]:
         same_d = r["coords"][0] == r0["coords"][0]
         for k, (x, y) in enumerate(zip(tree_leaves(r["local"]), tree_leaves(r0["local"]))):
-            model_whole = r0["mdims"][k] is None and r0["groups"][k] != "world"
+            model_whole = r0["mdims"][k] is None and r0["groups"][k] != ("data", "model")
             data_whole = r0["dims"][k] is None
             if model_whole and (same_d or data_whole):
                 assert torch.equal(x, y), f"{name} leaf {r0['paths'][k]}"
     # each slice is its share of the whole leaf; a model cut is exactly 1/M
     for k, (x, y) in enumerate(zip(tree_leaves(r0["local"]), tree_leaves(got.params))):
         md, d, g = r0["mdims"][k], r0["dims"][k], r0["groups"][k]
-        pieces = (M if md is not None else 1) * ({"data": D, "world": D * M}[g] if d is not None
-                                                 else 1)
+        fsdp = {("data",): D, ("data", "model"): D * M}[g] if d is not None else 1
+        pieces = (M if md is not None else 1) * fsdp
         assert x.numel() * pieces == y.numel(), f"{name} leaf {r0['paths'][k]}"
         if md is not None:
             assert x.shape[md] * M == y.shape[md]

@@ -282,7 +282,7 @@ def check_case(c, D, M, ranks):
         same_d = r["coords"][0] == r0["coords"][0]
         for k, (x, y) in enumerate(zip(tree_leaves(r["local"]), tree_leaves(r0["local"]))):
             data_whole = r0["dims"][k] is None
-            if not (same_d or data_whole) or r0["groups"][k] == "world":
+            if not (same_d or data_whole) or r0["groups"][k] == ("data", "model"):
                 continue
             if r0["mdims"][k] is None:
                 assert torch.equal(x, y), f"{name} leaf {r0['paths'][k]}"
