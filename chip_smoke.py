@@ -174,15 +174,16 @@ each printing JSON lines:
              round's and the configs' head shapes, bitwise repeatable,
              batch invariant, length-0 lanes 0, cold, warm and bound) come
              from the int8 chaos run.
-12. moe serve — ``qwen3-moe-30b-a3b`` at its published widths and full
-             depth (48 layers, 128 experts top-8, bf16, seed-0 weights,
-             56.9 GiB) serves the serve phases' 16 requests on the paged
+12. moe serve — ``qwen3-moe-30b-a3b`` at its published widths on
+             MOE_SERVE_LAYERS (24 of its 48, cut for phase 21's time)
+             layers (128 experts top-8, bf16, seed-0
+             weights) serves the serve phases' 16 requests on the paged
              round, one request alone, and on the dense round: exact launch
              counts of #1 / #5, #2, #3 and #4, streams equal; each run's
-             row beside the 17.3 ms a round of reading every expert's
+             row beside the time a round takes to read every expert's
              weights.  Before it, kernel rows at this slice's new shapes
              (#3 at d 2048, 6144, 18432; #4 over expert buffers; #2 at H 32
-             / KV 4).  Reported: at bf16 and full depth the share of top-k
+             / KV 4).  Reported: at bf16 at that depth the share of top-k
              decisions and the logits Δ between the kernel and plain
              paths, and the device time by part (``serve/profile.py``'s
              labelled attention, routing and dispatch, experts, combine).
@@ -213,18 +214,19 @@ each printing JSON lines:
              (576 patches) and ``musicgen-medium`` at full width on 2
              layers.
 
-15. mamba2 train — ``mamba2-2.7b`` at published widths and full depth
-             (64 layers, d 2560, d_inner 5120, 80 heads of 64, d_state 128,
-             chunk 256, V 50304 padded, tied, bf16, 2.70 B parameters) at
+15. mamba2 train — ``mamba2-2.7b`` at published widths on
+             SSM_TRAIN_LAYERS (8 of its 64, cut for phase 21's time)
+             layers (d 2560, d_inner 5120, 80 heads of
+             64, d_state 128, chunk 256, V 50304 padded, tied, bf16) at
              launch/profile.py's SSM cell (B 1, S 1024, rank 64, FFN
              recompute): kernel rows first (#3 at (1024, 2560) and (1024,
              5120), #6 at in_proj's and out_proj's shapes, each against its
              plain version and in turns against its library call; the
              zero-width FFN's #4 and #6 calls launch nothing); one V1
-             refresh (128 SVDs, timed) shared by every row; the
+             refresh (2 SVDs a layer, timed) shared by every row; the
              forward-backward peak per mode (degraded's, where technique II
              recomputes whole SSM blocks, below off's: a gate); bf16
-             gradients at full depth (dynamic, degraded) through the kernels
+             gradients at that depth (dynamic, degraded) through the kernels
              and the plain versions, gated by the anchor to the f32 step
              (the leaf error reported); f32 gradients on SSM_PARITY_LAYERS
              layers in the four modes at TRAIN_PARITY_TOL; SSM_TRAIN_STEPS
@@ -359,12 +361,23 @@ Then accumulation — phase 7's cell with ``accum`` 1, 2 and 4 and with
              the dry run's count from the shapes at that rank; (c) the dry
              runs of DRY_CELLS (qwen3-0.6b train_4k at 16×16,
              nemotron-4-340b train_4k at 16×16, jamba-1.5-large-398b
-             decode_32k at 2×16×16), one CPU-only process each, started
-             after (a), the phase's last timed work, so that they run
-             beside (b) alone (its gloo ranks' ``step_ms`` are taken under
-             that load, and are not a measurement), and read at the end:
-             each summary line and each cell's per-rank state and peak
-             bytes (counts, not times).
+             decode_32k and train_4k at 2×16×16), one CPU-only process
+             each, started after (a), the phase's last timed work, so that
+             they run beside (b) and (d) alone (their gloo ranks'
+             ``step_ms`` are taken under that load, and are not a
+             measurement), and read at the end: each summary line and each
+             cell's per-rank state, peak and gathered peak bytes (counts,
+             not times); the two ``train_4k`` cells of DRY_MUST_FIT must
+             read ``fits`` (their FSDP leaves gathered a layer at a time);
+             (d) four gloo ranks sharing the card at GATHER_MESH (4, 1)
+             under ``tp_fsdp`` (FSDP cuts every leaf over 4), llama-350m at
+             full width on GATHER_LAYERS (4) f32 layers, B 8, S 1024, 2
+             micro-batches, GATHER_STEPS (2) dynamic steps: each leaf
+             within 1e-4 of the one-process step on the batch's per-shard
+             interleave, the collective bytes by kind and group equal to
+             the dry run's count at that rank, and each rank's
+             ``max_memory_allocated`` within DRY_PEAK_TOL of that dry run's
+             peak: the first card check of a gathered step's memory.
 
 Each of phases 12-21 frees the card first and fails with a clear message
 when too little memory is free.  Then the kernels' summary line (each
@@ -628,12 +641,14 @@ CELL_CHAOS = {"kind": "scripted", "kills": [[3, 0, 40], [10, 1, 30]], "spikes": 
 CELL_SNAPSHOT_CADENCE = 2
 # restore_bitwise: decode rounds before the older snapshot, and in all
 RESTORE_SNAP_ROUND, RESTORE_ROUNDS = 3, 6
-# phase 12: full-depth qwen3-moe-30b-a3b serves the serve phases' 16
+# phase 12: qwen3-moe-30b-a3b on MOE_SERVE_LAYERS layers (cut from all 48
+# to 24 to make room for phase 21 (c, d) and the per-layer gather's
+# collectives in phases 18-21) serves the serve phases' 16
 # requests on the paged and the dense round; its logits against the plain
 # path at f32 on MOE_LOGIT_LAYERS layers (every routing decision equal), and
-# at bf16 at full depth (reported: a bf16 ulp in the router input can swap
+# at bf16 on MOE_SERVE_LAYERS (reported: a bf16 ulp in the router input can swap
 # the 8th and 9th expert); the device time by part on MOE_PROFILE_REQUESTS
-MOE_CONFIG = "qwen3-moe-30b-a3b"
+MOE_CONFIG, MOE_SERVE_LAYERS = "qwen3-moe-30b-a3b", 24
 MOE_LOGIT_LAYERS, MOE_LOGIT_STEPS = 4, 8
 MOE_PROFILE_REQUESTS, MOE_PROFILE_TOKENS = 2, 4
 # the kernel rows at this slice's new shapes (new_shape_rows)
@@ -650,7 +665,7 @@ DENSE_SPEC = dict(n_requests=4, prompt_len=(64, 256), new_tokens=(16, 16), seed=
 MOE_TRAIN_LAYERS, MOE_TRAIN_B, MOE_TRAIN_S, MOE_TRAIN_STEPS = 2, 4, 1024, 3
 MOE_TRAIN_PLAN = NDBPlan(n_dp=4, n_stages=2, failed=frozenset({(1, 0)}))
 CONFIG_STEPS = (("granite-34b", 2), ("phi-3-vision-4.2b", 2), ("musicgen-medium", 2))
-# phase 15: mamba2-2.7b at published widths and full depth, MeCeFO steps
+# phase 15: mamba2-2.7b at published widths on SSM_TRAIN_LAYERS, MeCeFO steps
 # in the four modes at launch/profile.py's SSM cell (B 1: B 2's healthy
 # step runs out of the card's 80 GB), f32 gradient rows on
 # SSM_PARITY_LAYERS layers; phase 16: SSM_PROMPT_LENS prompts prefilled,
@@ -665,6 +680,9 @@ CONFIG_STEPS = (("granite-34b", 2), ("phi-3-vision-4.2b", 2), ("musicgen-medium"
 # (tests/test_models.py:test_prefill_decode_matches_full) allows 2e-4 on
 # the tiny config's logits
 SSM_CONFIG, SSM_TRAIN_B, SSM_TRAIN_S, SSM_TRAIN_STEPS = "mamba2-2.7b", SSM_BATCH, 1024, 3
+# (cut from all 64 layers to 8 to make room for phase 21 (c, d) and the
+# per-layer gather's collectives in phases 18-21)
+SSM_TRAIN_LAYERS = 8
 SSM_TRAIN_PLAN = SSM_PLAN
 SSM_PARITY_LAYERS = 4
 SSM_PROMPT_LENS, SSM_DECODE_STEPS = (64, 128, 192, 256), 16
@@ -2859,9 +2877,9 @@ def moe_serve_phase(dev) -> dict:
     """Phase 12; returns the paged run's launches with the dense run's #5."""
     t0 = time.perf_counter()
     new_shape_rows(dev, ColdTimer(dev))
-    cfg = get_config(MOE_CONFIG)
+    cfg = dataclasses.replace(get_config(MOE_CONFIG), n_layers=MOE_SERVE_LAYERS)
     free_card("moe serve", params_gib(cfg) + 6)
-    cfg, params = run.build(MOE_CONFIG, device=dev, seed=0)
+    cfg, params = run.build(MOE_CONFIG, device=dev, layers=MOE_SERVE_LAYERS, seed=0)
     init_s = time.perf_counter() - t0
     workload = build_workload(dataclasses.replace(SPEC, vocab_size=cfg.vocab_size))
     moe = cfg.moe
@@ -2886,7 +2904,7 @@ def moe_serve_phase(dev) -> dict:
         raise AssertionError("moe serve dense: token streams differ from the paged round's")
     del eng, res
     launches["flash_decode"] = dense_launches["flash_decode"]
-    # bf16 at full depth: reported, not gated
+    # bf16 on MOE_SERVE_LAYERS: reported, not gated
     prompts = [list(workload[0].prompt), list(workload[1].prompt)]
     with routing_log() as k_route:
         k_logits, fed = path_logits(params, cfg, prompts, MOE_LOGIT_STEPS)
@@ -3315,11 +3333,11 @@ def first_layers(tree, n: int):
 
 
 def ssm_train_phase(dev) -> tuple:
-    """Phase 15: full-width, full-depth mamba2-2.7b; returns (launches summed
-    over its steps, the seeded params) for phase 16."""
+    """Phase 15: full-width mamba2-2.7b on SSM_TRAIN_LAYERS layers; returns
+    (launches summed over its steps, the seeded params) for phase 16."""
     t0 = time.perf_counter()
     total = {n: 0 for n in TRAIN_KERNELS}
-    cfg = get_config(SSM_CONFIG)
+    cfg = dataclasses.replace(get_config(SSM_CONFIG), n_layers=SSM_TRAIN_LAYERS)
     B, S = SSM_TRAIN_B, SSM_TRAIN_S
     free_card("mamba2 train", 62)
     params, proj, svd_s = seeded_with_proj(dev, cfg, TRAIN_RANK)
@@ -3351,9 +3369,9 @@ def ssm_train_phase(dev) -> tuple:
           < fb["off"]["peak_above_held_gib"]})
     if not fb["degraded"]["peak_above_held_gib"] < fb["off"]["peak_above_held_gib"]:
         raise AssertionError(f"mamba2: degraded forward-backward peak not below off's: {fb}")
-    # bf16 at full depth, dynamic and degraded, anchored to the f32 step.
-    # The gate is the anchor, as for MoE (phase 14): at 64 layers of seeded
-    # weights the bf16 gradient is rounding noise of the dt path (its
+    # bf16 at SSM_TRAIN_LAYERS, dynamic and degraded, anchored to the f32
+    # step.  The gate is the anchor, as for MoE (phase 14): at 64 layers of
+    # seeded weights the bf16 gradient was rounding noise of the dt path (its
     # cumulative decays cancel), the plain bf16 path's leaves lying
     # 1.46 (relative) from the f32 step's, so the kernels-vs-plain leaf
     # limit is reported; the f32 rows below gate every leaf
@@ -3421,7 +3439,8 @@ def ssm_train_phase(dev) -> tuple:
     # where the device time goes: the plain SSD scan's share
     for mode in ("off", "degraded"):
         free_card("mamba2 profile", 0)
-        cell = train_cell(dev, config=SSM_CONFIG, params=params, proj=proj, svd_s=svd_s)
+        cell = train_cell(dev, config=SSM_CONFIG, params=params, proj=proj, svd_s=svd_s,
+                          n_layers=SSM_TRAIN_LAYERS)
         emit({"phase": "mamba2 profile", **profile_step(cell, mode, dev)})
         del cell
     emit({"phase": "mamba2 train", "run": "phase", "seconds": time.perf_counter() - t0})
@@ -3501,14 +3520,15 @@ def ssm_prompts(cfg) -> list:
 
 
 def ssm_decode_phase(dev, params) -> dict:
-    """Phase 16: phase 15's weights (full depth, bf16): SSM_PROMPT_LENS
-    prompts through ``forward_prefill``, then SSM_DECODE_STEPS greedy
-    ``forward_decode`` steps over the dense caches, through the kernels and
-    the plain versions (teacher-forced) at the serve phases' bf16 limits;
-    at f32 on SSM_PARITY_LAYERS layers, prefill then decode against the
-    full prefill.  Returns the kernel run's launches."""
+    """Phase 16: phase 15's weights (SSM_TRAIN_LAYERS layers, bf16):
+    SSM_PROMPT_LENS prompts through ``forward_prefill``, then
+    SSM_DECODE_STEPS greedy ``forward_decode`` steps over the dense caches,
+    through the kernels and the plain versions (teacher-forced) at the
+    serve phases' bf16 limits; at f32 on SSM_PARITY_LAYERS layers, prefill
+    then decode against the full prefill.  Returns the kernel run's
+    launches."""
     t0 = time.perf_counter()
-    cfg = get_config(SSM_CONFIG)
+    cfg = dataclasses.replace(get_config(SSM_CONFIG), n_layers=SSM_TRAIN_LAYERS)
     free_card("mamba2 decode", 4)
     prompts = ssm_prompts(cfg)
     torch.cuda.synchronize()
@@ -4937,9 +4957,12 @@ def mesh_serve_phase(dev, timer) -> dict:
 
 # Phase 21: the production meshes' dry run and the pod axis.  (c)'s dry
 # runs start after (a), on the CPU in processes of their own (no card in
-# their sight), run beside (b), and are read at the end.
+# their sight), run beside (b) and (d), and are read at the end.
 DRY_CELLS = (("qwen3-0.6b", "train_4k", "single"), ("nemotron-4-340b", "train_4k", "single"),
-             ("jamba-1.5-large-398b", "decode_32k", "multi"))
+             ("jamba-1.5-large-398b", "decode_32k", "multi"),
+             ("jamba-1.5-large-398b", "train_4k", "multi"))
+# the cells that fit the card only because FSDP gathers a layer at a time
+DRY_MUST_FIT = (("nemotron-4-340b", "train_4k"), ("jamba-1.5-large-398b", "train_4k"))
 DRY_MODES = ("off", "degraded")
 DRY_PEAK_TOL = 0.15  # the dry run's peak against max_memory_allocated, relative
 DRY_TIMEOUT_S = 900
@@ -4947,6 +4970,9 @@ POD_MESH = (2, 1, 2)  # (pod, data, model)
 POD_CONFIG, POD_B, POD_S, POD_STEPS, POD_SEED = "qwen3-0.6b", 4, 256, 2, 2
 POD_PLAN = NDBPlan(n_dp=2, n_stages=2, failed=frozenset({(1, 0)}))
 POD_TIMEOUT_S = 600
+GATHER_MESH = (4, 1)  # (data, model): FSDP cuts each leaf over 4
+GATHER_CONFIG, GATHER_LAYERS, GATHER_B, GATHER_S = "llama-350m", 4, 8, 1024
+GATHER_ACCUM, GATHER_STEPS, GATHER_SEED = 2, 2, 3
 
 
 class DryCells:
@@ -5248,20 +5274,157 @@ def pod_gloo_rows(dev, tmp: str) -> dict:
     return {r: x["launches"] for r, x in enumerate(ranks)}
 
 
+def gather_cell():
+    cfg = dataclasses.replace(get_config(GATHER_CONFIG), n_layers=GATHER_LAYERS,
+                              dtype="float32")
+    return (cfg, ShapeConfig("gather", GATHER_S, GATHER_B, "train"),
+            MeCeFOConfig(mode="dynamic", rank=TRAIN_RANK), TrainConfig(), TRAIN_FLAGS,
+            ParallelConfig(accum=GATHER_ACCUM))
+
+
+def gather_rank(mesh, tmp: str) -> None:
+    """(d) one of the gloo ranks at GATHER_MESH: GATHER_STEPS dynamic
+    steps of GATHER_ACCUM micro-batches from the seeded state, each layer
+    gathered where it is read; its slices against the one-process run's,
+    its collectives by group and its ``max_memory_allocated`` from a reset
+    before the steps."""
+    from repro_torch.launch.state import to_local
+    from repro_torch.parallel import collectives
+
+    dev = mesh.device
+    cfg, shape, mecefo, train, flags, parallel = gather_cell()
+    init = tree_map(lambda t: t.to(dev),
+                    torch.load(os.path.join(tmp, "gather_init.pt"), weights_only=False))
+    step = make_train_step(cfg, train, mecefo, shape, ndb_mode="dynamic", flags=flags,
+                           mesh=mesh, parallel=parallel)
+    state = to_local(TrainState(step=0, params=init["params"],
+                                opt=init_opt_state(init["params"], train), proj=init["proj"]),
+                     step.layout)
+    del init
+    keep, w = plan_to_masks(TRAIN_PLAN, cfg, GATHER_B)
+    src = SyntheticLM(cfg.vocab_size)
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    collectives.reset_counts()
+    reset_launches()
+    state, metrics, ms = mr_steps(step, state, [src.batch(i, GATHER_B, GATHER_S)
+                                                for i in range(GATHER_STEPS)],
+                                  ({"keep": keep, "example_weight": w},), dev)
+    peak = torch.cuda.max_memory_allocated(dev)
+    groups = collectives.group_counts()
+    ref = torch.load(os.path.join(tmp, "gather_ref.pt"), weights_only=False)
+    lay = step.layout
+    errs = {}
+    for part, mine, whole in (("params", state.params, ref["params"]),
+                              ("m", state.opt.m, ref["m"]), ("v", state.opt.v, ref["v"])):
+        cut = lay.map(lambda x, k: lay.cut(x.to(dev), k), whole)
+        errs[part] = max(leaf_rel_errs(mine, cut))
+    torch.save({"coord": mesh.coord, "metrics": metrics, "errs": errs, "peak": peak,
+                "groups": groups, "rows": step.rows, "step_ms": ms, "accum": step.accum,
+                "route": mesh.comm.route,
+                "launches": {n: WRAPPERS[n].launches for n in TRAIN_KERNELS}},
+               os.path.join(tmp, f"gather.rank{mesh.rank}.pt"))
+
+
+def gather_rows(dev, tmp: str) -> dict:
+    """(d) four gloo ranks sharing the card at GATHER_MESH under
+    ``tp_fsdp`` (FSDP cuts each leaf over 4), llama-350m at full width on
+    GATHER_LAYERS f32 layers, GATHER_ACCUM micro-batches: each leaf within
+    1e-4 of the one-process step on the per-shard interleave of the batch,
+    the collective bytes by kind and group equal to the dry run's count at
+    that rank, and each rank's ``max_memory_allocated`` within
+    DRY_PEAK_TOL of that dry run's peak.  Returns each rank's launches."""
+    from repro_torch.launch.dist import spawn
+    from repro_torch.launch.dryrun import dry_step
+    from repro_torch.launch.mesh import dry_mesh
+
+    free_card("pod", 20)
+    cfg, shape, mecefo, train, flags, parallel = gather_cell()
+    D, M = GATHER_MESH
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(GATHER_SEED), dev)
+    state = TrainState(step=0, params=params, opt=init_opt_state(params, train),
+                       proj=refresh_projections(params, cfg, TRAIN_RANK))
+    torch.save(tree_map(lambda t: t.cpu(), {"params": params, "proj": state.proj}),
+               os.path.join(tmp, "gather_init.pt"))
+    # the one-process step's contiguous micro-batches are the mesh's
+    # per-shard interleave: rank d's micro-batch i is row d·B/D + i·B/(D·A)..
+    b = GATHER_B // (D * GATHER_ACCUM)
+    perm = np.arange(GATHER_B).reshape(D, GATHER_ACCUM, b).swapaxes(0, 1).reshape(-1)
+    keep, w = plan_to_masks(TRAIN_PLAN, cfg, GATHER_B)
+    step = make_train_step(cfg, train, mecefo, shape, ndb_mode="dynamic", flags=flags,
+                           device=dev, parallel=parallel)
+    src = SyntheticLM(cfg.vocab_size)
+    batches = [{k: v[perm] for k, v in src.batch(i, GATHER_B, GATHER_S).items()}
+               for i in range(GATHER_STEPS)]
+    ref, _, _ = mr_steps(step, state, batches,
+                         ({"keep": keep[:, perm], "example_weight": w[perm]},), dev)
+    torch.save(tree_map(lambda t: t.cpu(), {"params": ref.params, "m": ref.opt.m,
+                                             "v": ref.opt.v}), os.path.join(tmp, "gather_ref.pt"))
+    del params, state, ref, step
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    spawn(gather_rank, D * M, tmp, backend="gloo", device=dev.type, model=M,
+          timeout=POD_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(tmp, f"gather.rank{r}.pt"), weights_only=False)
+             for r in range(D * M)]
+    tol = TRAIN_PARITY_TOL["float32"][0]
+    fails = []
+    for r, x in enumerate(ranks):
+        dry = dry_step(cfg, shape, dry_mesh(None, D, M, rank=r), ndb="dynamic",
+                       parallel=parallel, mecefo=mecefo, train=train, flags=flags)
+        want_groups = {k: {g: {"calls": GATHER_STEPS * e["calls"],
+                               "bytes": GATHER_STEPS * e["bytes"]} for g, e in t.items()}
+                       for k, t in dry.cost.collectives_by_group.items()}
+        peak_rel = abs(dry.cost.peak_bytes - x["peak"]) / x["peak"]
+        ok = (max(x["errs"].values()) <= tol and x["metrics"] == ranks[0]["metrics"]
+              and x["groups"] == want_groups and peak_rel <= DRY_PEAK_TOL
+              and x["accum"] == GATHER_ACCUM)
+        emit({"phase": "pod", "row": "d: gloo, four ranks, a layer gathered at a time",
+              "mesh": list(GATHER_MESH), "rank": r, "coord": x["coord"], "config": cfg.name,
+              "n_layers": cfg.n_layers, "dtype": cfg.dtype, "batch": GATHER_B,
+              "seq_len": GATHER_S, "accum": x["accum"], "rows": [x["rows"].start,
+                                                                  x["rows"].stop],
+              "route": x["route"], "losses": [m["loss"] for m in x["metrics"]],
+              "max_leaf_rel_err": x["errs"], "limit_rel": tol,
+              "bytes_by_group": {k: {g: e["bytes"] for g, e in t.items()}
+                                 for k, t in x["groups"].items()},
+              "groups_equal_count_from_shapes": x["groups"] == want_groups,
+              "card_peak_bytes": x["peak"], "dry_peak_bytes": dry.cost.peak_bytes,
+              "dry_gathered_peak_bytes": dry.cost.gathered_peak_bytes,
+              "dry_state_bytes": dry.state_bytes_per_dev, "peak_rel_diff": peak_rel,
+              "peak_limit_rel": DRY_PEAK_TOL, "step_ms": x["step_ms"],
+              "launches": x["launches"], "ok": ok})
+        if not ok:
+            fails.append(f"(d) gloo rank {r}")
+    emit({"phase": "pod", "row": "d: gloo spawn", "seconds": spawn_s})
+    if fails:
+        raise AssertionError(f"pod: {fails}")
+    return {r: x["launches"] for r, x in enumerate(ranks)}
+
+
 def dry_cell_rows(cells: DryCells) -> None:
-    """(c): the dry runs' records: each summary line, state and peak."""
+    """(c): the dry runs' records: each summary line, state, peak and
+    gathered peak; DRY_MUST_FIT's cells must fit the card."""
     fails = []
     for arch, shape, mesh, rc, rec, tail in cells.collect():
         ok = rc == 0 and rec is not None and "skipped" not in rec
+        if ok and (arch, shape) in DRY_MUST_FIT:
+            ok = rec["fits"]
         row = {"phase": "pod", "row": "c: dry run", "arch": arch, "shape": shape, "mesh": mesh,
                "rc": rc, "ok": ok}
         if rec is not None:
             row.update({k: rec.get(k) for k in (
-                "n_devices", "state_bytes_per_dev", "peak_bytes_per_dev", "fits", "t_compute",
+                "n_devices", "state_bytes_per_dev", "peak_bytes_per_dev",
+                "gathered_peak_bytes_per_dev", "fits", "t_compute",
                 "t_memory", "t_collective", "bottleneck", "useful_flops_ratio",
                 "roofline_fraction", "seconds", "accum", "launches")})
             row["state_gib_per_dev"] = rec["state_bytes_per_dev"] / 2 ** 30
             row["peak_gib_per_dev"] = rec["peak_bytes_per_dev"] / 2 ** 30
+            row["gathered_peak_gib_per_dev"] = rec["gathered_peak_bytes_per_dev"] / 2 ** 30
+            row["must_fit"] = (arch, shape) in DRY_MUST_FIT
             row["summary"] = (
                 f"{arch:22s} {shape:12s} {mesh:6s} compute={rec['t_compute'] * 1e3:9.3f}ms "
                 f"memory={rec['t_memory'] * 1e3:9.3f}ms coll={rec['t_collective'] * 1e3:9.3f}ms "
@@ -5271,7 +5434,7 @@ def dry_cell_rows(cells: DryCells) -> None:
             row["log_tail"] = tail
         emit(row)
         if not ok:
-            fails.append(f"(c) {arch} {shape} {mesh}: rc {rc}")
+            fails.append(f"(c) {arch} {shape} {mesh}: rc {rc}, fits {rec and rec.get('fits')}")
     if fails:
         raise AssertionError(f"pod: {fails}")
 
@@ -5280,12 +5443,14 @@ def pod_phase(dev) -> dict:
     """Phase 21.  Returns the launches of each of its paths."""
     t0 = time.perf_counter()
     out = {"pod a: counted steps": dry_count_rows(dev)}
-    cells = DryCells().start()  # (c), on the CPU beside (b), after every timed phase
+    cells = DryCells().start()  # (c), on the CPU beside (b) and (d), after every timed phase
     try:
         with tempfile.TemporaryDirectory() as tmp:
             out["pod b: nccl (1, 1, 1)"] = pod_nccl_rows(dev, tmp)
             gloo = pod_gloo_rows(dev, tmp)
+            gather = gather_rows(dev, tmp)
         out.update({f"pod b: gloo {POD_MESH} rank {r}": c for r, c in gloo.items()})
+        out.update({f"pod d: gloo {GATHER_MESH} rank {r}": c for r, c in gather.items()})
         dry_cell_rows(cells)
     finally:
         cells.stop()

@@ -20,7 +20,10 @@ backward.  Per rank it counts:
 - **launches** by kernel;
 - **peak live bytes**: the storages alive at once, each counted when an op
   first returns it and uncounted when it is freed; the tensors named
-  ``live`` (parameters, optimizer state, inputs) count from the start.
+  ``live`` (parameters, optimizer state, inputs) count from the start;
+- **peak gathered bytes**: the same count over the FSDP gathers' outputs
+  alone (``parallel/fsdp.py``: every ``param:`` all-gather, forward,
+  recompute and backward), the gathered weights alive at once.
 
 The counts depend on the ops, their shapes and dtypes and the kernels'
 shapes alone, so a step on the meta device (``launch/dryrun.py``) and the
@@ -42,7 +45,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
 from repro_torch import kernels
-from repro_torch.parallel import collectives
+from repro_torch.parallel import collectives, fsdp
 
 aten = torch.ops.aten
 
@@ -66,6 +69,7 @@ class Cost:
     collectives_by_group: Dict[str, Dict[str, Dict[str, int]]] = field(default_factory=dict)
     start_bytes: int = 0            # the live tensors' storages at the start
     peak_bytes: int = 0
+    gathered_peak_bytes: int = 0    # the FSDP gathers' outputs alive at once
 
     @property
     def collective_bytes(self) -> int:
@@ -106,6 +110,8 @@ class CostMode(TorchDispatchMode):
         self._launches = Counter()
         self._held: Dict[int, tuple] = {}  # id(storage) -> (weakref, nbytes)
         self._live = 0
+        self._gathered: Dict[int, tuple] = {}  # the same, for the FSDP gathers' outputs
+        self._gathered_live = 0
         for t in tensors_of(live):
             self._hold(t)
         self.cost.start_bytes = self.cost.peak_bytes = self._live
@@ -127,6 +133,23 @@ class CostMode(TorchDispatchMode):
         entry = self._held.pop(key, None)
         if entry is not None:
             self._live -= entry[1]
+
+    # watcher of the FSDP gathers (parallel/fsdp.py) ------------------------
+
+    def gathered(self, t: torch.Tensor) -> None:
+        st = t.untyped_storage()
+        key = id(st)
+        if key in self._gathered:
+            return
+        n = st.nbytes()
+        self._gathered[key] = (weakref.ref(st, lambda _r, k=key: self._ungather(k)), n)
+        self._gathered_live += n
+        self.cost.gathered_peak_bytes = max(self.cost.gathered_peak_bytes, self._gathered_live)
+
+    def _ungather(self, key: int) -> None:
+        entry = self._gathered.pop(key, None)
+        if entry is not None:
+            self._gathered_live -= entry[1]
 
     # recorder of kernels (kernels/__init__.py:book) -----------------------
 
@@ -161,6 +184,7 @@ class CostMode(TorchDispatchMode):
         self._before = (copy.deepcopy(collectives.counts()),
                         copy.deepcopy(collectives.group_counts()))
         kernels.RECORDERS.append(self)
+        fsdp.WATCHERS.append(self)
         # the backward on this thread (a CUDA backward runs on autograd's own
         # otherwise): the same ops in the same order on every device
         self._threads = torch.autograd.set_multithreading_enabled(False)
@@ -173,6 +197,7 @@ class CostMode(TorchDispatchMode):
         finally:
             self._threads.__exit__(*exc)
             kernels.RECORDERS.remove(self)
+            fsdp.WATCHERS.remove(self)
             self.cost.launches = dict(self._launches)
             self.cost.kernel_work = {k: {"flops": w[0], "bytes": w[1]}
                                      for k, w in self._work.items()}

@@ -16,6 +16,9 @@ kernels on the card.  A decode step attends over a full cache
 
 Each record holds the reference's roofline fields (``launch/roofline.py``)
 and the port's own: ``peak_bytes_per_dev`` (the peak of live storages),
+``gathered_peak_bytes_per_dev`` (the peak of the FSDP gathers' outputs
+alive at once) beside ``gathered_bound_bytes_per_dev`` (two layers'
+gathered leaves plus those outside the trunk, :func:`gather_bound`),
 ``state_bytes_per_dev`` (params, grads, moments and V1 held, or a decode's
 params and caches), ``fits`` (the peak under the card's 80 GiB),
 ``launches`` by kernel and ``seconds`` (the dry step's wall time).  The
@@ -24,7 +27,11 @@ numbers are counts, not times: nothing here runs on a card.
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch A] [--shape S]
       [--mesh single|multi|both] [--ndb off|degraded|dynamic]
-      [--out experiments/dryrun_torch] [--force] [--list]
+      [--out experiments/dryrun_torch] [--force] [--list] [--table]
+
+``--table`` runs nothing: it prints the records found in ``--out`` as a
+markdown table (state / peak / gathered GiB a rank and the three roofline
+terms, on each mesh).
 """
 from __future__ import annotations
 
@@ -32,6 +39,7 @@ import argparse
 import dataclasses
 import json
 import logging
+import math
 import os
 import sys
 import time
@@ -49,7 +57,7 @@ from repro_torch.launch.roofline import RooflineReport, model_flops, summarize
 from repro_torch.launch.specs import input_specs, ndb_specs
 from repro_torch.launch.state import param_structs, state_structs
 from repro_torch.launch.steps import (
-    default_accum, make_decode_step, make_prefill_step, make_train_step,
+    default_accum, make_decode_step, make_prefill_step, make_train_step, mesh_layout,
 )
 from repro_torch.models.kvcache import cache_structs, held_kv_heads, held_ssm_heads
 from repro_torch.models.model import ExecFlags
@@ -157,6 +165,25 @@ def dry_step(cfg: ModelConfig, shape: ShapeConfig, mesh: Optional[Mesh] = None, 
     return DryStep(mode.cost, held, time.perf_counter() - t0)
 
 
+def gather_bound(cfg: ModelConfig, layout) -> int:
+    """Two layers' gathered leaves (a layer: one position's mixer and FFN,
+    the largest) plus the gathered leaves outside the trunk, in bytes: the
+    most a step that gathers a layer at a time may hold gathered at once."""
+    el = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+    layer: Dict[str, int] = {}
+    outside = 0
+    for k, path in enumerate(layout.paths):
+        if layout.dims[k] is None:
+            continue
+        n = math.prod(layout.local_shape(k)) * layout.mesh.size_of(layout.groups[k]) * el
+        if path.startswith("layers."):
+            pos = path.split(".")[1]
+            layer[pos] = layer.get(pos, 0) + n // layout.shapes[k][0]
+        else:
+            outside += n
+    return 2 * max(layer.values(), default=0) + outside
+
+
 def report(arch: str, shape: ShapeConfig, mesh_name: str, n_devices: int, cfg: ModelConfig,
            got: DryStep, extras: dict) -> RooflineReport:
     """The roofline record of a dry step (the module docstring)."""
@@ -179,6 +206,7 @@ def report(arch: str, shape: ShapeConfig, mesh_name: str, n_devices: int, cfg: M
         extras={**extras, "peak_bytes_per_dev": c.peak_bytes,
                 "state_bytes_per_dev": got.state_bytes_per_dev, "state_bytes": got.state_bytes,
                 "fits": c.peak_bytes < HBM_BYTES, "launches": c.launches,
+                "gathered_peak_bytes_per_dev": c.gathered_peak_bytes,
                 "kernel_flops_per_dev": c.kernel_flops, "kernel_bytes_per_dev": c.kernel_bytes,
                 "kernel_work": c.kernel_work, "collectives_by_tag": c.collectives,
                 "collectives_by_group_kind": c.collectives_by_group, "n_ops": c.n_ops,
@@ -258,6 +286,7 @@ def run_cell(
     got = dry_step(cfg, shape, mesh, ndb=ndb, parallel=parallel,
                    mecefo=mecefo_for(ndb, lowrank_sync))
     rep = report(arch, shape, mesh_name, mesh.size, cfg, got, {
+        "gathered_bound_bytes_per_dev": gather_bound(cfg, mesh_layout(cfg, mesh, parallel)),
         "ndb": ndb, "variant": variant or "baseline", "sharding_mode": parallel.sharding_mode,
         "remat": parallel.remat, "sequence_parallel": parallel.sequence_parallel,
         "grad_compression": parallel.grad_compression, "lowrank_sync": lowrank_sync})
@@ -266,10 +295,46 @@ def run_cell(
         json.dump(rec, f, indent=2)
     if verbose:
         _log.info("[ok %6.1fs] %s", got.seconds, summarize(rep))
-        _log.info("           state %.2f GiB, peak %.2f GiB a rank%s", rec["state_bytes_per_dev"]
-                  / 2 ** 30, rec["peak_bytes_per_dev"] / 2 ** 30,
+        _log.info("           state %.2f GiB, peak %.2f GiB a rank (gathered %.2f of %.2f)%s",
+                  rec["state_bytes_per_dev"] / 2 ** 30, rec["peak_bytes_per_dev"] / 2 ** 30,
+                  rec["gathered_peak_bytes_per_dev"] / 2 ** 30,
+                  rec["gathered_bound_bytes_per_dev"] / 2 ** 30,
                   "" if rec["fits"] else " (does not fit)")
     return rec
+
+
+def table(out_dir: str, archs, shapes) -> str:
+    """The records of ``out_dir`` as a markdown table, a row a cell, and
+    how many records keep their gathered peak within their bound."""
+    gib = 2 ** 30
+    n = within = 0
+    rows = ["| arch | shape | state / peak / gathered GiB a rank, 16×16 | 2×16×16 | fits "
+            "| compute / memory / collective ms, 16×16 | 2×16×16 | bottleneck |",
+            "| --- | --- | --- | --- | --- | --- | --- | --- |"]
+    for a in archs:
+        for s in shapes:
+            recs = []
+            for m in ("single", "multi"):
+                path = os.path.join(out_dir, f"{a}__{s}__{m}.json")
+                if os.path.exists(path):
+                    with open(path) as f:
+                        recs.append(json.load(f))
+            recs = [r for r in recs if "skipped" not in r]
+            if not recs:
+                continue
+            n += len(recs)
+            within += sum(r["gathered_peak_bytes_per_dev"] <= r["gathered_bound_bytes_per_dev"]
+                          for r in recs)
+            mem = [f"{r['state_bytes_per_dev'] / gib:.2f} / {r['peak_bytes_per_dev'] / gib:.2f}"
+                   f" / {r['gathered_peak_bytes_per_dev'] / gib:.2f}" for r in recs]
+            terms = [" / ".join(f"{1e3 * r[t]:.1f}" for t in ("t_compute", "t_memory",
+                                                              "t_collective")) for r in recs]
+            fits = "/".join("yes" if r["fits"] else "**no**" for r in recs)
+            neck = " / ".join(dict.fromkeys(r["bottleneck"] for r in recs))
+            rows.append(f"| {a} | {s} | {' | '.join(mem)} | {fits} | {' | '.join(terms)} "
+                        f"| {neck} |")
+    rows.append(f"\ngathered peak within its bound: {within} of {n} records")
+    return "\n".join(rows) + "\n"
 
 
 def main(argv=None) -> None:
@@ -281,6 +346,7 @@ def main(argv=None) -> None:
     ap.add_argument("--out", default="experiments/dryrun_torch")
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--list", action="store_true")
+    ap.add_argument("--table", action="store_true")
     args = ap.parse_args(argv)
 
     from repro_torch import obs
@@ -294,6 +360,9 @@ def main(argv=None) -> None:
         for a in archs:
             for s in shapes:
                 sys.stdout.write(f"{a} {s}\n")
+        return
+    if args.table:
+        sys.stdout.write(table(args.out, archs, shapes))
         return
     failures = []
     t0 = time.perf_counter()

@@ -21,10 +21,11 @@ SSM layers, the forward twice where technique II recomputes it).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -89,10 +90,13 @@ class TrainCell:
 
 
 def train_cell(device, seed: int = 0, config: str = CONFIG, params=None, proj=None,
-               svd_s: float = 0.0) -> TrainCell:
-    """The cell of ``config`` (a key of CELLS); ``params`` and ``proj``
-    given are used as they are (no refresh)."""
+               svd_s: float = 0.0, n_layers: Optional[int] = None) -> TrainCell:
+    """The cell of ``config`` (a key of CELLS), cut to ``n_layers`` where
+    given; ``params`` and ``proj`` given are used as they are (no
+    refresh)."""
     cfg = get_config(config)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     batch, plan = CELLS[config]
     if params is None:
         params = init_params(cfg, torch.Generator(device=device).manual_seed(seed), device)

@@ -7,7 +7,9 @@ expert-parallel cut: rank ``m`` holds and computes with its slice, and the
 step never gathers it.  Its FSDP dim (``ParallelConfig.fsdp``: ``embed``,
 ``embed_tbl``, ``expert_embed``) is cut over the ``data`` group, or over
 the ``("data", "model")`` group (index ``d·M + m``) where the rules give it
-both axes (``sharding_mode="fsdp"``); the step gathers it at its start.
+both axes (``sharding_mode="fsdp"``); a step gathers it a layer at a time,
+where the layer reads it (``parallel/fsdp.py``), and never holds the whole
+tree.
 Under a ``pod`` axis a leaf is whole across the pods, as the reference's
 rules leave it (``pod`` shards only the batch).  AdamW's
 moments follow their params: the counterpart of ``to_shardings``.  A dim
@@ -218,12 +220,16 @@ class ShardLayout:
         parts = x.split(self.local_widths(k), dim=self.mdims[k])
         return [p for p, (_, cut) in zip(parts, self.seg(k)) if cut]
 
-    def cut_fsdp(self, t: torch.Tensor, k: int, copy: bool = False) -> torch.Tensor:
-        """This rank's FSDP slice of leaf ``k`` already cut over ``model``."""
+    def cut_fsdp(self, t: torch.Tensor, k: int, copy: bool = False,
+                 dim: Optional[int] = None) -> torch.Tensor:
+        """This rank's FSDP slice of leaf ``k`` already cut over ``model``
+        (``dim``: where ``t``'s FSDP dim lies, if not the leaf's own: one
+        period's slice has no stacked dim)."""
         if self.dims[k] is None:
             return t.clone() if copy else t
         g = self.groups[k]
-        return t.chunk(self.mesh.size_of(g), dim=self.dims[k])[self.mesh.index_in(g)].clone()
+        d = self.dims[k] if dim is None else dim
+        return t.chunk(self.mesh.size_of(g), dim=d)[self.mesh.index_in(g)].clone()
 
     def map(self, fn, tree: Tree) -> Tree:
         """``fn(leaf, k)`` over a params-shaped tree, ``k`` the leaf index."""

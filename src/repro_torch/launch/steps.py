@@ -33,9 +33,14 @@ over ``pod`` where the batch is cut over it, except the
 low-rank leaves ``degraded_sync`` already reduced as their (r, m)
 factors.  Eq. (1) rescales with the global masks, clipping takes the
 global norm (each distinct slice counted once, the slices of pod 0),
-and AdamW updates each rank's slices.  The step gathers the FSDP dims of
-the params at its start and frees them at its end; it never gathers a
-``model`` dim.
+and AdamW updates each rank's slices.  The step never holds the whole
+params: the forward gathers a layer's FSDP dims where the layer reads
+them and the backward again where it needs them
+(``parallel/fsdp.py:LayerGather``), and each gathered gradient is reduced
+in its pod to this rank's slice as soon as its layer's backward forms it
+(reduce-scattered over the FSDP group, or all-reduced and cut); the
+leaves FSDP leaves whole, and the ``pod`` all-reduce of every leaf, wait
+for the end of the backward.  It never gathers a ``model`` dim.
 Accumulation splits each rank's rows (the JAX package's per-shard
 interleave); with bf16 compression each micro-gradient is reduced in f32
 and rounded to bf16, the rounding the JAX program applies to the global
@@ -45,10 +50,11 @@ nothing is reduced over the batch.
 
 The serve steps run ``forward_prefill`` / ``forward_decode`` under the same
 mesh, layout and model axis with ``remat="none"``, on params alone (no
-optimizer state): each rank serves its rows, holds its caches' KV heads
-and returns its logits' vocabulary columns; nothing is gathered for a
-decode loop (``serve/sampling.py:greedy_token`` takes the ids over the
-model group).
+optimizer state), gathering a layer's FSDP dims where it reads them (a
+decode call gathers every layer once): each rank serves its rows, holds
+its caches' KV heads and returns its logits' vocabulary columns; no
+logits are gathered for a decode loop (``serve/sampling.py:greedy_token``
+takes the ids over the model group).
 """
 from __future__ import annotations
 
@@ -76,6 +82,7 @@ from repro_torch.models.model import ExecFlags, forward_decode, forward_loss, fo
 from repro_torch.models.params import count_params, param_annotations, tree_leaves, tree_map
 from repro_torch.optim.optimizers import apply_update, clip_by_global_norm, lr_schedule
 from repro_torch.parallel.collectives import ModelAxis, StepSync
+from repro_torch.parallel.fsdp import LayerGather
 from repro_torch.parallel.sharding import (
     ShardingRules, Spec, default_rules, held_cache_spec, spec_tree,
 )
@@ -103,21 +110,24 @@ def trunk_shape(batch: Dict) -> tuple:
 
 
 def loss_and_grads(params: Tree, proj: Optional[Tree], batch: Dict, cfg: ModelConfig,
-                   ctx: NDBContext, flags: ExecFlags, sync: Optional[StepSync] = None):
+                   ctx: NDBContext, flags: ExecFlags, sync: Optional[StepSync] = None,
+                   fsdp: Optional[LayerGather] = None):
     """(loss, metrics, grads) of :func:`forward_loss`; ``grads`` has the
     params' structure and dtypes.  A leaf the backward never reaches (the
     MHA weights in the all-degraded program) gets a zero gradient, as JAX
     gives it.  With ``sync`` (a rank's share of a mesh step) the forward
     and backward reduce over its data group (it rides in ``ctx``), and
     ``sync.synced`` says per leaf whether the backward already reduced its
-    gradient."""
+    gradient.  With ``fsdp`` the params are this rank's slices, gathered
+    where they are read, and so are the FSDP leaves' gradients (reduced in
+    the pod by the gather's backward)."""
     live = tree_map(lambda p: p.detach().requires_grad_(), params)
     leaves = tree_leaves(live)
     if sync is not None:
         sync.paths = {id(p): path for p, path in zip(leaves, sync.leaf_paths)}
         sync.reduced = {}
         ctx = dataclasses.replace(ctx, sync=sync)
-    loss, metrics = forward_loss(live, proj, batch, cfg, ctx, flags)
+    loss, metrics = forward_loss(live, proj, batch, cfg, ctx, flags, fsdp=fsdp)
     got = torch.autograd.grad(loss, leaves, allow_unused=True)
     if sync is not None:
         sync.synced = [id(p) in sync.reduced for p in leaves]
@@ -130,14 +140,16 @@ def accumulated_loss_and_grads(params: Tree, proj: Optional[Tree], batch: Dict,
                                cfg: ModelConfig, ctx: NDBContext, flags: ExecFlags,
                                accum: int, compression: str = "none",
                                reduce: Optional[Callable] = None,
-                               sync: Optional[StepSync] = None):
+                               sync: Optional[StepSync] = None,
+                               fsdp: Optional[LayerGather] = None):
     """(mean loss, metrics, grads) over ``accum`` contiguous micro-batches
     of ``batch`` (``keep`` and ``example_weight`` split alike): the f32 sum
     of the micro-batches' gradients, each rounded to bf16 first when
     ``compression == "bf16"``, divided by ``accum``.  ``metrics`` are the
     last micro-batch's with the mean loss, as the JAX package reports.
     Under a mesh ``reduce`` takes each micro-gradient across the ranks
-    (before the rounding) and ``sync`` is the rank's step sync."""
+    (before the rounding), ``sync`` is the rank's step sync and ``fsdp``
+    its gather (:func:`loss_and_grads`)."""
     B = next(iter(batch.values())).shape[0]
     if B % accum:
         raise ValueError(f"batch {B} does not split into {accum} micro-batches")
@@ -148,7 +160,7 @@ def accumulated_loss_and_grads(params: Tree, proj: Optional[Tree], batch: Dict,
         mctx = ctx if ctx.keep is None else dataclasses.replace(
             ctx, keep=ctx.keep[:, sl], example_weight=ctx.example_weight[sl])
         loss, metrics, g = loss_and_grads(params, proj, {k: v[sl] for k, v in batch.items()},
-                                          cfg, mctx, flags, sync)
+                                          cfg, mctx, flags, sync, fsdp)
         if reduce is not None:
             g = reduce(g)
         if compression == "bf16":  # each micro-gradient rounded as it would cross the wire
@@ -365,29 +377,43 @@ def make_train_step(
             keep, w = nd["keep"], nd["example_weight"]
         return NDBContext(mode=ndb_mode, keep=keep, example_weight=w, mecefo=mecefo)
 
+    def over_of(k: int) -> tuple:
+        """The batch's groups in a pod that leaf ``k``'s gradient shares sum
+        over: all but ``model`` where the leaf cuts that axis (its experts'
+        exchange already summed the model ranks' rows)."""
+        return tuple(a for a in bax if a != "pod" and (a != "model" or layout.mdims[k] is None))
+
+    def in_pod(g, k: int, d: int, leaf: int, sync: Optional[StepSync]):
+        """An FSDP leaf's gathered gradient share ``g`` (whole along ``d``)
+        as this rank's slice of its pod's sum, in the backward
+        (``parallel/fsdp.py``): reduce-scattered over its FSDP group where
+        that is the batch's group in the pod, else all-reduced and cut;
+        only cut where the backward already reduced the leaf
+        (``sync.reduced``) or every rank computed the whole batch."""
+        if not sharded or leaf in sync.reduced:
+            return layout.cut_fsdp(g, k, dim=d)
+        over = over_of(k)
+        comm, tag = mesh.comm_of(over), "grad:" + layout.paths[k]
+        if layout.groups[k] == over:
+            return comm.reduce_scatter(g, d, tag=tag)
+        return layout.cut_fsdp(comm.all_reduce(g, tag=tag), k, dim=d)
+
     def reduce_grads(grads: Tree, sync: Optional[StepSync]) -> Tree:
-        """A rank's gradient shares as this rank's slices of the global
-        gradient.  A leaf sums over the batch's groups in its pod except
-        ``model`` where it cuts that axis (its experts' exchange already
-        summed the model ranks' rows): all-reduced, or reduce-scattered
-        along its FSDP dim; then over ``pod`` where the batch is cut over
-        it (a leaf is whole across the pods).  A leaf the backward already
-        reduced (or every leaf, when each rank computed the whole batch)
-        is only cut."""
+        """A rank's gradients, after the backward, as this rank's slices of
+        the global gradient: a leaf FSDP leaves whole summed over the
+        batch's groups in its pod (:func:`over_of`, the FSDP leaves were in
+        the backward), then every leaf over ``pod`` where the batch is cut
+        over it (a leaf is whole across the pods), once a leaf.  A leaf the
+        backward already reduced (or every leaf, when each rank computed the
+        whole batch) is left as it is."""
         synced = sync.synced if sharded else [True] * len(layout.dims)
 
         def one(g, k, done):
             if done:
-                return layout.cut_fsdp(g, k)
-            over = tuple(a for a in bax  # the batch's groups in a pod
-                         if a != "pod" and (a != "model" or layout.mdims[k] is None))
-            comm, d, tag = mesh.comm_of(over), layout.dims[k], "grad:" + layout.paths[k]
-            if d is None:
-                g = comm.all_reduce(g, tag=tag)
-            elif layout.groups[k] == over:
-                g = comm.reduce_scatter(g, d, tag=tag)
-            else:
-                g = layout.cut_fsdp(comm.all_reduce(g, tag=tag), k)
+                return g
+            tag = "grad:" + layout.paths[k]
+            if layout.dims[k] is None:
+                g = mesh.comm_of(over_of(k)).all_reduce(g, tag=tag)
             return mesh.comm_of(("pod",)).all_reduce(g, tag=tag) if "pod" in bax else g
 
         leaves = tree_leaves(grads)
@@ -402,20 +428,23 @@ def make_train_step(
         if ctx.keep is not None:
             ctx = dataclasses.replace(ctx, keep=ctx.keep[:, rows],
                                       example_weight=ctx.example_weight[rows])
-        params = layout.gather(state.params, "param") if layout.fsdp_sharded else state.params
         sync = None
         if sharded or tp is not None:
             both = None if bax is None else mesh.comm_of(bax + ("model",))
             experts = (mesh.comm_of(tuple(a for a in bax if a != "model"))
                        if tp is not None and tp.expert == "a2a" else batch_comm)
             sync = StepSync(batch_comm, layout.paths, tp, both, experts)
+        fsdp = (LayerGather(layout, lambda g, k, d, leaf: in_pod(g, k, d, leaf, sync))
+                if layout.fsdp_sharded else None)
+        params = state.params
         if accum == 1:
-            _loss, metrics, grads = loss_and_grads(params, proj, batch, cfg, ctx, flags, sync)
+            _loss, metrics, grads = loss_and_grads(params, proj, batch, cfg, ctx, flags, sync,
+                                                   fsdp)
             grads = reduce_grads(grads, sync)
         else:
             _loss, metrics, grads = accumulated_loss_and_grads(
                 params, proj, batch, cfg, ctx, flags, accum, compress,
-                reduce=lambda g: reduce_grads(g, sync), sync=sync)
+                reduce=lambda g: reduce_grads(g, sync), sync=sync, fsdp=fsdp)
         if sharded:  # the shares' sums: the global batch's metrics
             metrics = {k: batch_comm.all_reduce(v.detach().clone().reshape(1),
                                                 tag="metrics")[0] for k, v in metrics.items()}
@@ -495,7 +524,9 @@ def serve_flags(parallel: ParallelConfig, mesh, flags: Optional[ExecFlags] = Non
 class _ServePlan:
     """What a prefill or decode step of ``cfg`` does on ``mesh`` (None: one
     process): the rules, this rank's rows, its ``ModelAxis`` (no sequence
-    parallelism in a decode) and the params' layout."""
+    parallelism in a decode), the params' layout and, where FSDP cuts a
+    leaf, the gather (``fsdp``) that the forward reads the params through,
+    a layer at a time."""
 
     def __init__(self, cfg, parallel, mesh, shape, flags, decode: bool):
         parallel = parallel or ParallelConfig()
@@ -504,10 +535,12 @@ class _ServePlan:
         one = mesh is None or math.prod(mesh_shape_dict(mesh).values()) == 1
         self.rules = build_rules(cfg, mesh or _ONE, parallel)
         self.bax = batch_axes_for(self.B, self.rules, mesh_shape_dict(mesh or _ONE))
-        self.layout = self.tp = None
+        self.layout = self.tp = self.fsdp = None
         self.rows = slice(0, self.B)
         if not one:
             self.layout = mesh_layout(cfg, mesh, parallel)
+            if self.layout.fsdp_sharded:
+                self.fsdp = LayerGather(self.layout)
             tp = model_axis(cfg, mesh, parallel, shape)
             self.tp = dataclasses.replace(tp, sp=False) if tp is not None and decode else tp
             self.rows = rows_of(self.B, batch_axes(cfg, mesh, parallel, self.B), mesh)
@@ -521,12 +554,6 @@ class _ServePlan:
     @property
     def n_rows(self) -> int:
         return self.rows.stop - self.rows.start
-
-    def params(self, params: Tree) -> Tree:
-        """The params the step computes with: FSDP dims gathered."""
-        if self.layout is not None and self.layout.fsdp_sharded:
-            return self.layout.gather(params, "param")
-        return params
 
     def specs(self, cfg: ModelConfig, shape: ShapeConfig, max_len: int) -> Dict[str, Any]:
         """The params', inputs', caches' and logits' specs (the JAX rules'),
@@ -568,8 +595,9 @@ def make_prefill_step(cfg: ModelConfig, parallel: Optional[ParallelConfig], mesh
     ``batch`` is the global batch; the step runs this rank's rows
     (``step.rows``) with the model axis of the train step (tensor
     parallelism over heads, FFN and vocab, the experts' ``"gather"`` or
-    ``"a2a"``, sequence parallelism where ``shape.seq_len`` splits), after
-    gathering the params' FSDP dims.  It returns this rank's caches (its
+    ``"a2a"``, sequence parallelism where ``shape.seq_len`` splits),
+    gathering each layer's FSDP dims where the layer reads them
+    (``parallel/fsdp.py``).  It returns this rank's caches (its
     rows, its KV heads, its SSM heads and conv channels:
     ``specs["held_caches"]``) and logits (its rows,
     its vocabulary columns where the axis cuts the vocabulary), under
@@ -589,8 +617,8 @@ def make_prefill_step(cfg: ModelConfig, parallel: Optional[ParallelConfig], mesh
         with torch.no_grad():
             structs = cache_structs(cfg, plan.n_rows, L, kv_heads=plan.kv_heads,
                                     ssm_heads=plan.ssm_heads)
-            return forward_prefill(plan.params(params), batch, cfg, structs, flags=plan.flags,
-                                   tp=plan.tp)
+            return forward_prefill(params, batch, cfg, structs, flags=plan.flags, tp=plan.tp,
+                                   fsdp=plan.fsdp)
 
     return plan.attach(step), plan.specs(cfg, shape, L)
 
@@ -618,7 +646,7 @@ def make_decode_step(cfg: ModelConfig, parallel: Optional[ParallelConfig], mesh,
         if token.shape[0] == B and plan.n_rows != B:
             token = token[plan.rows]
         with torch.no_grad():
-            return forward_decode(plan.params(params), caches, token, cur_len, cfg,
-                                  flags=plan.flags, tp=plan.tp)
+            return forward_decode(params, caches, token, cur_len, cfg, flags=plan.flags,
+                                  tp=plan.tp, fsdp=plan.fsdp)
 
     return plan.attach(step), plan.specs(cfg, shape, shape.seq_len)

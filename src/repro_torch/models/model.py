@@ -5,10 +5,14 @@ heads (counterpart of ``repro.models.model``).
 ``lax.scan``, and everything runs eagerly where it has ``jit``.  Parameter
 leaves stay stacked over periods; the trunk unbinds each leaf once into its
 per-period views, so the backward stacks each leaf's gradient once instead
-of once per layer.
+of once per layer.  Under a mesh step's FSDP (``parallel/fsdp.py``) those
+views are this rank's slices, gathered a sublayer at a time; the
+recomputing remats (``"full"``, ``"dots"``) checkpoint each layer, where
+the reference's scan checkpoints each period (the same values).
 """
 from __future__ import annotations
 
+from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Any, Optional
 
@@ -75,6 +79,7 @@ def run_trunk(
     prefill_history: bool = False,
     page_tables: Optional[torch.Tensor] = None,
     page_size: Optional[int] = None,
+    fsdp=None,
 ):
     """Runs all layers; returns (h, caches, aux), ``aux`` the MoE layers'
     load-balancing losses summed (an f32 zero without MoE layers).
@@ -85,6 +90,9 @@ def run_trunk(
     ``(n_periods, B, S, KV, hd)`` (a prefill's, or the engine's dense
     view), or with ``page_tables`` the physical page pools ``(n_periods,
     n_pages, page_size, KV, hd)``.  Both are written in place.
+    ``fsdp`` (a mesh step's ``parallel/fsdp.py:LayerGather``): the trunk's
+    leaves are this rank's slices, each gathered along its FSDP dim where
+    its sublayer reads it.
     ``prefill_history`` marks a chunk prefill (queries at ``cur_len..``
     attending to the cache prefix plus themselves).  An SSM layer's caches
     are its ``conv`` window and ``ssd`` state (``models/ssm.py``), also
@@ -108,48 +116,62 @@ def run_trunk(
         tree = None if layer_proj is None else layer_proj[pos][part]
         return None if tree is None else {k: t[i] for k, t in tree.items()}
 
-    def super_block(h, i):
+    def leaves(pos, part, i):
+        """A sublayer's leaves of period ``i``: views of the stacked leaves,
+        or under ``fsdp`` this rank's slices, gathered as the sublayer reads
+        them."""
+        local = {k: t[i] for k, t in layer_params[pos][part].items()}
+        return local if fsdp is None else fsdp.layer(local, f"layers.{pos}.{part}.", i)
+
+    def layer(h, i, pos):
+        """Position ``pos`` of period ``i``: its mixer, then its FFN;
+        returns (h, aux), aux an f32 zero without an MoE FFN."""
+        n = i * period + pos
+        keep_l = keep[n] if keep is not None else (
+            0.0 if ctx.mode == "degraded" else 1.0)
+        mp = leaves(pos, "mixer", i)
+        cache = None if caches is None else _period(caches[pos], i)
+        if layout[pos][0] == "attn":
+            h, _ = attention_block(
+                mp, h, cfg, positions,
+                keep=keep_l if ctx.mecefo.skip_mha_backward else 1.0,
+                cache=cache, cur_len=cur_len, history=prefill_history,
+                page_tables=page_tables, page_size=page_size, sync=ctx.sync,
+            )
+        else:  # technique I does not apply; II only in degraded mode
+            h, _ = ssm_block(mp, h, cfg, proj=proj_of(pos, "mixer", i), keep=keep_l,
+                             lowrank_mode=lowrank_mode, recompute=ctx.recompute_ffn(),
+                             cache=cache, sync=ctx.sync)
+        pj = proj_of(pos, "ffn", i)
+        fp = leaves(pos, "ffn", i)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
-        for pos in range(period):
-            layer = i * period + pos
-            bp = layer_params[pos]
-            keep_l = keep[layer] if keep is not None else (
-                0.0 if ctx.mode == "degraded" else 1.0)
-            mp = {k: t[i] for k, t in bp["mixer"].items()}
-            cache = None if caches is None else _period(caches[pos], i)
-            if layout[pos][0] == "attn":
-                h, _ = attention_block(
-                    mp, h, cfg, positions,
-                    keep=keep_l if ctx.mecefo.skip_mha_backward else 1.0,
-                    cache=cache, cur_len=cur_len, history=prefill_history,
-                    page_tables=page_tables, page_size=page_size, sync=ctx.sync,
-                )
-            else:  # technique I does not apply; II only in degraded mode
-                h, _ = ssm_block(mp, h, cfg, proj=proj_of(pos, "mixer", i), keep=keep_l,
-                                 lowrank_mode=lowrank_mode, recompute=ctx.recompute_ffn(),
-                                 cache=cache, sync=ctx.sync)
-            pj = proj_of(pos, "ffn", i)
-            fp = {k: t[i] for k, t in bp["ffn"].items()}
-            if layout[pos][1]:
-                h, a = moe_block(fp, h, cfg, proj=pj, keep=keep_l,
-                                 lowrank_mode=lowrank_mode, recompute=recompute,
-                                 n_dp_shards=flags.n_dp_shards, sync=ctx.sync)
-                aux = aux + a
-            else:
-                h = ffn_block(fp, h, cfg, proj=pj, keep=keep_l,
-                              lowrank_mode=lowrank_mode, recompute=recompute, sync=ctx.sync)
+        if layout[pos][1]:
+            h, aux = moe_block(fp, h, cfg, proj=pj, keep=keep_l,
+                               lowrank_mode=lowrank_mode, recompute=recompute,
+                               n_dp_shards=flags.n_dp_shards, sync=ctx.sync)
+        else:
+            h = ffn_block(fp, h, cfg, proj=pj, keep=keep_l,
+                          lowrank_mode=lowrank_mode, recompute=recompute, sync=ctx.sync)
         return h, aux
 
+    # "full" and "dots" recompute a layer, not a period: a period's
+    # recompute would hold all its layers' gathered weights at once
+    dots = dots_recompute(layer, "dots_no_batch") if flags.remat == "dots" else None
+    saving = fsdp.saving() if fsdp is not None and torch.is_grad_enabled() else nullcontext()
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    block = super_block
-    if flags.remat == "dots":
-        block = dots_recompute(super_block, "dots_no_batch")
-    for i in range(n_periods):
-        if flags.remat == "full" and records_grad(h, *params["layers"][0].values()):
-            h, a = checkpoint(super_block, h, i, use_reentrant=False, preserve_rng_state=False)
-        else:
-            h, a = block(h, i)
-        aux = aux + a
+    with saving:
+        for i in range(n_periods):
+            block_aux = torch.zeros((), dtype=torch.float32, device=h.device)
+            for pos in range(period):
+                if flags.remat == "full" and records_grad(h, *params["layers"][pos].values()):
+                    h, a = checkpoint(layer, h, i, pos, use_reentrant=False,
+                                      preserve_rng_state=False)
+                elif dots is not None:
+                    h, a = dots(h, i, pos)
+                else:
+                    h, a = layer(h, i, pos)
+                block_aux = block_aux + a
+            aux = aux + block_aux
     return h, caches, aux
 
 
@@ -166,12 +188,18 @@ def forward_loss(
     cfg: ModelConfig,
     ctx: NDBContext,
     flags: ExecFlags,
+    fsdp=None,
 ):
     """Training loss and its metrics dict.  ``batch`` holds ``tokens`` and
     ``labels`` (B, S) tensors on the params' device.  Under sequence
     parallelism (``ctx.sync.tp``) the trunk runs on this rank's S/M
-    positions, cut after the embedding."""
+    positions, cut after the embedding.  ``fsdp`` (a mesh step's
+    ``parallel/fsdp.py:LayerGather``): ``params`` are this rank's slices,
+    the leaves outside the trunk gathered once, the trunk's a layer at a
+    time."""
     tp = model_axis_of(ctx.sync)
+    if fsdp is not None:
+        params = fsdp.outside(params)
     h, token_w = frontends.embed_inputs(params, batch, cfg, tp)
     labels = frontends.full_labels(batch, cfg)
     positions = torch.arange(h.shape[1], device=h.device)
@@ -180,7 +208,7 @@ def forward_loss(
     if tp is not None and tp.sp:
         h = split_along(h, tp, 1, "sp:split")
     h, _, aux = run_trunk(params, h, cfg, positions=positions, proj=proj, ctx=ctx,
-                          flags=flags)
+                          flags=flags, fsdp=fsdp)
     h = rmsnorm(h, norm_scale(params["final_norm"], tp), cfg.norm_eps)
     ce = chunked_cross_entropy(h, _unembed(params), labels, token_w, chunk=flags.ce_chunk,
                                vocab_size=cfg.vocab_size, sync=ctx.sync)
@@ -212,6 +240,7 @@ def forward_prefill(
     *,
     flags: Optional[ExecFlags] = None,
     tp=None,
+    fsdp=None,
 ):
     """Prompt prefill: returns (filled caches, (B, V) f32 logits).
 
@@ -230,8 +259,11 @@ def forward_prefill(
     (``launch/state.py``), the caches hold its KV heads
     (``models/kvcache.py:held_kv_heads``) and the logits its vocabulary
     columns; under sequence parallelism the trunk runs on S/M positions,
-    cut after the embedding and gathered before the head.
+    cut after the embedding and gathered before the head.  ``fsdp`` as in
+    :func:`forward_loss`.
     """
+    if fsdp is not None:
+        params = fsdp.outside(params)
     h, _ = frontends.embed_inputs(params, batch, cfg, tp)
     B, S = h.shape[:2]
     positions = torch.arange(S, device=h.device)
@@ -243,7 +275,7 @@ def forward_prefill(
     if sp:
         h = split_along(h, tp, 1, "sp:split")
     h, caches, _ = run_trunk(params, h, cfg, positions=positions, ctx=serve_ctx(tp),
-                             flags=flags, caches=caches, cur_len=0)
+                             flags=flags, caches=caches, cur_len=0, fsdp=fsdp)
     if sp:
         h = gather_along(h, tp, 1, "sp:gather")
     if logit_pos is None:
@@ -293,6 +325,7 @@ def forward_decode(
     page_size: Optional[int] = None,
     flags: Optional[ExecFlags] = None,
     tp=None,
+    fsdp=None,
 ):
     """One decode step: returns (caches, (B, V) logits).
 
@@ -304,8 +337,11 @@ def forward_decode(
     caches are dense ``(n_periods, B, Smax, KV, hd)`` buffers: the new row
     is written at ``cur_len`` in place and kernel #5 attends over them, in
     blocks of ``page_size`` rows when given.  ``flags`` and ``tp`` as in
-    :func:`forward_prefill` (a decode is never cut along the sequence).
+    :func:`forward_prefill` (a decode is never cut along the sequence);
+    ``fsdp`` as in :func:`forward_loss` (every layer gathered once a call).
     """
+    if fsdp is not None:
+        params = fsdp.outside(params)
     # the audio stub decodes from token ids like any LM, as in the reference
     h = frontends.embed_tokens(params, token[:, None], tp)
     B = h.shape[0]
@@ -317,6 +353,6 @@ def forward_decode(
             cur_len = positions.expand(B)
     h, caches, _ = run_trunk(
         params, h, cfg, positions=positions, ctx=serve_ctx(tp), flags=flags, caches=caches,
-        cur_len=cur_len, page_tables=page_tables, page_size=page_size,
+        cur_len=cur_len, page_tables=page_tables, page_size=page_size, fsdp=fsdp,
     )
     return caches, _head(params, h[:, -1], cfg, tp)

@@ -12,15 +12,18 @@ A dry ``Comm`` (``dry=True``: a rank of a mesh with no process group
 behind it, ``launch/dryrun.py``) moves no data: ``all_gather`` and
 ``all_to_all`` return uninitialized tensors of the gathered or exchanged
 shape (``new_empty``), ``reduce_scatter`` one of the rank's slice's shape,
-``all_reduce`` and ``broadcast`` their input.  Each call still counts, so
+``all_reduce`` and ``broadcast`` their input; a gather or a scatter also
+makes the buffers the other routes stage through, so a dry rank's live
+bytes follow a real rank's.  Each call still counts, so
 a dry rank's counters read what a real rank's do.
 
 The route is chosen once, where the group is made, by backend: ``native``
 (NCCL, or gloo on CPU tensors) calls the gather and scatter collectives;
 ``all_reduce`` (gloo on CUDA tensors, which offers only all-reduce and
 broadcast) gathers by all-reducing a zero buffer that holds each rank's
-shard at its place, reduce-scatters by all-reducing the whole tensor and
-keeping the rank's slice, and exchanges all-to-all by all-reducing a zero
+shard at its place, reduce-scatters by all-reducing the slices (each in
+turn where they lie along dim 0) and keeping the rank's own, and
+exchanges all-to-all by all-reducing a zero
 ``(world, world, chunk)`` buffer that holds this rank's chunks in its row
 and keeping its column.
 
@@ -146,49 +149,63 @@ class Comm:
         return t
 
     def all_gather(self, shard: torch.Tensor, dim: int, tag: str = "") -> torch.Tensor:
-        """The ranks' shards concatenated along ``dim`` in rank order."""
+        """The ranks' shards concatenated along ``dim`` in rank order.  Every
+        route gathers the shards stacked along dim 0; along another dim
+        they are then laid along ``dim`` in a second gathered-size buffer,
+        briefly held with the first (the dry route makes both)."""
         _count("all_gather", tag, shard, self)
-        if self.route == "dry":
-            shape = list(shard.shape)
-            shape[dim] *= self.world
-            return shard.new_empty(shape)
+        stacked = (self.world * shard.shape[0], *shard.shape[1:])
         shard = shard.contiguous()
-        if self.group is None:
-            return shard.clone()
-        import torch.distributed as dist
+        if self.route == "dry":
+            buf = shard.new_empty(stacked)
+        else:
+            if self.group is None:
+                return shard.clone()
+            import torch.distributed as dist
 
-        # the ranks' shards stacked along dim 0, then laid along ``dim``
-        buf = shard.new_empty((self.world * shard.shape[0], *shard.shape[1:]))
-        if self.route == "all_reduce":
-            buf.zero_().chunk(self.world)[self.rank].copy_(shard)
-            dist.all_reduce(buf, group=self.group)
-        elif self.backend == "nccl":
-            dist.all_gather_into_tensor(buf, shard, group=self.group)
-        else:  # gloo on the CPU
-            dist.all_gather(list(buf.chunk(self.world)), shard, group=self.group)
-        return torch.cat(buf.chunk(self.world), dim=dim)
+            buf = shard.new_empty(stacked)
+            if self.route == "all_reduce":
+                buf.zero_().chunk(self.world)[self.rank].copy_(shard)
+                dist.all_reduce(buf, group=self.group)
+            elif self.backend == "nccl":
+                dist.all_gather_into_tensor(buf, shard, group=self.group)
+            else:  # gloo on the CPU
+                dist.all_gather(list(buf.chunk(self.world)), shard, group=self.group)
+        return torch.cat(buf.chunk(self.world), dim=dim) if dim else buf
 
     def reduce_scatter(self, full: torch.Tensor, dim: int, tag: str = "") -> torch.Tensor:
         """This rank's slice along ``dim`` of the sum of ``full`` over the
-        group (``full.shape[dim]`` divisible by the group's size)."""
+        group (``full.shape[dim]`` divisible by the group's size).  Along a
+        dim other than 0 every route first copies the slices stacked along
+        dim 0 (the dry route makes that buffer too); the ``all_reduce``
+        route all-reduces that copy, or along dim 0 each rank's slice in
+        turn, ``full`` left as it was."""
         _count("reduce_scatter", tag, full, self)
         if full.shape[dim] % self.world:
             raise ValueError(f"dim {dim} of {tuple(full.shape)} does not split {self.world} ways")
+        pieces = full.chunk(self.world, dim=dim)
         if self.route == "dry":
-            shape = list(full.shape)
-            shape[dim] //= self.world
-            return full.new_empty(shape)
+            stage = full.new_empty(full.shape) if dim else None  # the other routes' copy
+            out = full.new_empty(pieces[0].shape)
+            del stage
+            return out
         if self.group is None:
             return full.clone()
         import torch.distributed as dist
 
+        src = torch.cat(pieces, dim=0) if dim else full.contiguous()
         if self.route == "all_reduce":
-            out = full.clone()
-            dist.all_reduce(out, group=self.group)
-            return out.chunk(self.world, dim=dim)[self.rank].contiguous()
-        pieces = full.chunk(self.world, dim=dim)
+            if dim:  # the copy is this call's own
+                dist.all_reduce(src, group=self.group)
+                return src.chunk(self.world)[self.rank].clone()
+            for r, piece in enumerate(src.chunk(self.world)):
+                piece = piece.clone()
+                dist.all_reduce(piece, group=self.group)
+                if r == self.rank:
+                    out = piece
+            return out
         out = full.new_empty(pieces[0].shape)
-        dist.reduce_scatter_tensor(out, torch.cat(pieces, dim=0), group=self.group)
+        dist.reduce_scatter_tensor(out, src, group=self.group)
         return out
 
     def all_to_all(self, t: torch.Tensor, tag: str = "") -> torch.Tensor:
@@ -429,8 +446,12 @@ class StepSync:
 
 def leaf_id(w: torch.Tensor) -> int:
     """The key of the parameter leaf ``w`` is a view of (the trunk takes
-    each layer's weights as views of the period-stacked leaves)."""
-    return id(w._base if w._base is not None else w)
+    each layer's weights as views of the period-stacked leaves), or was
+    gathered from (``parallel/fsdp.py``: a gathered tensor, or a view of
+    one, carries its source)."""
+    base = w._base if w._base is not None else w
+    src = getattr(w, "_fsdp", None) or getattr(base, "_fsdp", None)
+    return src.leaf if src is not None else id(base)
 
 
 __all__ = ["Comm", "ModelAxis", "StepSync", "all_to_all", "copy_slice_to_model", "copy_to_model",

@@ -375,11 +375,16 @@ def _incidents(trainer):
         for i in inc.mgr.incidents]
 
 
+def _timeless(incidents):
+    return [i for i in incidents if i[0] != "step_time_spike"]
+
+
 def test_trainer_on_two_ranks_matches_jax_on_the_elastic_golden_trace(tmp_path):
     """The port's Trainer on a mesh of two gloo ranks (``launch/dist.py:
     spawn``) against the live JAX Trainer over ``golden_trace_elastic.jsonl``
     at the CLI's settings: per-step loss and grad norm at LOSS_RTOL, the
-    step fields, accounting and incidents equal on both ranks, the replay
+    step fields, accounting and incidents (but the wall clock's step-time
+    spikes) equal on both ranks, the replay
     verdict agreed, and the recording and checkpoints written by rank 0
     alone."""
     from repro.ft import trace as jtrace
@@ -414,7 +419,10 @@ def test_trainer_on_two_ranks_matches_jax_on_the_elastic_golden_trace(tmp_path):
             np.testing.assert_allclose(t["grad_norm"], j["grad_norm"], rtol=LOSS_RTOL,
                                        err_msg=f"{t['step']}")
         assert r["acc"] == jtr.controller.accounting.as_dict()
-        assert r["incidents"] == _incidents(jtr)
+        # the step-time spike detector reads each process's wall clock (its
+        # incidents are synthetic, never verified bit-exactly): under load a
+        # slow step opens one in one process and not in another
+        assert _timeless(r["incidents"]) == _timeless(_incidents(jtr))
     assert [t["loss"] for t in ranks[1]["hist"]] == [t["loss"] for t in ranks[0]["hist"]]
     assert [(r["writes"], r["recorder"]) for r in ranks] == [(True, True), (False, False)]
     assert jtrace.verify_replay(jtrace.load_trace(rec), _replayed(rec)) == []
