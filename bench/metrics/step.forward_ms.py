@@ -1,0 +1,8 @@
+"""step.forward_ms (ms): the device time of the program's ``train.forward``
+span (``forward_loss``) a step, the median over the traced window's steps
+(``bench/stepspans.py``).  Moves ``tokens_per_s``."""
+from stepspans import span_ms
+
+
+def read(run):
+    return span_ms(run, "train.forward")

@@ -36,6 +36,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.lowrank_wgrad import lowrank_wgrad
 from repro_torch.models.params import block_layout, param_annotations
+from repro_torch.obs.spans import span
 from repro_torch.parallel import collectives
 
 Tree = Any
@@ -85,8 +86,9 @@ def _projection_tree(params: Tree, cfg: ModelConfig, leaf) -> Tree:
 
 def refresh_projections(params: Tree, cfg: ModelConfig, rank: int) -> Tree:
     """(Re)compute the V1 tree from the current params (Alg. 3, every τ
-    steps)."""
-    return _projection_tree(params, cfg, lambda w: svd_projection(w, rank))
+    steps), in the span ``mecefo.v1_refresh``."""
+    with span("mecefo.v1_refresh"):
+        return _projection_tree(params, cfg, lambda w: svd_projection(w, rank))
 
 
 def init_projections(params: Tree, cfg: ModelConfig, rank: int) -> Tree:

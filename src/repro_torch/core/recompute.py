@@ -22,6 +22,8 @@ from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
 )
 
+from repro_torch.obs.spans import span
+
 _aten = torch.ops.aten
 _SAVED_OPS = {
     "dots": (_aten.mm.default, _aten.addmm.default, _aten.bmm.default,
@@ -45,13 +47,19 @@ def records_grad(*args) -> bool:
 def ffn_recompute(fn):
     """The paper's technique II: save only the function's inputs.  Where
     autograd records nothing (serving) there is nothing to save, and ``fn``
-    runs as it is."""
+    runs as it is.  The checkpointed function runs in the span
+    ``mecefo.ffn``: once in the forward, and again as the backward's
+    recompute."""
+
+    def spanned(*args):
+        with span("mecefo.ffn"):
+            return fn(*args)
 
     def wrapped(*args):
         if not records_grad(*args):
             return fn(*args)
         # the trunk draws no random numbers, so no RNG state is kept
-        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+        return checkpoint(spanned, *args, use_reentrant=False, preserve_rng_state=False)
 
     return wrapped
 

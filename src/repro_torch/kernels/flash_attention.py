@@ -29,6 +29,7 @@ from repro_torch.kernels import (
     FLOAT, INT, PTR, aligned16, book, check_launch, check_operand, dtype_code, kernel_fn,
     nbytes, needs_grad, on_meta, p_terms, recompute_grads, refuse_detach, runs_plain, stream_ptr,
 )
+from repro_torch.obs.spans import span
 
 NEG_INF = -1e30
 # head widths the source is built for
@@ -110,8 +111,9 @@ class FlashAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
-        return recompute_grads(flash_attention_plain, ctx.saved_tensors,
-                               ctx.needs_input_grad, do)
+        with span("attn.backward"):
+            return recompute_grads(flash_attention_plain, ctx.saved_tensors,
+                                   ctx.needs_input_grad, do)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

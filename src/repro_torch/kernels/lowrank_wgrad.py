@@ -24,6 +24,7 @@ from repro_torch.kernels import (
     INT, PTR, book, check_launch, check_operand, dtype_code, kernel_fn, nbytes, on_meta,
     p_terms, refuse_detach, runs_plain, stream_ptr,
 )
+from repro_torch.obs.spans import span
 
 MAX_RANK = 256
 
@@ -93,8 +94,10 @@ def lowrank_wgrad(x: torch.Tensor, dy: torch.Tensor, v1: torch.Tensor,
     """Technique III's weight gradient ``dW = V1 @ ((x V1)^T dy)`` (n, m),
     in ``v1``'s dtype.  ``reduce`` (MeCeFO's ``lowrank_sync``) runs on the
     (r, m) factor between the kernel and the product: the data group's
-    all-reduce, so dW comes out global."""
-    a = lowrank_wgrad_project(x, dy, v1)
-    if reduce is not None:
-        a = reduce(a)
-    return (v1.float() @ a).to(v1.dtype)
+    all-reduce, so dW comes out global.  Runs in the span
+    ``mecefo.lowrank_wgrad``."""
+    with span("mecefo.lowrank_wgrad"):
+        a = lowrank_wgrad_project(x, dy, v1)
+        if reduce is not None:
+            a = reduce(a)
+        return (v1.float() @ a).to(v1.dtype)

@@ -12,11 +12,16 @@ S=1024, under ``NDBPlan(n_dp=1, n_stages=8, failed={(0, 3)})``.  The
 profile refreshes V1 and, for each NDB mode, runs two warm-up steps and
 then one step under ``torch.profiler`` (CPU and CUDA activities).  Prints
 one JSON line per mode: the step's wall time, the device time summed over
-its kernels, the device busy and idle shares, the kernels that take the
-most device time, and each of the port's kernels' share of the device
-time; for an SSM config also the SSD scan's share (``ssd_scan_ms``: the
-scan's forward and backward timed alone at the step's shapes, times the
-SSM layers, the forward twice where technique II recomputes it).
+its kernels, the device busy and idle shares (busy: the union of the
+device operations' intervals in the step's window, as ``bench/devtrace.py``
+takes it, since kernels on two streams overlap), the device ms of each
+phase of the step from its spans (``obs/spans.py``'s ``Tracer.step_ms``,
+the spans the benchmark's ``step.*`` and ``mecefo.*`` metrics read), the
+kernels that take the most device time, and each of the port's kernels'
+share of the device time; for an SSM config also the SSD scan's share
+(``ssd_scan_ms``: the scan's forward and backward timed alone at the
+step's shapes, times the SSM layers, the forward twice where technique II
+recomputes it).
 """
 from __future__ import annotations
 
@@ -42,6 +47,8 @@ from repro_torch.launch.state import TrainState
 from repro_torch.launch.steps import NDB_MODES, make_train_step
 from repro_torch.models.model import ExecFlags
 from repro_torch.models.params import init_params, tree_map
+from repro_torch.obs.catalog import TRACED_SPAN_SET
+from repro_torch.obs.spans import get_tracer
 from repro_torch.optim.optimizers import init_opt_state
 
 CONFIG, BATCH, SEQ_LEN, RANK = "llama-350m", 8, 1024, 64
@@ -56,6 +63,13 @@ FLAGS = ExecFlags(remat="ffn")  # the Trainer's default (repro/launch/train.py:8
 PORT_KERNELS = {"lowrank_wgrad": "lowrank_", "flash_attention": "flash_fwd_",
                 "rmsnorm": "rmsnorm_", "swiglu": "swiglu_kernel",
                 "swiglu_bwd": "swiglu_bwd_kernel"}
+# a step's phases by the span each is read from: (span, enclosing span)
+PHASES = {"h2d": ("train.h2d", None), "forward": ("train.forward", None),
+          "backward": ("train.backward", None), "clip": ("train.clip", None),
+          "optimizer": ("train.optimizer", None),
+          "recompute": ("mecefo.ffn", "train.backward"),
+          "lowrank_wgrad": ("mecefo.lowrank_wgrad", None),
+          "attention_backward": ("attn.backward", None)}
 
 
 @dataclass
@@ -112,11 +126,51 @@ def train_cell(device, seed: int = 0, config: str = CONFIG, params=None, proj=No
                      weight, svd_s)
 
 
+def _kernels(prof) -> list:
+    """A profile's CUDA entries, without the spans' mirrors on the device's
+    timeline (``obs/spans.py``), which are annotations, not device work."""
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in TRACED_SPAN_SET]
+
+
 def _device_s(prof) -> float:
     """Device seconds summed over a profile's CUDA kernels."""
     return sum(float(getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0)))
-               for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+               for e in _kernels(prof)) / 1e6
+
+
+def busy_s(events, t0_ns: int, t1_ns: int) -> float:
+    """The seconds of ``[t0_ns, t1_ns]`` in which some device operation
+    ran: the union of the CUDA events' intervals among a profile's raw
+    events (``profiler.kineto_results.events()``), leaving out the host
+    annotations the profiler mirrors on the device's timeline."""
+    spans = []
+    for e in events:
+        if "CUDA" not in str(e.device_type()) or e.is_user_annotation():
+            continue
+        a, b = max(e.start_ns(), t0_ns), min(e.start_ns() + e.duration_ns(), t1_ns)
+        if b > a:
+            spans.append((a, b))
+    total, end = 0, t0_ns
+    for a, b in sorted(spans):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e9
+
+
+def phase_ms(t0_ns: int, t1_ns: int) -> dict:
+    """Each phase's device ms (``PHASES``), the median over the steps whose
+    ``train.step`` span lies in ``[t0_ns, t1_ns]`` (the profiler's clock);
+    a phase whose span never opened is left out, and so is every phase off
+    CUDA."""
+    tracer = get_tracer()
+    out = {}
+    for key, (name, under) in PHASES.items():
+        got = sorted(tracer.step_ms(name, t0_ns, t1_ns, under=under))
+        if got:
+            out[key] = got[len(got) // 2]
+    return out
 
 
 def ssd_scan_ms(cfg: ModelConfig, batch: int, seq_len: int, device) -> dict:
@@ -167,17 +221,17 @@ def profile_step(cell: TrainCell, mode: str, device, warmup: int = 2) -> dict:
         state, _m = step(state, batch, *ndb)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+        t0, w0 = time.perf_counter(), time.time_ns()
         state, metrics = step(state, batch, *ndb)
         float(metrics["loss"])
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = prof.key_averages()
+        wall, w1 = time.perf_counter() - t0, time.time_ns()
+    busy = busy_s(prof.profiler.kineto_results.events(), w0, w1)
 
     def dev_us(e) -> float:
         return float(getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0)))
 
-    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = _kernels(prof)
     kernel_s = _device_s(prof)
     top = sorted(kernels, key=dev_us, reverse=True)[:15]
     cfg = cell.cfg
@@ -185,8 +239,8 @@ def profile_step(cell: TrainCell, mode: str, device, warmup: int = 2) -> dict:
         "config": cfg.name, "n_layers": cfg.n_layers, "mode": mode,
         "device": torch.cuda.get_device_name(0), "batch": cell.shape.global_batch,
         "seq_len": SEQ_LEN, "rank": RANK, "wall_s": wall,
-        "device_kernel_s": kernel_s, "device_busy_share": kernel_s / wall,
-        "device_idle_share": 1.0 - kernel_s / wall,
+        "device_kernel_s": kernel_s, "device_busy_share": busy / wall,
+        "device_idle_share": 1.0 - busy / wall, "phase_ms": phase_ms(w0, w1),
         "top_kernels": [{"name": e.key[:80], "calls": e.count, "device_s": dev_us(e) / 1e6}
                         for e in top],
         "port_kernel_share": {

@@ -80,6 +80,7 @@ from repro_torch.models.kvcache import (
 )
 from repro_torch.models.model import ExecFlags, forward_decode, forward_loss, forward_prefill
 from repro_torch.models.params import count_params, param_annotations, tree_leaves, tree_map
+from repro_torch.obs.spans import span
 from repro_torch.optim.optimizers import apply_update, clip_by_global_norm, lr_schedule
 from repro_torch.parallel.collectives import ModelAxis, StepSync
 from repro_torch.parallel.fsdp import LayerGather
@@ -127,8 +128,10 @@ def loss_and_grads(params: Tree, proj: Optional[Tree], batch: Dict, cfg: ModelCo
         sync.paths = {id(p): path for p, path in zip(leaves, sync.leaf_paths)}
         sync.reduced = {}
         ctx = dataclasses.replace(ctx, sync=sync)
-    loss, metrics = forward_loss(live, proj, batch, cfg, ctx, flags, fsdp=fsdp)
-    got = torch.autograd.grad(loss, leaves, allow_unused=True)
+    with span("train.forward"):
+        loss, metrics = forward_loss(live, proj, batch, cfg, ctx, flags, fsdp=fsdp)
+    with span("train.backward"):
+        got = torch.autograd.grad(loss, leaves, allow_unused=True)
     if sync is not None:
         sync.synced = [id(p) in sync.reduced for p in leaves]
     by_id = {id(p): (g if g is not None else torch.zeros_like(p)) for p, g in zip(leaves, got)}
@@ -467,9 +470,14 @@ def make_train_step(
         return [one(k) for k in range(len(layout.dims))]
 
     def step(state: TrainState, batch: Dict, ndb: Optional[Dict] = None):
+        with span("train.step"):
+            return one_step(state, batch, ndb)
+
+    def one_step(state: TrainState, batch: Dict, ndb: Optional[Dict]):
         if ndb is not None and ndb_mode != "dynamic":
             raise ValueError(f"a {ndb_mode!r} step takes step(state, batch)")
-        batch = to_device(batch, dev)
+        with span("train.h2d"):
+            batch = to_device(batch, dev)
         want = (shape.global_batch, shape.seq_len)
         if trunk_shape(batch) != want:
             raise ValueError(f"trunk sequence {trunk_shape(batch)}, want {want} ({shape.name})")
@@ -487,13 +495,15 @@ def make_train_step(
             # examples only (an FSDP shard is cut off dim 0, the period dim
             # the rescale runs along)
             grads = rescale_skipped_grads(grads, ctx.keep, cfg, ctx.example_weight)
-        if layout is not None and layout.sharded:  # each distinct slice counts once
-            grads, gnorm = clip_by_global_norm(grads, train.grad_clip, mesh.world_comm,
-                                               counted())
-        else:
-            grads, gnorm = clip_by_global_norm(grads, train.grad_clip)
-        lr = schedule(state.step)
-        params, opt = apply_update(state.params, grads, state.opt, lr, state.step, train)
+        with span("train.clip"):
+            if layout is not None and layout.sharded:  # each distinct slice counts once
+                grads, gnorm = clip_by_global_norm(grads, train.grad_clip, mesh.world_comm,
+                                                   counted())
+            else:
+                grads, gnorm = clip_by_global_norm(grads, train.grad_clip)
+        with span("train.optimizer"):
+            lr = schedule(state.step)
+            params, opt = apply_update(state.params, grads, state.opt, lr, state.step, train)
         new_state = TrainState(step=state.step + 1, params=params, opt=opt, proj=state.proj)
         return new_state, dict(metrics, grad_norm=gnorm, lr=lr)
 

@@ -29,7 +29,10 @@ Span names live in a *disjoint* namespace (``trainer.``, ``controller.``,
 docs-sync test can tell the two taxonomies apart.
 
 The port's copy of ``repro.obs.catalog``: the same code, with its imports renamed
-to ``repro_torch``.
+to ``repro_torch``, and the port's own spans inside a training step
+(``PORT_SPANS``), which the JAX package does not have: ``SPANS`` and
+``SPAN_SET`` stay the JAX package's, and the tracer accepts
+``TRACED_SPAN_SET``, both together.
 """
 from __future__ import annotations
 
@@ -286,3 +289,24 @@ SPANS: Tuple[str, ...] = (
 )
 
 SPAN_SET = frozenset(SPANS)
+
+# the port's spans inside a training step (``launch/steps.py``, the MeCeFO
+# core, the kernels' wrappers), read as device time by ``Tracer.step_ms``
+PORT_SPANS: Tuple[str, ...] = (
+    "train.step",                # one step of make_train_step: the root and id of the rest
+    "train.h2d",                 # the batch's copy to the device
+    "train.forward",             # forward_loss
+    "train.backward",            # torch.autograd.grad (adopts autograd's device thread)
+    "train.clip",                # clip_by_global_norm: global norm and scale
+    "train.optimizer",           # lr_schedule + apply_update (AdamW)
+    "mecefo.ffn",                # technique II's checkpointed FFN, forward and recompute
+    "mecefo.lowrank_wgrad",      # technique III: the projection (#6) and dW = V1 A
+    "attn.backward",             # FlashAttentionFn.backward (#2's recomputed plain attention)
+    "mecefo.v1_refresh",         # refresh_projections: V1 from an SVD a matrix
+)
+# a span opened on a thread with no open span (autograd's device thread)
+# takes the innermost open ``ADOPTING_SPANS`` span as its parent, if it is
+# one of ``ADOPTED_SPANS``
+ADOPTING_SPANS = frozenset({"train.backward"})
+ADOPTED_SPANS = frozenset({"mecefo.ffn", "mecefo.lowrank_wgrad", "attn.backward"})
+TRACED_SPAN_SET = SPAN_SET | frozenset(PORT_SPANS)

@@ -30,6 +30,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 from repro_torch import resolve_device
 from repro_torch.models import layers, moe
+from repro_torch.obs.catalog import TRACED_SPAN_SET
 from repro_torch.serve import run
 from repro_torch.serve.engine import EngineConfig, ServeEngine
 from repro_torch.serve.request import WorkloadSpec, build_workload
@@ -72,6 +73,15 @@ def _dev_us(e) -> float:
     return float(getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0)))
 
 
+def _kernels(events) -> list:
+    """A profile's CUDA kernels: its device entries without the mirrors of
+    the labelled parts and of the spans (``obs/spans.py``) on the device's
+    timeline (first kernel to last, gaps included), which are annotations,
+    not device work."""
+    return [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.key not in PARTS and e.key not in TRACED_SPAN_SET]
+
+
 def profile_serve(eng: ServeEngine, workload) -> dict:
     """Serve ``workload`` on ``eng`` under ``torch.profiler``; the device
     busy and idle shares, the top kernels, each port kernel's device time
@@ -84,10 +94,7 @@ def profile_serve(eng: ServeEngine, workload) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
-    # a labelled part also shows as a device-side span (first kernel to
-    # last, gaps included); kernels are the device events without a label
-    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.key not in PARTS]
+    kernels = _kernels(events)
     kernel_us = sum(_dev_us(e) for e in kernels)
     top = sorted(kernels, key=_dev_us, reverse=True)[:12]
 
